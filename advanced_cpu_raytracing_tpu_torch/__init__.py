@@ -9,8 +9,10 @@ so each module's counterpart is easy to find:
   - ``accel``   BVH build (numpy), used to order faces into coherent chunks
   - ``utils``   transforms (numpy) and batched 3-vector math (torch)
   - ``render``  camera rays, Gaussian multisampling, render_camera
-  - ``ops``     the Whitted megakernel: host tables, the plain torch version
-                and the CUDA kernel's wrapper (``csrc/mega_whitted.cu``)
+  - ``ops``     the megakernel: host tables, the plain torch version and
+                the wrapper of its CUDA variants (``csrc/mega_whitted.cu``
+                Whitted, ``csrc/mega_pt.cu`` path tracing and mesh lights);
+                ``rng.py`` its Philox4x32-10 draws
   - ``post``    Reinhard tonemapping and PNG/HDR writers
   - ``cli``     ``python -m advanced_cpu_raytracing_tpu_torch.cli.render``
 

@@ -18,7 +18,7 @@ import numpy as np
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="Whitted ray tracer (CUDA)")
+    parser = argparse.ArgumentParser(description="Whitted and path tracer (CUDA)")
     parser.add_argument("scene", help="XML scene file")
     parser.add_argument("--out-dir", default=".", help="output directory")
     parser.add_argument("--seed", type=int, default=0)

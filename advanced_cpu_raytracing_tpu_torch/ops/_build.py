@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, and loaded with
 ctypes.  Libraries go to ``build/kernels/`` beside the package (listed in
-``.gitignore``), named by a hash of the source and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  ``build_all`` runs one ``nvcc`` per source, all
+at once.
 """
 
 from __future__ import annotations
@@ -38,6 +40,14 @@ _SIGNATURES = {
                  _P, _I, ctypes.POINTER(ctypes.c_float), _I, _I, _I, _I, _P]),
         "mega_whitted_error_string": (ctypes.c_char_p, [_I]),
     },
+    "mega_pt": {
+        "mega_pt_launch": (
+            _I, [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
+                 _P, _I, ctypes.POINTER(ctypes.c_float), _P, _I, _P, _I,
+                 ctypes.POINTER(ctypes.c_int), _P, ctypes.c_uint32,
+                 ctypes.c_uint32, _P]),
+        "mega_pt_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 
@@ -52,26 +62,47 @@ def nvcc_path() -> str:
                        "CUDA toolkit's nvcc (PATH or /usr/local/cuda/bin)")
 
 
+def _library(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    blob = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names) -> dict:
+    """Compile each ``csrc/<name>.cu`` that has no up-to-date library, one
+    ``nvcc`` process per source, all started together.  Returns the library
+    paths by name."""
+    libs = {name: _library(name) for name in names}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, lib in libs.items():
+        if lib.exists():
+            BUILD_LOG[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{err}")
+            continue
+        os.replace(tmp, libs[name])
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                           "cached": False, "ptxas": err.strip()}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
-    t0 = time.perf_counter()
-    if lib.exists():
-        BUILD_LOG[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "cached": False,
-                       "ptxas": proc.stderr.strip()}
-    return lib
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,13 +1,16 @@
 """Image rendering: stratified multisampling with Gaussian
-reconstruction and per-camera orchestration through the Whitted megakernel.
+reconstruction and per-camera orchestration through the megakernel.
 
 Counterpart of the JAX package's ``render/renderer.py`` (its fused-kernel
 route): pixel coordinates come from an on-device arange, each of the
 n_cells^2 stratified samples is one kernel launch over every pixel, samples
 accumulate with the 2D Gaussian filter (sigma = 1/6 pixel,
 src/gaussian.h:3-21; weights on the jitter offsets, main.cpp:79-100), and
-the u8 clamp happens on the device.  Scenes outside the kernel's envelope
-raise ``NotImplementedError``: this slice has no wavefront integrator.
+the u8 clamp happens on the device.  Path-traced and mesh-lit scenes draw
+their randoms from Philox keyed by (seed, sample index), so a frame on the
+CPU and one on the card draw the same numbers.  Scenes outside the
+kernels' envelope raise ``NotImplementedError``: the port has no wavefront
+integrator yet.
 """
 
 from __future__ import annotations
@@ -35,16 +38,24 @@ from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
 
 @dataclass(frozen=True)
 class RenderOptions:
-    """The render settings of one camera that this slice reads (the JAX
-    package's RenderOptions also carries the path tracer's)."""
+    """The render settings of one camera (the JAX package's RenderOptions
+    without its wavefront and differentiable switches)."""
 
     path_tracing: bool = False
+    importance_sampling: bool = False
+    next_event_estimation: bool = False
+    russian_roulette: bool = False
     max_depth: int = 5
 
 
 def options_for_camera(cfg: SceneConfig, cam_cfg: CameraCfg) -> RenderOptions:
-    return RenderOptions(path_tracing=cam_cfg.renderer_params.path_tracing,
-                         max_depth=cfg.max_recursion_depth)
+    rp = cam_cfg.renderer_params
+    return RenderOptions(
+        path_tracing=rp.path_tracing,
+        importance_sampling=rp.importance_sampling,
+        next_event_estimation=rp.next_event_estimation,
+        russian_roulette=rp.russian_roulette,
+        max_depth=cfg.max_recursion_depth)
 
 
 def _gaussian_multisample(trace_fn, px, py, n_cells: int, jitter=None,
@@ -52,9 +63,10 @@ def _gaussian_multisample(trace_fn, px, py, n_cells: int, jitter=None,
     """n_cells^2 stratified samples per pixel, Gaussian weighted (sigma =
     1/6).  ``jitter`` (S, R, 2) in [0, 1) gives the in-cell offsets
     explicitly (tests feed the JAX package's draws); otherwise each sample
-    draws (R, 2) uniforms from ``generator``."""
+    draws (R, 2) uniforms from ``generator``.  ``trace_fn(px, py, s)`` gets
+    the sample index ``s``."""
     if n_cells <= 1:
-        return trace_fn(px, py)
+        return trace_fn(px, py, 0)
     r = px.shape[0]
     sigma = 1.0 / 6.0
     inv_2s2 = 1.0 / (2.0 * sigma * sigma)
@@ -69,7 +81,7 @@ def _gaussian_multisample(trace_fn, px, py, n_cells: int, jitter=None,
             psi = torch.rand((r, 2), generator=generator, device=px.device)
         sx = (col + psi[:, 0]) / n_cells
         sy = (row + psi[:, 1]) / n_cells
-        colr = trace_fn(px + sx, py + sy)
+        colr = trace_fn(px + sx, py + sy, s)
         dx = sx - 0.5
         dy = sy - 0.5
         wgt = c1 * torch.exp(-(dx * dx + dy * dy) * inv_2s2)
@@ -79,10 +91,13 @@ def _gaussian_multisample(trace_fn, px, py, n_cells: int, jitter=None,
 
 
 def _render_image_mega(mc, tri_tab, chunk_tab, cam, n_cells: int, w: int,
-                       h: int, as_ldr: bool, generator=None, jitter=None):
+                       h: int, as_ldr: bool, generator=None, jitter=None,
+                       seed: int = 0):
     """Whole image through the kernel: (w*h, 3) in scanline order, f32
     radiance or, with ``as_ldr``, the u8 clamp ((int)c clamped to [0,255],
-    src/helperMath.cpp:140-152) done on the device."""
+    src/helperMath.cpp:140-152) done on the device.  Sample ``s`` draws its
+    randoms from Philox keyed by (``seed``, ``s``) over the rays in launch
+    order (the tile order where tiles are used)."""
     dev = tri_tab.device
     # For divergent scenes, trace rays in 32x32 pixel tiles so that rays of
     # one deep object share thread blocks (analytic index arithmetic, no
@@ -104,14 +119,14 @@ def _render_image_mega(mc, tri_tab, chunk_tab, cam, n_cells: int, w: int,
         px = (idx % w).to(torch.float32)
         py = (idx // w).to(torch.float32)
 
-    def trace(px2, py2):
+    def trace(px2, py2, sample):
         lens = None
         if cam.use_dof:
             lens = torch.rand((px2.shape[0], 2), generator=generator,
                               device=dev) * 2.0 - 1.0
         o, d = generate_rays(cam, px2, py2, lens, dof=cam.use_dof)
         return mega_trace(mc, tri_tab, chunk_tab, o.contiguous(),
-                          d.contiguous())
+                          d.contiguous(), seed=seed, sample=sample)
 
     col = _gaussian_multisample(trace, px, py, n_cells, jitter=jitter,
                                 generator=generator)
@@ -150,7 +165,7 @@ def render_camera(pack: ScenePack, cfg: SceneConfig, cam_cfg: CameraCfg,
     missing = mega_missing(pack.static, opts)
     if missing:
         raise NotImplementedError(
-            "scene outside the Whitted megakernel's envelope: "
+            "scene outside the megakernel's envelope: "
             + ", ".join(missing))
     w, h = cam_cfg.width, cam_cfg.height
     spp = cam_cfg.num_samples if spp is None else spp
@@ -160,7 +175,8 @@ def render_camera(pack: ScenePack, cfg: SceneConfig, cam_cfg: CameraCfg,
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     img = _render_image_mega(mc, tri_tab, chunk_tab, cam, n_cells, w, h,
-                             ldr, generator=generator, jitter=jitter)
+                             ldr, generator=generator, jitter=jitter,
+                             seed=seed)
     return img.reshape(h, w, 3).cpu().numpy()
 
 

@@ -95,6 +95,26 @@ def demo_scene(tmp_path) -> str:
     return str(out)
 
 
+def pt_scene(tmp_path, res: int | None = None, params: str | None = None,
+             whitted: bool = False, name: str = "feat_pt.xml") -> str:
+    """``scenes/<name>`` (a path-traced Cornell box under an emissive
+    LightMesh) written to ``tmp_path``: optionally at ``res`` x ``res``,
+    with other ``<RendererParams>``, or with the path-tracing renderer
+    stripped (Whitted + LightMesh).  Returns the XML path."""
+    xml = (REPO / "scenes" / name).read_text()
+    if res is not None:
+        xml = re.sub(r"<ImageResolution>.*?</ImageResolution>",
+                     f"<ImageResolution>{res} {res}</ImageResolution>", xml)
+    if params is not None:
+        xml = re.sub(r"<RendererParams>.*?</RendererParams>",
+                     f"<RendererParams>{params}</RendererParams>", xml)
+    if whitted:
+        xml = re.sub(r"<Renderer>.*?</RendererParams>", "", xml, flags=re.S)
+    out = pathlib.Path(tmp_path) / name
+    out.write_text(xml)
+    return str(out)
+
+
 def test_committed_mesh_is_torus_mesh():
     assert SLICE_PLY.read_bytes() == ply_bytes(*torus_mesh(**FULL_TORUS))
 

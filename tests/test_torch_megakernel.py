@@ -78,7 +78,7 @@ def test_build_mega_tables_match_jax(scene):
             mc.spheres[i].numpy(),
             np.float32(list(s[0]) + list(s[1]) + list(s[2]) + [s[3], s[4]]))
     for i, m in enumerate(jmc.materials):
-        row = [m[0], *m[1], *m[2], *m[3], *m[4], m[5], m[6], m[7], *m[8], 0.0]
+        row = [m[0], *m[1], *m[2], *m[3], *m[4], m[5], m[6], m[7], *m[8], *m[9]]
         np.testing.assert_array_equal(mc.materials[i].numpy(), np.float32(row))
     np.testing.assert_array_equal(
         mc.point_lights.numpy(),
@@ -100,9 +100,9 @@ def test_mega_trace_ref_matches_jax_kernel(scene):
 def test_mega_trace_on_cpu_is_the_plain_version(scene):
     mc, tab, ctab = scene["tabs"]
     o, d = torch.as_tensor(scene["o"][:64]), torch.as_tensor(scene["d"][:64])
-    before = mk.mega_trace.launches
+    before = dict(mk.LAUNCHES)
     got = mk.mega_trace(mc, tab, ctab, o, d)
-    assert mk.mega_trace.launches == before  # no kernel launch on the CPU
+    assert mk.LAUNCHES == before  # no kernel launch on the CPU
     torch.testing.assert_close(got, mk.mega_trace_ref(mc, tab, ctab, o, d),
                                rtol=0, atol=0)
 
@@ -112,15 +112,26 @@ def test_mega_eligible_accepts_the_slice(scene):
     assert mk.mega_missing(scene["static"], scene["opts"]) == []
 
 
-def test_mega_eligible_rejects_path_tracing():
-    path = str(REPO / "scenes" / "feat_pt.xml")
-    cfg = load_scene(path)
+@pytest.mark.parametrize("name", ["feat_pt.xml", "feat_pt_rr.xml",
+                                  "feat_pt_spec.xml"])
+def test_mega_eligible_accepts_path_tracing(name):
+    cfg = load_scene(str(REPO / "scenes" / name))
+    pack = pack_scene(cfg, device="cpu")
+    opts = options_for_camera(cfg, cfg.cameras[0])
+    assert opts.path_tracing and opts.next_event_estimation
+    assert mk.mega_missing(pack.static, opts) == []
+    mc = mk.build_mega(pack, opts, device="cpu")[0]
+    assert mc.kernel == "mega_pt" and mc.n_draws == 6
+
+
+def test_mega_eligible_rejects_spot_and_area_lights():
+    cfg = load_scene(str(REPO / "scenes" / "feat_spotareaml.xml"))
     pack = pack_scene(cfg, device="cpu")
     opts = options_for_camera(cfg, cfg.cameras[0])
     missing = mk.mega_missing(pack.static, opts)
-    assert "path tracing" in missing and "mesh lights" in missing
+    assert "spot lights" in missing and "area lights" in missing
     assert not mk.mega_eligible(pack.static, opts)
-    with pytest.raises(NotImplementedError, match="path tracing"):
+    with pytest.raises(NotImplementedError, match="spot lights, area lights"):
         render_camera(pack, cfg, cfg.cameras[0], device="cpu")
 
 
