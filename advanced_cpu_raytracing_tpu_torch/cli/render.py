@@ -5,6 +5,9 @@ Matches the reference's main program (src/main.cpp:132-202): renders every
 camera in the scene; tonemapped cameras emit both ``<name>.hdr`` (raw
 radiance) and ``<name w/o ext>.png``; others emit the clamped LDR png;
 prints total wall-clock at the end.  Renders on the CUDA card unless ``--device cpu``.
+Any scene inside the megakernel's envelope (``ops/megakernel.py::
+mega_missing``): Whitted or path traced, with point, directional, spot,
+area and mesh lights, the pluggable BRDFs, roughness, motion blur and DoF.
 """
 
 from __future__ import annotations

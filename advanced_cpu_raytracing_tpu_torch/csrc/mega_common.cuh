@@ -1,14 +1,17 @@
 // mega_common.cuh — scene tables and ray queries shared by the megakernel
-// variants (mega_whitted.cu: K1a, mega_pt.cu: K1b).
+// variants (mega_whitted.cu: K1a, mega_pt.cu: K1b and K1c).
 //
 // The closest hit over BVH-ordered 128-face triangle chunks behind AABB
 // slab culls plus analytic spheres, and the shadow query, of the TPU kernel
 // advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py::_kernel (tri_hit,
 // sphere_hit, chunk_sweep, trace, shadow: lines 1362-1747).  The table
 // layouts are those of ops/megakernel.py (TRI_COLS, SPH_COLS, MAT_COLS,
-// LIGHT_COLS).  The lanes of a warp sweep a chunk together, so a face row is
-// one broadcast load through the read-only path, and a 98,304-face table
-// (6 MB) stays in the 50 MB L2.
+// LIGHT_COLS, MOTION_COLS).  The lanes of a warp sweep a chunk together, so
+// a face row is one broadcast load through the read-only path, and a
+// 98,304-face table (6 MB) stays in the 50 MB L2.  The queries take the
+// scene's motion as a type: NoMotion (K1a, K1b) compiles to the static
+// scene's code, Motion (K1c) moves each test's ray origin by +motion * tau
+// before the test, as the TPU kernel does (lines 1379-1382, 1421-1425).
 
 #pragma once
 
@@ -96,6 +99,36 @@ __device__ __forceinline__ float powmax(float base, float e) {
   return pos ? val : (e == 0.0f ? 1.0f : 0.0f);
 }
 
+// A static scene.
+struct NoMotion {
+  static constexpr bool kOn = false;
+};
+
+// A scene with motion blur: per-face world motion (n_tri, 3) and per-sphere
+// object-space motion (n_sph, 3) at the ray's time tau; a table is null
+// when none of its faces (spheres) moves, and its tests then skip the move.
+struct Motion {
+  static constexpr bool kOn = true;
+  const float* tri;
+  const float* sph;
+  float tau;
+};
+
+// The origin of the test of face f: moved by +motion * tau (mesh.cpp:
+// 167-170), the same as sweeping the face by -motion.
+template <class M>
+__device__ __forceinline__ void move_to_face(const M& mo, int f, float& px,
+                                             float& py, float& pz) {
+  if constexpr (M::kOn) {
+    if (mo.tri != nullptr) {
+      const float* m = mo.tri + 3 * f;
+      px = px + __ldg(m) * mo.tau;
+      py = py + __ldg(m + 1) * mo.tau;
+      pz = pz + __ldg(m + 2) * mo.tau;
+    }
+  }
+}
+
 // Cramer's rule (Mesh::IntersectFace, src/mesh.cpp:201-236) for the face
 // row r.  True when the ray hits it at 0 < t < t_max.  The barycentrics are
 // computed only once t passes, which changes no value.
@@ -127,15 +160,36 @@ __device__ __forceinline__ bool tri_hit(const float* r, float px, float py,
   return beta >= 0.0f && gamma >= 0.0f && beta + gamma <= 1.0f;
 }
 
+// tri_hit of face f (row r) at the origin that the motion gives it
+template <class M>
+__device__ __forceinline__ bool tri_hit_m(const M& mo, int f, const float* r,
+                                          float px, float py, float pz,
+                                          float vx, float vy, float vz,
+                                          float t_max, float& t) {
+  move_to_face(mo, f, px, py, pz);
+  return tri_hit(r, px, py, pz, vx, vy, vz, t_max, t);
+}
+
 // Sphere::Intersect (src/sphere.cpp:31-72): the ray in object space, then
 // the quadratic.  The unnormalised world normal (M^-T applied to the local
-// hit minus the center) goes to nw* when asked for.
+// hit minus the center) goes to nw* when asked for.  With motion, sphere
+// si's local origin moves by +motion * tau.
+template <class M = NoMotion>
 __device__ __forceinline__ bool sphere_hit(const float* s, float px, float py,
                                            float pz, float vx, float vy,
-                                           float vz, float& t, float* nw) {
-  const float olx = s[0] * px + s[1] * py + s[2] * pz + s[3];
-  const float oly = s[4] * px + s[5] * py + s[6] * pz + s[7];
-  const float olz = s[8] * px + s[9] * py + s[10] * pz + s[11];
+                                           float vz, float& t, float* nw,
+                                           const M& mo = M(), int si = 0) {
+  float olx = s[0] * px + s[1] * py + s[2] * pz + s[3];
+  float oly = s[4] * px + s[5] * py + s[6] * pz + s[7];
+  float olz = s[8] * px + s[9] * py + s[10] * pz + s[11];
+  if constexpr (M::kOn) {
+    if (mo.sph != nullptr) {
+      const float* m = mo.sph + 3 * si;
+      olx = olx + m[0] * mo.tau;
+      oly = oly + m[1] * mo.tau;
+      olz = olz + m[2] * mo.tau;
+    }
+  }
   const float dlx = s[0] * vx + s[1] * vy + s[2] * vz;
   const float dly = s[4] * vx + s[5] * vy + s[6] * vz;
   const float dlz = s[8] * vx + s[9] * vy + s[10] * vz;
@@ -191,16 +245,19 @@ struct Hit {
 // Closest hit: faces in table order, then spheres in index order, each with
 // the strict t < t_best test, so a tie keeps the earlier face.  With
 // kMeshLight the winner's mesh-light id comes along; a sphere resets it.
-template <bool kMeshLight>
+// The chunk culls test the unmoved origin against boxes swept over the
+// motion.
+template <bool kMeshLight, class M = NoMotion>
 __device__ Hit trace(const Params& P, float px, float py, float pz, float vx,
-                     float vy, float vz) {
+                     float vy, float vz, const M& mo = M()) {
   float tb = BIG;
   int best = -1;
   if (P.n_tri > 0) {
     if (P.n_chunks <= 1) {
       for (int f = 0; f < P.n_tri; ++f) {
         float t;
-        if (tri_hit(P.tri + f * TRI_COLS, px, py, pz, vx, vy, vz, tb, t)) {
+        if (tri_hit_m(mo, f, P.tri + f * TRI_COLS, px, py, pz, vx, vy, vz,
+                      tb, t)) {
           tb = t;
           best = f;
         }
@@ -212,7 +269,8 @@ __device__ Hit trace(const Params& P, float px, float py, float pz, float vx,
         const int hi = min(ci * CHUNK + CHUNK, P.n_tri);
         for (int f = ci * CHUNK; f < hi; ++f) {
           float t;
-          if (tri_hit(P.tri + f * TRI_COLS, px, py, pz, vx, vy, vz, tb, t)) {
+          if (tri_hit_m(mo, f, P.tri + f * TRI_COLS, px, py, pz, vx, vy, vz,
+                        tb, t)) {
             tb = t;
             best = f;
           }
@@ -237,7 +295,7 @@ __device__ Hit trace(const Params& P, float px, float py, float pz, float vx,
   for (int s = 0; s < P.n_sph; ++s) {
     const float* row = P.sph + s * SPH_COLS;
     float t, nw[3];
-    if (sphere_hit(row, px, py, pz, vx, vy, vz, t, nw) && t < tb) {
+    if (sphere_hit(row, px, py, pz, vx, vy, vz, t, nw, mo, s) && t < tb) {
       tb = t;
       h.nx = nw[0];
       h.ny = nw[1];
@@ -256,15 +314,16 @@ __device__ Hit trace(const Params& P, float px, float py, float pz, float vx,
 // src/raytracer.cpp:567-583); returns at the first blocker.  With
 // kSkipEmissive, emissive faces cast no shadow (CastShadowRay,
 // raytracer.cpp:590-593).
-template <bool kSkipEmissive>
+template <bool kSkipEmissive, class M = NoMotion>
 __device__ bool shadow(const Params& P, float px, float py, float pz,
-                       float vx, float vy, float vz, float limit) {
+                       float vx, float vy, float vz, float limit,
+                       const M& mo = M()) {
   if (P.n_tri > 0) {
     float t;
     if (P.n_chunks <= 1) {
       for (int f = 0; f < P.n_tri; ++f) {
         const float* r = P.tri + f * TRI_COLS;
-        if (tri_hit(r, px, py, pz, vx, vy, vz, limit, t) &&
+        if (tri_hit_m(mo, f, r, px, py, pz, vx, vy, vz, limit, t) &&
             !(kSkipEmissive && __ldg(r + 14) >= 0.5f))
           return true;
       }
@@ -276,7 +335,7 @@ __device__ bool shadow(const Params& P, float px, float py, float pz,
         const int hi = min(ci * CHUNK + CHUNK, P.n_tri);
         for (int f = ci * CHUNK; f < hi; ++f) {
           const float* r = P.tri + f * TRI_COLS;
-          if (tri_hit(r, px, py, pz, vx, vy, vz, limit, t) &&
+          if (tri_hit_m(mo, f, r, px, py, pz, vx, vy, vz, limit, t) &&
               !(kSkipEmissive && __ldg(r + 14) >= 0.5f))
             return true;
         }
@@ -285,8 +344,8 @@ __device__ bool shadow(const Params& P, float px, float py, float pz,
   }
   for (int s = 0; s < P.n_sph; ++s) {
     float t;
-    if (sphere_hit(P.sph + s * SPH_COLS, px, py, pz, vx, vy, vz, t, nullptr)
-        && t < limit)
+    if (sphere_hit(P.sph + s * SPH_COLS, px, py, pz, vx, vy, vz, t, nullptr,
+                   mo, s) && t < limit)
       return true;
   }
   return false;

@@ -1,4 +1,6 @@
-// mega_pt.cu — the path-tracing megakernel (K1b) for NVIDIA Hopper (sm_90a).
+// mega_pt.cu — the path-tracing megakernel (K1b) and its extension with
+// spot and area lights, BRDFs, roughness and motion blur (K1c) for NVIDIA
+// Hopper (sm_90a).
 //
 // Replaces the path-tracing part of the TPU kernel
 // advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py::_kernel (lines
@@ -12,6 +14,21 @@
 // children, and the GI child as the continuation or, where a specular chain
 // continues, pushed after the refraction leg.  The plain version beside it
 // is ops/megakernel.py::mega_trace_ref.
+//
+// K1c (mega_ext_kernel, and mega_ext_motion_kernel for scenes with motion
+// blur) is the same shading tree, instantiated with the extension tables
+// (ExtParams): spot lights (spotLight.h:33-57, cone tests
+// in cosine space) and area lights (areaLight.h:34-41, one uniform point on
+// the square) after the directional lights, the pluggable BRDFs
+// (raytracer.cpp:192-206, brdf*.cpp) switched on each material's kind for
+// every light and the GI weight, glossy roughness (raytracer.cpp:424-440)
+// on the mirror, conductor and both dielectric legs, and motion blur: one
+// time per primary ray, drawn at iteration 0 from the last slot, moving
+// every ray query of its tree (megakernel.py:1379-1382, 1421-1425,
+// 1776-1779, 2145-2304, 2410-2562).  Lights are loops over device tables,
+// so any number of spot and area lights works (the TPU kernel unrolls at
+// most 4 of each).  K1b is the instantiation with NoExt, whose code is that
+// of the static scene; mega_pt_launch picks the instantiation.
 //
 // Design.  As K1a (mega_whitted.cu), whose scene tables and ray queries it
 // shares through mega_common.cuh: one thread per ray, 128 threads per
@@ -29,7 +46,10 @@
 // and sphere tests of the traced, GI and shadow rays; 36 bytes of rays in
 // and out per ray.  Built with -fmad=false and IEEE division and sqrtf, it
 // computes the plain version's expressions in their order; libdevice's
-// expf/logf/sinf/cosf may round otherwise in the last bit.
+// expf/logf/sinf/cosf may round otherwise in the last bit.  K1c adds the
+// shadow rays of its spot and area lights and 6 FP32 operations per test
+// of a moving face or sphere; the BRDF constants that the JAX kernel folds in double
+// precision come folded from the host (ops/megakernel.py, MATX_COLS).
 
 #include "mega_common.cuh"
 
@@ -41,8 +61,20 @@ constexpr int MAX_K = 40;
 constexpr int ML_FACE_COLS = 10;   // corners v0 v1 v2, area weight
 constexpr int ML_LIGHT_COLS = 5;   // radiance 3, first face, face count
 constexpr int FLAG_PT = 8, FLAG_IMPORTANCE = 16, FLAG_NEE = 32, FLAG_RR = 64,
-              FLAG_EMISSIVE = 128;
+              FLAG_EMISSIVE = 128, FLAG_ROUGH = 256, FLAG_MOTION = 512;
 constexpr float TWO_PI = 6.283185307179586f;
+constexpr float PI_F = 3.141592653589793f;
+constexpr float INV_PI = 0.3183098861837907f;  // 1/pi rounded once
+constexpr int SPOT_COLS = 12;  // pos 3, dir 3, intensity 3, cos(cov/2),
+                               // cos(fall/2), falloff denominator
+constexpr int AREA_COLS = 17;  // pos 3, normal 3, radiance 3, extent, area,
+                               // u 3, v 3
+constexpr int MATX_COLS = 11;  // roughness, BRDF kind, exponent, normalized,
+                               // kdfresnel, lobe factor, diffuse term 3,
+                               // r0, 1 - r0
+constexpr int BRDF_PHONG = 0, BRDF_MODIFIED_PHONG = 1, BRDF_BLINN_PHONG = 2,
+              BRDF_MODIFIED_BLINN_PHONG = 3;  // 4: Torrance-Sparrow
+constexpr float ROUGH_MIN = 0.001f;
 
 struct PtParams {
   Params g;
@@ -53,6 +85,24 @@ struct PtParams {
   const float* draws;  // (max_iters * n_draws, n) or null: Philox
   int n, n_draws, rr_floor;
   unsigned seed, sample;
+};
+
+// K1b: no extension tables
+struct NoExt {
+  static constexpr bool kOn = false;
+};
+
+// K1c: spot and area lights, material extras, motion.  Passed by pointer
+// to mega_pt_launch (null for K1b); ops/megakernel.py mirrors the layout.
+struct ExtParams {
+  static constexpr bool kOn = true;
+  const float* sl;  // spot lights (n_spot, SPOT_COLS)
+  int n_spot;
+  const float* al;  // area lights (n_area, AREA_COLS)
+  int n_area;
+  const float* mx;   // material extras (n_mat, MATX_COLS)
+  const float* tmo;  // per-face world motion (n_tri, 3), null if none moves
+  const float* smo;  // per-sphere object-space motion (n_sph, 3), or null
 };
 
 // Philox4x32-10 (Random123): counter c, key (k0, k1)
@@ -125,8 +175,159 @@ __device__ __forceinline__ void shade_unit(const float* m, float nx, float ny,
   vz = m[6] * cos_t + m[9] * spec;
 }
 
-// The whole shading tree of ray i; radiance to out[3i:3i+3].
-__device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
+// A pluggable BRDF's value times cos+, gated to the front side, with unit
+// irradiance (megakernel.py:2159-2221) for material row m with extras mx
+// (kind mx[1] >= 0).
+__device__ __forceinline__ void brdf_unit(const float* m, const float* mx,
+                                          float nx, float ny, float nz,
+                                          float wox, float woy, float woz,
+                                          float wix, float wiy, float wiz,
+                                          float& vx, float& vy, float& vz) {
+  const int kind = static_cast<int>(mx[1]);
+  const float e = mx[2];
+  float hx = wix + wox, hy = wiy + woy, hz = wiz + woz;
+  norm3(hx, hy, hz);
+  const float ndwi = wix * nx + wiy * ny + wiz * nz;
+  const float cos_ic = fminf(fmaxf(ndwi, -1.0f), 1.0f);
+  const bool front = cos_ic > 0.0f;
+  const float cos_pos = fmaxf(cos_ic, 0.0f);
+  const float cos_den = fmaxf(cos_ic, 1e-20f);
+  const float cos_hc = fminf(fmaxf(hx * nx + hy * ny + hz * nz, -1.0f), 1.0f);
+  float dr = mx[6], dg = mx[7], db = mx[8];
+  float lobe;
+  if (kind == BRDF_PHONG || kind == BRDF_MODIFIED_PHONG) {
+    // lobe around the mirror direction of w_i
+    float rlx = 2.0f * nx * ndwi - wix;
+    float rly = 2.0f * ny * ndwi - wiy;
+    float rlz = 2.0f * nz * ndwi - wiz;
+    norm3(rlx, rly, rlz);
+    const float cos_r =
+        fminf(fmaxf(rlx * wox + rly * woy + rlz * woz, -1.0f), 1.0f);
+    const float pw = powmax(cos_r, e);
+    lobe = kind == BRDF_PHONG ? pw / cos_den : mx[5] * pw;
+  } else if (kind == BRDF_BLINN_PHONG) {
+    lobe = powmax(cos_hc, e) / cos_den;
+  } else if (kind == BRDF_MODIFIED_BLINN_PHONG) {
+    lobe = mx[5] * powmax(cos_hc, e);
+  } else {  // Torrance-Sparrow (brdfTorranceSparrow.cpp:15-66)
+    const float d_t = mx[5] * powmax(cos_hc, e);
+    const float hdwo = hx * wox + hy * woy + hz * woz;
+    const float om = fmaxf(1.0f - hdwo, 0.0f);
+    const float f_t = mx[9] + mx[10] * om * om * om * om * om;
+    const float ndwo = nx * wox + ny * woy + nz * woz;
+    const float wodh = hdwo == 0.0f ? 1e-20f : hdwo;
+    const float g_t = fminf(1.0f, fminf(2.0f * cos_hc * ndwo / wodh,
+                                        2.0f * cos_hc * ndwi / wodh));
+    const float kd_c = mx[4] > 0.5f ? (1.0f - f_t) / PI_F : INV_PI;
+    const float nn = ndwi * ndwo;
+    const float den = 4.0f * (nn == 0.0f ? 1e-20f : nn);
+    lobe = d_t * f_t * g_t / den;
+    dr = dr * kd_c;
+    dg = dg * kd_c;
+    db = db * kd_c;
+  }
+  vx = (front ? dr + m[7] * lobe : 0.0f) * cos_pos;
+  vy = (front ? dg + m[8] * lobe : 0.0f) * cos_pos;
+  vz = (front ? db + m[9] * lobe : 0.0f) * cos_pos;
+}
+
+// The material's BRDF where it has one (K1c), else shade_unit
+template <class Ext>
+__device__ __forceinline__ void shade(const float* m, const float* mx,
+                                      float nx, float ny, float nz, float wox,
+                                      float woy, float woz, float wix,
+                                      float wiy, float wiz, float& vx,
+                                      float& vy, float& vz) {
+  if constexpr (Ext::kOn) {
+    if (mx[1] >= 0.0f) {
+      brdf_unit(m, mx, nx, ny, nz, wox, woy, woz, wix, wiy, wiz, vx, vy, vz);
+      return;
+    }
+  }
+  shade_unit(m, nx, ny, nz, wox, woy, woz, wix, wiy, wiz, vx, vy, vz);
+}
+
+// Glossy perturbation (Raytracer::Reflect, raytracer.cpp:424-440): a
+// becomes unit(a + (u p1 + v p2) roughness), (u, v) the basis around
+// unit(a), where the material is rough, else unit(a).
+__device__ __forceinline__ void perturb(float& ax, float& ay, float& az,
+                                        float p1, float p2, float rough) {
+  float bx = ax, by = ay, bz = az;
+  norm3(bx, by, bz);
+  if (rough > ROUGH_MIN) {
+    float ux, uy, uz, vx, vy, vz;
+    onb(bx, by, bz, ux, uy, uz, vx, vy, vz);
+    bx = ax + (ux * p1 + vx * p2) * rough;
+    by = ay + (uy * p1 + vy * p2) * rough;
+    bz = az + (uz * p1 + vz * p2) * rough;
+    norm3(bx, by, bz);
+  }
+  ax = bx;
+  ay = by;
+  az = bz;
+}
+
+// Spot light l < n_spot (spotLight.h:33-57; the falloff ((cos a -
+// cos(cov/2)) / (cos(fall/2) - cos(cov/2)))^4 in cosine space) or area
+// light l - n_spot (areaLight.h:34-41; one uniform point on the square,
+// area |n.w| / d^2): direction, distance and irradiance at p.
+template <class Ext>
+__device__ __forceinline__ void ext_light(const PtParams& Q, const Ext& E,
+                                          int i, int it, int l, float px,
+                                          float py, float pz, float& wix,
+                                          float& wiy, float& wiz,
+                                          float& limit, float& ir, float& ig,
+                                          float& ib) {
+  if constexpr (Ext::kOn) {
+    float tlx, tly, tlz;
+    const float* L = E.sl;
+    const float* A = E.al;
+    if (l < E.n_spot) {
+      L = E.sl + l * SPOT_COLS;
+      tlx = L[0] - px;
+      tly = L[1] - py;
+      tlz = L[2] - pz;
+    } else {
+      const int a = l - E.n_spot;
+      A = E.al + a * AREA_COLS;
+      const int slot = 3 + 3 * Q.n_ml + 2 * a;
+      const float o1 = rnd(Q, i, it, slot) - 0.5f;
+      const float o2 = rnd(Q, i, it, slot + 1) - 0.5f;
+      const float ext = A[9];
+      tlx = A[0] + A[11] * (ext * o1) + A[14] * (ext * o2) - px;
+      tly = A[1] + A[12] * (ext * o1) + A[15] * (ext * o2) - py;
+      tlz = A[2] + A[13] * (ext * o1) + A[16] * (ext * o2) - pz;
+    }
+    const float d2 = fmaxf(tlx * tlx + tly * tly + tlz * tlz, 1e-20f);
+    limit = sqrtf(d2);
+    const float inv = 1.0f / limit;
+    wix = tlx * inv;
+    wiy = tly * inv;
+    wiz = tlz * inv;
+    if (l < E.n_spot) {
+      const float cos_a =
+          fminf(fmaxf(-(L[3] * wix + L[4] * wiy + L[5] * wiz), -1.0f), 1.0f);
+      const float irr = 1.0f / d2;
+      const float frac = fmaxf((cos_a - L[9]) / L[11], 0.0f);
+      float scale = cos_a < L[10] ? frac * frac * frac * frac : 1.0f;
+      if (cos_a >= 1.0f || cos_a < L[9]) scale = 0.0f;
+      ir = L[6] * irr * scale;
+      ig = L[7] * irr * scale;
+      ib = L[8] * irr * scale;
+    } else {
+      const float irr = A[10] * fabsf(A[3] * wix + A[4] * wiy + A[5] * wiz) / d2;
+      ir = A[6] * irr;
+      ig = A[7] * irr;
+      ib = A[8] * irr;
+    }
+  }
+}
+
+// The whole shading tree of ray i; radiance to out[3i:3i+3].  M is the
+// scene's motion (Motion only with ExtParams).
+template <class Ext, class M = NoMotion>
+__device__ void shade_pt(const PtParams& Q, const Ext& E,
+                         const float* __restrict__ o,
                          const float* __restrict__ d,
                          float* __restrict__ out, int i) {
   const Params& P = Q.g;
@@ -153,9 +354,22 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
   int sdep[MAX_K];
   int sp = 0;
   bool act = true;
+  // K1c: the scene at this ray's time, drawn once (megakernel.py:1776-1779)
+  M mo{};
+  if constexpr (M::kOn) {
+    mo.tri = E.tmo;
+    mo.sph = E.smo;
+    mo.tau = rnd(Q, i, 0, Q.n_draws - 1);
+  }
+  int n_sa = 0;  // spot and area lights
+  int base_rough = 0;
+  if constexpr (Ext::kOn) {
+    n_sa = E.n_spot + E.n_area;
+    base_rough = 3 + 3 * Q.n_ml + 2 * E.n_area;
+  }
 
   for (int it = 0; act && it < P.max_iters; ++it) {
-    const Hit h = trace<true>(P, cox, coy, coz, cdx, cdy, cdz);
+    const Hit h = trace<true>(P, cox, coy, coz, cdx, cdy, cdz, mo);
     const float t_safe = h.hit ? h.t : 0.0f;
     if (diel) {  // Beer attenuation of this segment (raytracer.cpp:416-423)
       cwx = cwx * expf(-cax * t_safe);
@@ -173,6 +387,8 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
     const float wox = -cdx, woy = -cdy, woz = -cdz;
     const float nx = h.nx, ny = h.ny, nz = h.nz;
     const float* m = P.mat + h.mat * MAT_COLS;
+    const float* mx = nullptr;
+    if constexpr (Ext::kOn) mx = E.mx + h.mat * MATX_COLS;
     const int type = static_cast<int>(m[0]);
     const bool inside = diel && cmed > 1.00001f;
 
@@ -225,7 +441,7 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
         gox = px + nx * 1e-4f;
         goy = py + ny * 1e-4f;
         goz = pz + nz * 1e-4f;
-        const Hit g = trace<true>(P, gox, goy, goz, gdx, gdy, gdz);
+        const Hit g = trace<true>(P, gox, goy, goz, gdx, gdy, gdz, mo);
         g_hit = g.hit;
         if (g_hit && g.ml >= 0) skip_ml = g.ml;
       }
@@ -239,7 +455,7 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
       }
       const float sox = px + nx * eps, soy = py + ny * eps,
                   soz = pz + nz * eps;
-      const int n_lights = P.n_point + P.n_dir + Q.n_ml;
+      const int n_lights = P.n_point + P.n_dir + n_sa + Q.n_ml;
       for (int l = 0; l < n_lights; ++l) {
         float wix, wiy, wiz, limit, ir, ig, ib;
         if (l < P.n_point) {
@@ -263,10 +479,13 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
           ir = L[3];
           ig = L[4];
           ib = L[5];
+        } else if (Ext::kOn && l < P.n_point + P.n_dir + n_sa) {
+          ext_light(Q, E, i, it, l - P.n_point - P.n_dir, px, py, pz, wix, wiy,
+                    wiz, limit, ir, ig, ib);
         } else {
           // mesh light: a face picked uniformly, a sqrt-warped barycentric
           // point, irradiance = radiance * faceArea/surfaceArea * 2pi
-          const int ml = l - P.n_point - P.n_dir;
+          const int ml = l - P.n_point - P.n_dir - n_sa;
           if (ml == skip_ml) continue;
           const float* L = Q.mll + ml * ML_LIGHT_COLS;
           const int first = static_cast<int>(L[3]);
@@ -295,9 +514,9 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
           ig = L[1] * wgt * TWO_PI;
           ib = L[2] * wgt * TWO_PI;
         }
-        if (shadow<true>(P, sox, soy, soz, wix, wiy, wiz, limit)) continue;
+        if (shadow<true>(P, sox, soy, soz, wix, wiy, wiz, limit, mo)) continue;
         float vx, vy, vz;
-        shade_unit(m, nx, ny, nz, wox, woy, woz, wix, wiy, wiz, vx, vy, vz);
+        shade<Ext>(m, mx, nx, ny, nz, wox, woy, woz, wix, wiy, wiz, vx, vy, vz);
         lr += cwx * ir * vx;
         lg += cwy * ig * vy;
         lb += cwz * ib * vz;
@@ -314,7 +533,7 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
     float giwx = 0.0f, giwy = 0.0f, giwz = 0.0f;
     if (g_hit) {  // weight Shade(w_i = gi, unit Li) * 2pi * rr_scale
       float vx, vy, vz;
-      shade_unit(m, nx, ny, nz, wox, woy, woz, gdx, gdy, gdz, vx, vy, vz);
+      shade<Ext>(m, mx, nx, ny, nz, wox, woy, woz, gdx, gdy, gdz, vx, vy, vz);
       const float fac = TWO_PI * rr_scale;
       giwx = cwx * vx * fac;
       giwy = cwy * vy * fac;
@@ -340,6 +559,11 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
         float ry = 2.0f * ny * ndotwo - woy;
         float rz = 2.0f * nz * ndotwo - woz;
         norm3(rx, ry, rz);
+        if constexpr (Ext::kOn) {
+          if (P.flags & FLAG_ROUGH)
+            perturb(rx, ry, rz, rnd(Q, i, it, base_rough) - 0.5f,
+                    rnd(Q, i, it, base_rough + 1) - 0.5f, mx[0]);
+        }
         float f = 1.0f;
         bool go = true;
         if (type == MAT_CONDUCTOR) {  // conductor Fresnel (208-254)
@@ -387,6 +611,11 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
         float rdy = 2.0f * nmy * ndw - woy;
         float rdz = 2.0f * nmz * ndw - woz;
         norm3(rdx, rdy, rdz);
+        if constexpr (Ext::kOn) {  // the same psi pair as the mirror's
+          if (P.flags & FLAG_ROUGH)
+            perturb(rdx, rdy, rdz, rnd(Q, i, it, base_rough) - 0.5f,
+                    rnd(Q, i, it, base_rough + 1) - 0.5f, mx[0]);
+        }
         new_act = true;
         nox = px + nmx * eps;
         noy = py + nmy * eps;
@@ -422,7 +651,15 @@ __device__ void shade_pt(const PtParams& Q, const float* __restrict__ o,
             float fdx = (cdx + nmx * cos_i) * ratio_n - nmx * cos_p;
             float fdy = (cdy + nmy * cos_i) * ratio_n - nmy * cos_p;
             float fdz = (cdz + nmz * cos_i) * ratio_n - nmz * cos_p;
-            norm3(fdx, fdy, fdz);
+            if constexpr (Ext::kOn) {
+              if (P.flags & FLAG_ROUGH)  // perturbed on the raw vector
+                perturb(fdx, fdy, fdz, rnd(Q, i, it, base_rough + 2) - 0.5f,
+                        rnd(Q, i, it, base_rough + 3) - 0.5f, mx[0]);
+              else
+                norm3(fdx, fdy, fdz);
+            } else {
+              norm3(fdx, fdy, fdz);
+            }
             const bool fin = n2 > 1.001f;
             float* e = stk[sp];
             e[0] = px - nmx * eps;
@@ -531,21 +768,33 @@ __global__ void __launch_bounds__(THREADS)
 mega_pt_kernel(PtParams Q, const float* __restrict__ o,
                const float* __restrict__ d, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < Q.n) shade_pt(Q, o, d, out, i);
+  if (i < Q.n) shade_pt(Q, NoExt(), o, d, out, i);
 }
 
-}  // namespace mp
+// K1c on a static scene
+__global__ void __launch_bounds__(THREADS)
+mega_ext_kernel(PtParams Q, ExtParams E, const float* __restrict__ o,
+                const float* __restrict__ d, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Q.n) shade_pt(Q, E, o, d, out, i);
+}
+
+// K1c on a scene with motion blur
+__global__ void __launch_bounds__(THREADS)
+mega_ext_motion_kernel(PtParams Q, ExtParams E, const float* __restrict__ o,
+                       const float* __restrict__ d, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Q.n) shade_pt<ExtParams, Motion>(Q, E, o, d, out, i);
+}
 
 // ints: max_depth, stack_k, max_iters, flags, n_draws, rr_floor
-extern "C" int mega_pt_launch(
-    const float* o, const float* d, float* out, int n, const float* tri,
-    int n_tri, const float* chunk, int n_chunks, const float* sph, int n_sph,
-    const float* mat, int n_mat, const float* pl, int n_point,
-    const float* dl, int n_dir, const float* consts, const float* mlf,
-    int n_mlf, const float* mll, int n_ml, const int* ints,
-    const float* draws, unsigned seed, unsigned sample, void* stream) {
-  if (ints[1] > mp::MAX_K || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  mp::PtParams Q;
+inline PtParams make_pt_params(
+    int n, const float* tri, int n_tri, const float* chunk, int n_chunks,
+    const float* sph, int n_sph, const float* mat, int n_mat, const float* pl,
+    int n_point, const float* dl, int n_dir, const float* consts,
+    const float* mlf, int n_mlf, const float* mll, int n_ml, const int* ints,
+    const float* draws, unsigned seed, unsigned sample) {
+  PtParams Q;
   Q.g = mw::make_params(tri, n_tri, chunk, n_chunks, sph, n_sph, mat, n_mat,
                         pl, n_point, dl, n_dir, consts, ints[0], ints[1],
                         ints[2], ints[3]);
@@ -559,9 +808,35 @@ extern "C" int mega_pt_launch(
   Q.rr_floor = ints[5];
   Q.seed = seed;
   Q.sample = sample;
+  return Q;
+}
+
+}  // namespace mp
+
+// ints: max_depth, stack_k, max_iters, flags, n_draws, rr_floor.  ext null:
+// K1b; else K1c with those tables, its motion instantiation when the flags
+// say the scene has motion.
+extern "C" int mega_pt_launch(
+    const float* o, const float* d, float* out, int n, const float* tri,
+    int n_tri, const float* chunk, int n_chunks, const float* sph, int n_sph,
+    const float* mat, int n_mat, const float* pl, int n_point,
+    const float* dl, int n_dir, const float* consts, const float* mlf,
+    int n_mlf, const float* mll, int n_ml, const int* ints,
+    const float* draws, unsigned seed, unsigned sample,
+    const mp::ExtParams* ext, void* stream) {
+  if (ints[1] > mp::MAX_K || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const mp::PtParams Q = mp::make_pt_params(
+      n, tri, n_tri, chunk, n_chunks, sph, n_sph, mat, n_mat, pl, n_point, dl,
+      n_dir, consts, mlf, n_mlf, mll, n_ml, ints, draws, seed, sample);
   const int blocks = (n + mw::THREADS - 1) / mw::THREADS;
-  mp::mega_pt_kernel<<<blocks, mw::THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(Q, o, d, out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ext == nullptr)
+    mp::mega_pt_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, o, d, out);
+  else if (ints[3] & mp::FLAG_MOTION)
+    mp::mega_ext_motion_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, o, d,
+                                                               out);
+  else
+    mp::mega_ext_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, o, d, out);
   return static_cast<int>(cudaGetLastError());
 }
 

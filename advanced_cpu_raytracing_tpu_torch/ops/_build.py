@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for
 ctypes.  Libraries go to ``build/kernels/`` beside the package (listed in
 ``.gitignore``), named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  ``build_all`` runs one ``nvcc`` per source, all
-at once.
+unchanged one is reused; ptxas's report (registers, stack frame, spills
+per kernel) is kept beside each library as ``.ptxas``.  ``build_all`` runs
+one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -29,10 +30,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LIBS: dict = {}
-BUILD_LOG: dict = {}  # name -> {"seconds", "cached", "ptxas"} of the last load
+BUILD_LOG: dict = {}  # name -> {"seconds", "cached", "ptxas"} of the last build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+class ExtParams(ctypes.Structure):
+    """K1c's extension tables: ``mp::ExtParams`` of csrc/mega_pt.cu."""
+
+    _fields_ = [("sl", _P), ("n_spot", _I), ("al", _P), ("n_area", _I),
+                ("mx", _P), ("tmo", _P), ("smo", _P)]
+
+
 _SIGNATURES = {
     "mega_whitted": {
         "mega_whitted_launch": (
@@ -45,7 +55,7 @@ _SIGNATURES = {
             _I, [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
                  _P, _I, ctypes.POINTER(ctypes.c_float), _P, _I, _P, _I,
                  ctypes.POINTER(ctypes.c_int), _P, ctypes.c_uint32,
-                 ctypes.c_uint32, _P]),
+                 ctypes.c_uint32, ctypes.POINTER(ExtParams), _P]),
         "mega_pt_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -79,7 +89,9 @@ def build_all(names) -> dict:
     t0 = time.perf_counter()
     for name, lib in libs.items():
         if lib.exists():
-            BUILD_LOG[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+            log = lib.with_suffix(".ptxas")
+            BUILD_LOG[name] = {"seconds": 0.0, "cached": True,
+                               "ptxas": log.read_text() if log.exists() else ""}
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -92,6 +104,7 @@ def build_all(names) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {name}.cu:\n{err}")
             continue
+        libs[name].with_suffix(".ptxas").write_text(err.strip())
         os.replace(tmp, libs[name])
         BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
                            "cached": False, "ptxas": err.strip()}

@@ -19,8 +19,11 @@ n_draws + slot``.  The port keeps both sources behind the same index:
 
 Draw slots (the JAX ``build_mega`` layout, megakernel.py:667-679): 0 Russian
 roulette, 1-2 the GI direction, 3 + 3 l .. 5 + 3 l the mesh light l (face,
-two barycentrics); area lights, environment candidates, roughness and
-motion time append after them.
+two barycentrics), then 2 per area light (the point on its square), then
+48 environment candidates (in environment scenes), then 4 for roughness
+(the reflection's and the refraction's psi pairs), then the motion time,
+last: drawn once per primary ray, at iteration 0, from slot
+``n_draws - 1`` (megakernel.py:1776-1779).
 """
 
 from __future__ import annotations

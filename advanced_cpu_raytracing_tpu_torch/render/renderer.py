@@ -6,10 +6,13 @@ route): pixel coordinates come from an on-device arange, each of the
 n_cells^2 stratified samples is one kernel launch over every pixel, samples
 accumulate with the 2D Gaussian filter (sigma = 1/6 pixel,
 src/gaussian.h:3-21; weights on the jitter offsets, main.cpp:79-100), and
-the u8 clamp happens on the device.  Path-traced and mesh-lit scenes draw
-their randoms from Philox keyed by (seed, sample index), so a frame on the
-CPU and one on the card draw the same numbers.  Scenes outside the
-kernels' envelope raise ``NotImplementedError``: the port has no wavefront
+the u8 clamp happens on the device.  Scenes that draw randoms in the
+kernel (path tracing, mesh and area lights, roughness, motion blur) draw
+them from Philox keyed by (seed, sample index), so a frame on the CPU and
+one on the card draw the same numbers; the thin lens of a DoF camera is
+sampled here, outside the kernel, from the render's generator
+(renderer.py:150-156 in the JAX package).  Scenes outside the kernels'
+envelope raise ``NotImplementedError``: the port has no wavefront
 integrator yet.
 """
 

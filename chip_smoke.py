@@ -4,16 +4,18 @@
 
 Phases, each printing one JSON line:
   1. probe: the card's name and power limit, torch's CUDA version, nvcc;
-  2. build both megakernel variants, one nvcc each, started together:
-     csrc/mega_whitted.cu (K1a) and csrc/mega_pt.cu (K1b), with ptxas's
-     register and spill lines;
+  2. build the megakernel sources, one nvcc each, started together:
+     csrc/mega_whitted.cu (K1a) and csrc/mega_pt.cu (K1b and K1c, static
+     and with motion), with ptxas's register, frame and spill lines per
+     kernel (kept beside a cached library); K1a must keep its 72 registers
+     and K1b its 77;
   3. K1a against its plain torch version on 65,536 primary rays of
      scenes/whitted_conductors.xml (1 spp, no DoF);
   4. the Whitted main path: render_camera on scenes/whitted_conductors.xml
      at 800x800, 16 spp, depth 6, u8 clamp on the device — with the launch
-     counters set to 0 before it, K1a must launch 16 times and K1b never;
-     the PNG goes to a temporary directory; one warm-up frame, then the
-     median of 3 timed frames (Mpaths/s, paths = w*h*spp);
+     counters set to 0 before it, K1a must launch 16 times and the others
+     never; the PNG goes to a temporary directory; one warm-up frame, then
+     the median of 3 timed frames (Mpaths/s, paths = w*h*spp);
   5. K1a at its main path's shape (the 640,000 rays of one sample): time
      per launch, the plain version's time and error on the same rays, and
      the least time the card needs for the counted FP32 work;
@@ -24,10 +26,26 @@ Phases, each printing one JSON line:
   7. the path-tracing main path: render_camera on scenes/feat_pt.xml at
      800x800, 16 spp, depth 4, NEE + importance sampling, u8 clamp on the
      device — with the counters set to 0 before it, K1b must launch 16
-     times and K1a never; one warm-up frame, then the median of 3 timed
-     frames; then one frame each of feat_pt_rr.xml (16 spp) and
+     times and the others never; one warm-up frame, then the median of 3
+     timed frames; then one frame each of feat_pt_rr.xml (16 spp) and
      feat_pt_spec.xml (1 spp), checked finite and sane;
   8. K1b at its main path's shape (640,000 rays of one sample, Philox):
+     time per launch, the plain version's time and error on the same rays
+     and draws, and the bound of the counted FP32 work;
+  9. K1c (mega_ext) against its plain version on 65,536 primary rays in
+     both draw modes on the scenes of
+     advanced_cpu_raytracing_tpu_torch/scene/feature_scenes.py (spot +
+     directional, the BRDF zoo, the demo's area light, motion + roughness,
+     scenes/feat_spotareaml.xml as Whitted and as path tracing with a rough
+     glass sphere) and on scenes/feat_lights_brdf.xml as Whitted and as
+     path tracing (NEE + importance sampling, by substitution);
+ 10. the K1c main path: render_camera on scenes/feat_lights_brdf.xml at
+     800x800, 16 spp, depth 4, DoF, u8 clamp on the device — with the
+     counters set to 0 before it, K1c must launch 16 times and K1a and K1b
+     never; one warm-up frame, then the median of 3 timed frames; then one
+     unwarmed 16-spp frame of its path-tracing variant;
+ 11. K1c at its main path's shape (640,000 rays of one sample through
+     the lens, Philox):
      time per launch, the plain version's time and error on the same rays
      and draws, and the bound of the counted FP32 work.
 Then the kernels line, the card line and, last, the result line.  Any
@@ -53,9 +71,13 @@ ROOT = Path(__file__).resolve().parent
 SCENES = ROOT / "scenes"
 WHITTED_SCENE = SCENES / "whitted_conductors.xml"
 PT_SCENE = SCENES / "feat_pt.xml"
-SOURCES = {"mega_whitted": "advanced_cpu_raytracing_tpu_torch/csrc/mega_whitted.cu",
-           "mega_pt": "advanced_cpu_raytracing_tpu_torch/csrc/mega_pt.cu"}
+LIGHTS_SCENE = SCENES / "feat_lights_brdf.xml"
 REPLACES = "advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py:912"
+# registers of the K1a and K1b kernels since they were first measured;
+# K1c's extension must not change their code
+KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77}
+KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
+                  "mega_ext_motion_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -67,6 +89,9 @@ MEAN_TOL, Q999_TOL = 0.01, 0.5
 # differ: 99.5% of them within 1e-3 + 1e-3 |ref|, batch means within 1%
 PT_ATOL = PT_RTOL = 1e-3
 PT_FRAC, PT_MEAN_REL = 0.995, 0.01
+# K1c: the same per-ray bound, batch means within 1e-3 relative (its CPU
+# tests' bound against the JAX kernel)
+EXT_MEAN_REL = 1e-3
 
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
 # cores, and HBM bandwidth
@@ -76,6 +101,9 @@ PEAK_BYTES_S = 3.35e12
 # triangle test up to its t test (the part every test runs), a chunk slab
 # test, a sphere test (object-space ray + quadratic)
 TRI_FLOPS, SLAB_FLOPS, SPHERE_FLOPS = 38, 22, 66
+# motion moves the origin of each test of a moving face or sphere (3 mul +
+# 3 add)
+MOTION_FLOPS = 6
 
 
 def emit(phase: str, **kw) -> None:
@@ -100,7 +128,8 @@ def check_close(got: torch.Tensor, ref: torch.Tensor, what: str) -> dict:
     return err
 
 
-def check_close_pt(got: torch.Tensor, ref: torch.Tensor, what: str) -> dict:
+def check_close_pt(got: torch.Tensor, ref: torch.Tensor, what: str,
+                   mean_rel: float = PT_MEAN_REL) -> dict:
     diff = (got - ref).abs()
     within = (diff <= PT_ATOL + PT_RTOL * ref.abs()).all(dim=1)
     m_got, m_ref = float(got.double().mean()), float(ref.double().mean())
@@ -108,7 +137,7 @@ def check_close_pt(got: torch.Tensor, ref: torch.Tensor, what: str) -> dict:
            "frac_within": float(within.double().mean()),
            "mean": m_got, "plain_mean": m_ref}
     if not (torch.isfinite(got).all() and err["frac_within"] >= PT_FRAC
-            and abs(m_got - m_ref) <= PT_MEAN_REL * abs(m_ref)):
+            and abs(m_got - m_ref) <= mean_rel * abs(m_ref)):
         raise AssertionError(f"{what}: kernel disagrees with plain: {err}")
     return err
 
@@ -128,12 +157,38 @@ def bound(stats: dict, n_bytes: int) -> dict:
     """The least time for the counted FP32 work and the bytes moved."""
     flops = (stats.get("tri_tests", 0) * TRI_FLOPS
              + stats.get("slab_tests", 0) * SLAB_FLOPS
-             + stats.get("sphere_tests", 0) * SPHERE_FLOPS)
+             + stats.get("sphere_tests", 0) * SPHERE_FLOPS
+             + (stats.get("tri_motion_tests", 0)
+                + stats.get("sphere_motion_tests", 0)) * MOTION_FLOPS)
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
     return {"flops": flops, "bytes": n_bytes, "ops_ms": ops_ms,
             "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def registers(ptxas: str) -> dict:
+    """kernel -> {registers, stack frame, spill stores, spill loads} from
+    ptxas -v's lines, by the entry function they follow."""
+    out, name = {}, None
+    for ln in ptxas.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)", ln)
+        if m:
+            name = next((k for k in KERNEL_ENTRIES if k in m.group(1)), None)
+            continue
+        if name is None:
+            continue
+        ent = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            ent.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            ent["registers"] = int(m.group(1))
+    return out
 
 
 def main() -> int:
@@ -148,6 +203,10 @@ def main() -> int:
     from advanced_cpu_raytracing_tpu_torch.render.camera import (
         build_camera,
         generate_rays,
+    )
+    from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+        k1c_scenes,
+        path_traced,
     )
     from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
     from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
@@ -165,15 +224,32 @@ def main() -> int:
          torch_cuda=torch.version.cuda, nvcc=nvcc.stdout.strip().splitlines()[-1],
          device_count=torch.cuda.device_count())
 
-    # 2. build both variants in parallel
+    # 2. build every source in parallel
     t0 = time.perf_counter()
-    _build.build_all(list(SOURCES))
-    for name in SOURCES:
+    libs = sorted(set(mk.LIBRARY.values()))
+    _build.build_all(libs)
+    regs = {}
+    for name in libs:
         log = _build.BUILD_LOG[name]
-        emit("build", kernel=name, seconds=log["seconds"], cached=log["cached"],
+        regs.update(registers(log["ptxas"]))
+        emit("build", library=name, seconds=log["seconds"], cached=log["cached"],
              wall_seconds_all=time.perf_counter() - t0,
              ptxas=[ln for ln in log["ptxas"].splitlines() if "registers" in ln
                     or "spill" in ln or "stack frame" in ln])
+    emit("registers", kernels=regs, kept=KEPT_REGISTERS)
+    for kern, n in KEPT_REGISTERS.items():
+        if regs.get(kern, {}).get("registers") != n:
+            raise AssertionError(f"{kern}: {regs.get(kern)}, expected {n} "
+                                 f"registers")
+
+    def kernel_entry(name, launches, kernel_ms, plain_ms, bd, err):
+        return {"name": name, "route": "cuda",
+                "source": f"advanced_cpu_raytracing_tpu_torch/csrc/"
+                          f"{mk.LIBRARY[name]}.cu",
+                "replaces": REPLACES, "launches": launches,
+                "max_abs_err": err["max_abs_err"], "ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+                "bound_by": bd["bound_by"], "library_ms": None}
 
     def scene(path_or_xml, name=None):
         if name is not None:  # an XML text: write it beside nothing else
@@ -197,14 +273,18 @@ def main() -> int:
         return o.contiguous(), d.contiguous()
 
     def sample_rays(cam_cfg, cam, spp):
-        """The rays of one jittered sample of the whole frame."""
+        """The rays of one jittered sample of the whole frame, through the
+        thin lens where the camera has one."""
         w, h = cam_cfg.width, cam_cfg.height
         idx = torch.arange(w * h, device=dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         jit = torch.rand((w * h, 2), generator=gen, device=dev) / math.isqrt(spp)
+        lens = (torch.rand((w * h, 2), generator=gen, device=dev) * 2.0 - 1.0
+                if cam.use_dof else None)
         o, d = generate_rays(cam, (idx % w).float() + jit[:, 0],
-                             (idx // w).float() + jit[:, 1])
+                             (idx // w).float() + jit[:, 1], lens,
+                             dof=cam.use_dof)
         return o.contiguous(), d.contiguous()
 
     def main_path(pack, cfg, cam_cfg, kernel: str, what: str) -> dict:
@@ -249,9 +329,43 @@ def main() -> int:
                     u8_mean=float(img.mean()), png=str(png), card=card)
 
     def table_bytes(mc, tabs):
-        return sum(t.numel() * 4 for t in (
-            *tabs[:2], mc.spheres, mc.materials, mc.point_lights,
-            mc.dir_lights, mc.ml_faces, mc.ml_lights))
+        tables = [*tabs[:2], mc.spheres, mc.materials, mc.point_lights,
+                  mc.dir_lights, mc.ml_faces, mc.ml_lights]
+        if mc.kernel == "mega_ext":
+            tables += [mc.spot_lights, mc.area_lights, mc.mat_ext]
+            # a motion table that moves nothing is not read
+            tables += ([mc.tri_motion] if mc.faces_move else []) + (
+                [mc.sph_motion] if mc.spheres_move else [])
+        return sum(t.numel() * 4 for t in tables)
+
+    def at_main_shape(mc, tri_tab, chunk_tab, cam_cfg, cam, kernel, what):
+        """The kernel on one sample's rays (Philox): ms per launch, the
+        plain version's time and error on the same rays and draws, and the
+        bound of the counted work."""
+        o, d = sample_rays(cam_cfg, cam, cam_cfg.num_samples)
+        got = mk.mega_trace(mc, tri_tab, chunk_tab, o, d, seed=0, sample=0)
+        kernel_ms = cuda_ms(lambda: mk.mega_trace(mc, tri_tab, chunk_tab, o, d,
+                                                  seed=0, sample=0), 5)
+        stats: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draws = (philox_table(0, 0, o.shape[0], mc.max_iters, mc.n_draws,
+                              device=dev) if mc.n_draws else None)
+        ref = mk.mega_trace_ref(mc, tri_tab, chunk_tab, o, d, draws=draws,
+                                stats=stats)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if kernel == "mega_whitted":
+            err = check_close(got, ref, what)
+        else:
+            err = check_close_pt(got, ref, what, EXT_MEAN_REL if kernel ==
+                                 "mega_ext" else PT_MEAN_REL)
+        bd = bound(stats, (o.numel() + d.numel() + got.numel()) * 4
+                   + table_bytes(mc, (tri_tab, chunk_tab)))
+        emit("kernel_at_main_shape", kernel=kernel, rays=o.shape[0],
+             kernel_ms=kernel_ms, plain_ms=plain_ms, **bd, **err, **stats,
+             card=card)
+        return kernel_ms, plain_ms, bd, err
 
     kernels = []
 
@@ -272,26 +386,11 @@ def main() -> int:
     emit("main_path", kernel="mega_whitted", scene=WHITTED_SCENE.name, **mp)
 
     # 5. K1a at the main path's shape: one sample's 640,000 rays
-    o, d = sample_rays(cam_cfg, cam, cam_cfg.num_samples)
-    got = mk.mega_trace(mc, tri_tab, chunk_tab, o, d)
-    kernel_ms = cuda_ms(lambda: mk.mega_trace(mc, tri_tab, chunk_tab, o, d), 5)
-    stats: dict = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = mk.mega_trace_ref(mc, tri_tab, chunk_tab, o, d, stats=stats)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = check_close(got, ref, "K1a, 640,000 rays of one sample")
-    bd = bound(stats, (o.numel() + d.numel() + got.numel()) * 4
-               + table_bytes(mc, (tri_tab, chunk_tab)))
-    emit("kernel_at_main_shape", kernel="mega_whitted", rays=o.shape[0],
-         kernel_ms=kernel_ms, plain_ms=plain_ms, **bd, **err, **stats, card=card)
-    kernels.append({
-        "name": "mega_whitted", "route": "cuda", "source": SOURCES["mega_whitted"],
-        "replaces": REPLACES, "launches": mp["launches"],
-        "max_abs_err": err["max_abs_err"], "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-        "library_ms": None})
+    kernel_ms, plain_ms, bd, err = at_main_shape(
+        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_whitted",
+        "K1a, 640,000 rays of one sample")
+    kernels.append(kernel_entry("mega_whitted", mp["launches"], kernel_ms, plain_ms,
+                                bd, err))
 
     # ---- K1b: the path-tracing path ----
     # 6. kernel vs plain on 65,536 primary rays, both draw modes
@@ -353,29 +452,76 @@ def main() -> int:
              radiance_mean=float(hdr.mean()), card=card)
 
     # 8. K1b at the main path's shape: one sample's 640,000 rays, Philox
-    o, d = sample_rays(cam_cfg, cam, cam_cfg.num_samples)
-    got = mk.mega_trace(mc, tri_tab, chunk_tab, o, d, seed=0, sample=0)
-    kernel_ms = cuda_ms(
-        lambda: mk.mega_trace(mc, tri_tab, chunk_tab, o, d, seed=0, sample=0), 5)
-    stats = {}
+    kernel_ms, plain_ms, bd, err = at_main_shape(
+        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_pt",
+        "K1b, 640,000 rays of one sample")
+    kernels.append(kernel_entry("mega_pt", mp["launches"], kernel_ms, plain_ms,
+                                bd, err))
+
+    # ---- K1c: spot and area lights, BRDFs, roughness, motion ----
+    # 9. kernel vs plain on 65,536 primary rays, both draw modes
+    variants = [(name, xml, f"{name}.xml")
+                for name, xml in k1c_scenes(SCENES).items()]
+    variants += [
+        ("feat_lights_brdf.xml", LIGHTS_SCENE, None),
+        ("feat_lights_brdf.xml, path tracing",
+         path_traced(LIGHTS_SCENE.read_text()), "feat_lights_brdf_pt.xml")]
+    # the path-tracing variant is written to out_dir, beside its mesh
+    (out_dir / "whitted_conductors_mesh.ply").symlink_to(
+        SCENES / "whitted_conductors_mesh.ply")
+    for label, src, name in variants:
+        _, _, v_cam_cfg, (vmc, vtri, vchunk), vcam = scene(src, name)
+        if vmc.kernel != "mega_ext":
+            raise AssertionError(f"{label}: routed to {vmc.kernel}")
+        o, d = primary_rays(v_cam_cfg, vcam, 65536, seed=2)
+        rows = vmc.max_iters * vmc.n_draws
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(6)
+        for mode, draws in (
+                ("table", torch.rand((rows, o.shape[0]), generator=gen,
+                                     device=dev) if rows else None),
+                ("philox", None)):
+            got = mk.mega_trace(vmc, vtri, vchunk, o, d, draws=draws, seed=11,
+                                sample=4)
+            torch.cuda.synchronize()
+            if draws is None and rows:
+                draws = philox_table(11, 4, o.shape[0], vmc.max_iters,
+                                     vmc.n_draws, device=dev)
+            ref = mk.mega_trace_ref(vmc, vtri, vchunk, o, d, draws=draws)
+            err = check_close_pt(got, ref, f"K1c, {label}, {mode}",
+                                 EXT_MEAN_REL)
+            emit("kernel_vs_plain", kernel="mega_ext", scene=label, draws=mode,
+                 rays=o.shape[0], max_iters=vmc.max_iters, stack_k=vmc.stack_k,
+                 n_draws=vmc.n_draws, **err, atol=PT_ATOL, rtol=PT_RTOL,
+                 frac_tol=PT_FRAC, mean_rel_tol=EXT_MEAN_REL)
+        del draws
+
+    # 10. the K1c main path, then one frame of its path-tracing variant
+    cfg, pack, cam_cfg, (mc, tri_tab, chunk_tab), cam = scene(LIGHTS_SCENE)
+    mp = main_path(pack, cfg, cam_cfg, "mega_ext", "K1c main path")
+    emit("main_path", kernel="mega_ext", scene=LIGHTS_SCENE.name, **mp)
+    v_cfg, v_pack, v_cam_cfg, _, _ = scene(variants[-1][1], variants[-1][2])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    draws = philox_table(0, 0, o.shape[0], mc.max_iters, mc.n_draws, device=dev)
-    ref = mk.mega_trace_ref(mc, tri_tab, chunk_tab, o, d, draws=draws,
-                            stats=stats)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = check_close_pt(got, ref, "K1b, 640,000 rays of one sample")
-    bd = bound(stats, (o.numel() + d.numel() + got.numel()) * 4
-               + table_bytes(mc, (tri_tab, chunk_tab)))
-    emit("kernel_at_main_shape", kernel="mega_pt", rays=o.shape[0],
-         kernel_ms=kernel_ms, plain_ms=plain_ms, **bd, **err, **stats, card=card)
-    kernels.append({
-        "name": "mega_pt", "route": "cuda", "source": SOURCES["mega_pt"],
-        "replaces": REPLACES, "launches": mp["launches"],
-        "max_abs_err": err["max_abs_err"], "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-        "library_ms": None})
+    hdr = renderer.render_camera(v_pack, v_cfg, v_cam_cfg, seed=0, device=dev)
+    frame_s = time.perf_counter() - t0
+    ldr = renderer.ldr_from_radiance(hdr)
+    if not (np.isfinite(hdr).all() and hdr.min() >= 0.0
+            and 5.0 < float(ldr.mean()) < 250.0):
+        raise AssertionError(f"K1c path-tracing frame: finite "
+                             f"{np.isfinite(hdr).all()}, min {hdr.min()}, "
+                             f"u8 mean {ldr.mean()}")
+    write_png(str(out_dir / "mega_ext_feat_lights_brdf_pt.png"), ldr)
+    emit("frame", kernel="mega_ext", scene="feat_lights_brdf.xml, path tracing",
+         spp=v_cam_cfg.num_samples, frame_s=frame_s, u8_mean=float(ldr.mean()),
+         radiance_mean=float(hdr.mean()), card=card)
+
+    # 11. K1c at the main path's shape: one sample's 640,000 rays, Philox
+    kernel_ms, plain_ms, bd, err = at_main_shape(
+        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_ext",
+        "K1c, 640,000 rays of one sample")
+    kernels.append(kernel_entry("mega_ext", mp["launches"], kernel_ms, plain_ms,
+                                bd, err))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -17,6 +17,8 @@ import re
 
 import numpy as np
 
+from advanced_cpu_raytracing_tpu_torch.scene import feature_scenes
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SLICE_XML = REPO / "scenes" / "whitted_conductors.xml"
 SLICE_PLY = REPO / "scenes" / "whitted_conductors_mesh.ply"
@@ -115,6 +117,25 @@ def pt_scene(tmp_path, res: int | None = None, params: str | None = None,
     return str(out)
 
 
+def lights_brdf_scene(tmp_path, res: int = 48) -> str:
+    """``scenes/feat_lights_brdf.xml`` at ``res`` px wide with the coarse
+    torus (768 faces, 7 chunks) beside it; returns the XML path."""
+    xml = (REPO / "scenes" / "feat_lights_brdf.xml").read_text()
+    xml = re.sub(r"<ImageResolution>.*?</ImageResolution>",
+                 f"<ImageResolution>{res} {res}</ImageResolution>", xml)
+    out = pathlib.Path(tmp_path) / "feat_lights_brdf.xml"
+    out.write_text(xml)
+    (pathlib.Path(tmp_path) / SLICE_PLY.name).write_bytes(
+        ply_bytes(*torus_mesh(**COARSE_TORUS)))
+    return str(out)
+
+
+def k1c_scenes() -> dict:
+    """name -> XML of the K1c kernel checks' scenes (the port's
+    ``scene/feature_scenes.py``)."""
+    return feature_scenes.k1c_scenes(REPO / "scenes")
+
+
 def test_committed_mesh_is_torus_mesh():
     assert SLICE_PLY.read_bytes() == ply_bytes(*torus_mesh(**FULL_TORUS))
 
@@ -129,3 +150,11 @@ def test_ply_roundtrip_through_port_loader(tmp_path):
     v2, f2 = load_ply(path)
     np.testing.assert_array_equal(v2, verts)
     np.testing.assert_array_equal(f2, faces)
+
+
+def test_area_demo_scene_is_the_demo_scene():
+    """The port's copy of the demo scene (the K1c area-light check) is the
+    JAX package's ``__graft_entry__._demo_scene_xml``."""
+    import __graft_entry__ as ge
+
+    assert feature_scenes.AREA_DEMO_XML == ge._demo_scene_xml()

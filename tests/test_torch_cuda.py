@@ -17,9 +17,15 @@ from advanced_cpu_raytracing_tpu_torch.render.renderer import (
     options_for_camera,
     render_camera,
 )
+from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import path_traced
 from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
 from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
-from test_torch_common import REPO, coarse_slice_scene, pt_scene
+from test_torch_common import (
+    coarse_slice_scene,
+    k1c_scenes,
+    lights_brdf_scene,
+    pt_scene,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -79,9 +85,16 @@ def test_wrapper_checks_inputs(cuda, tmp_path):
         mk.mega_trace(mc, tab, ctab, o[:, :2].contiguous(), o[:, :2].contiguous())
 
 
-def test_scene_outside_envelope_raises_on_cuda(cuda):
-    cfg = load_scene(str(REPO / "scenes" / "feat_spotareaml.xml"))
-    with pytest.raises(NotImplementedError, match="spot lights"):
+def test_scene_outside_envelope_raises_on_cuda(cuda, tmp_path):
+    from PIL import Image
+    from scene_builders import textured_xml
+
+    Image.fromarray(np.kron(np.eye(2, dtype=np.uint8) * 255, np.ones(
+        (4, 4), np.uint8))[..., None].repeat(3, -1)).save(tmp_path / "checker.png")
+    path = tmp_path / "tex.xml"
+    path.write_text(textured_xml(str(tmp_path / "checker.png"), tex_ids="1"))
+    cfg = load_scene(str(path))
+    with pytest.raises(NotImplementedError, match="textures"):
         render_camera(pack_scene(cfg, device=cuda), cfg, cfg.cameras[0],
                       device=cuda)
 
@@ -132,3 +145,64 @@ def test_pt_render_camera_launches_once_per_sample(cuda, tmp_path):
     du8 = np.abs(ldr_from_radiance(got).astype(int)
                  - ldr_from_radiance(want).astype(int))
     assert (du8.max(axis=-1) > 1).mean() <= 0.01
+
+
+@pytest.mark.parametrize("name", ["spot_dir", "brdf_zoo", "area_demo",
+                                  "motion_rough", "spotareaml",
+                                  "spotareaml_pt_rough_glass"])
+@pytest.mark.parametrize("mode", ["table", "philox"])
+def test_ext_kernel_matches_plain_version(cuda, tmp_path, name, mode):
+    """K1c against its plain version on the same draws (none in the
+    deterministic scenes): at most a few rays in a thousand may differ by a
+    sampled path flipped by a last-ulp difference."""
+    path = tmp_path / f"{name}.xml"
+    path.write_text(k1c_scenes()[name])
+    cfg = load_scene(str(path))
+    pack = pack_scene(cfg, device=cuda)
+    mc, tab, ctab = mk.build_mega(pack, options_for_camera(cfg, cfg.cameras[0]),
+                                  device=cuda)
+    assert mc.kernel == "mega_ext"
+    cam = build_camera(cfg.cameras[0], device=cuda)
+    rng = np.random.default_rng(3)
+    n = 4096
+    w, h = cfg.cameras[0].width, cfg.cameras[0].height
+    px = torch.as_tensor(rng.uniform(0, w, n).astype(np.float32), device=cuda)
+    py = torch.as_tensor(rng.uniform(0, h, n).astype(np.float32), device=cuda)
+    o, d = (t.contiguous() for t in generate_rays(cam, px, py))
+    rows = mc.max_iters * mc.n_draws
+    draws = (torch.rand((rows, n), generator=torch.Generator(device=cuda)
+                        .manual_seed(4), device=cuda)
+             if mode == "table" and rows else None)
+    before = dict(mk.LAUNCHES)
+    got = mk.mega_trace(mc, tab, ctab, o, d, draws=draws, seed=5, sample=2)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["mega_ext"] == before["mega_ext"] + 1
+    if draws is None and rows:
+        draws = philox_table(5, 2, n, mc.max_iters, mc.n_draws, device=cuda)
+    ref = mk.mega_trace_ref(mc, tab, ctab, o, d, draws=draws)
+    diff = (got - ref).abs()
+    assert torch.isfinite(got).all()
+    assert (diff <= 1e-3 + 1e-3 * ref.abs()).all(dim=1).float().mean() >= 0.995
+    assert abs(float(got.mean()) - float(ref.mean())) <= 1e-3 * float(ref.mean())
+
+
+@pytest.mark.parametrize("pt", [False, True])
+def test_ext_render_camera_launches_once_per_sample(cuda, tmp_path, pt):
+    """feat_lights_brdf.xml (coarse torus, 48 px, DoF) on the card: K1c
+    launches once per sample and no other variant, and the frame is finite
+    (its lens draws come from the card's generator, so no CPU frame draws
+    the same rays)."""
+    path = lights_brdf_scene(tmp_path)
+    if pt:
+        xml = path_traced(open(path).read())
+        open(path, "w").write(xml)
+    cfg = load_scene(path)
+    jitter = torch.rand((4, 48 * 48, 2), generator=torch.Generator().manual_seed(3))
+    before = dict(mk.LAUNCHES)
+    got = render_camera(pack_scene(cfg, device=cuda), cfg, cfg.cameras[0],
+                        seed=7, spp=4, device=cuda, jitter=jitter)
+    after = dict(mk.LAUNCHES)
+    assert after["mega_ext"] == before["mega_ext"] + 4
+    assert (after["mega_pt"], after["mega_whitted"]) == (
+        before["mega_pt"], before["mega_whitted"])
+    assert np.isfinite(got).all()

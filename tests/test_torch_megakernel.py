@@ -124,14 +124,29 @@ def test_mega_eligible_accepts_path_tracing(name):
     assert mc.kernel == "mega_pt" and mc.n_draws == 6
 
 
-def test_mega_eligible_rejects_spot_and_area_lights():
+def test_mega_eligible_rejects_spot_and_area_lights(tmp_path):
+    """Spot and area lights are inside the envelope since K1c; the scene
+    with them is refused once it also has an environment light (K1d), and
+    only for that."""
     cfg = load_scene(str(REPO / "scenes" / "feat_spotareaml.xml"))
     pack = pack_scene(cfg, device="cpu")
     opts = options_for_camera(cfg, cfg.cameras[0])
-    missing = mk.mega_missing(pack.static, opts)
-    assert "spot lights" in missing and "area lights" in missing
+    assert pack.static.n_spot and pack.static.n_area
+    assert mk.mega_missing(pack.static, opts) == []
+    assert mk.mega_eligible(pack.static, opts)
+    img = tmp_path / "sky.png"
+    Image.fromarray(np.full((4, 8, 3), 200, np.uint8)).save(img)
+    xml = (REPO / "scenes" / "feat_spotareaml.xml").read_text().replace(
+        "</Lights>", "<SphericalDirectionalLight id=\"1\"><ImageId>1"
+        "</ImageId></SphericalDirectionalLight></Lights>"
+        f"<Textures><Images><Image id=\"1\">{img}</Image></Images></Textures>")
+    path = tmp_path / "env.xml"
+    path.write_text(xml)
+    cfg = load_scene(str(path))
+    pack = pack_scene(cfg, device="cpu")
+    assert mk.mega_missing(pack.static, opts) == ["environment light"]
     assert not mk.mega_eligible(pack.static, opts)
-    with pytest.raises(NotImplementedError, match="spot lights, area lights"):
+    with pytest.raises(NotImplementedError, match="environment light"):
         render_camera(pack, cfg, cfg.cameras[0], device="cpu")
 
 
