@@ -7,7 +7,8 @@ radiance) and ``<name w/o ext>.png``; others emit the clamped LDR png;
 prints total wall-clock at the end.  Renders on the CUDA card unless ``--device cpu``.
 Any scene inside the megakernel's envelope (``ops/megakernel.py::
 mega_missing``): Whitted or path traced, with point, directional, spot,
-area and mesh lights, the pluggable BRDFs, roughness, motion blur and DoF.
+area, mesh and environment lights, the pluggable BRDFs, roughness, motion
+blur, DoF, and image and Perlin textures in every decal mode.
 """
 
 from __future__ import annotations

@@ -245,11 +245,13 @@ struct Hit {
 // Closest hit: faces in table order, then spheres in index order, each with
 // the strict t < t_best test, so a tie keeps the earlier face.  With
 // kMeshLight the winner's mesh-light id comes along; a sphere resets it.
-// The chunk culls test the unmoved origin against boxes swept over the
-// motion.
-template <bool kMeshLight, class M = NoMotion>
+// With kWin, win[0] names the winning face and win[1] the winning sphere
+// (-1 where the other won or nothing was hit).  The chunk culls test the
+// unmoved origin against boxes swept over the motion.
+template <bool kMeshLight, class M = NoMotion, bool kWin = false>
 __device__ Hit trace(const Params& P, float px, float py, float pz, float vx,
-                     float vy, float vz, const M& mo = M()) {
+                     float vy, float vz, const M& mo = M(),
+                     int* win = nullptr) {
   float tb = BIG;
   int best = -1;
   if (P.n_tri > 0) {
@@ -292,6 +294,7 @@ __device__ Hit trace(const Params& P, float px, float py, float pz, float vx,
     h.mat = static_cast<int>(__ldg(r + 12));
     if (kMeshLight) h.ml = static_cast<int>(__ldg(r + 13));
   }
+  int best_sph = -1;
   for (int s = 0; s < P.n_sph; ++s) {
     const float* row = P.sph + s * SPH_COLS;
     float t, nw[3];
@@ -302,7 +305,12 @@ __device__ Hit trace(const Params& P, float px, float py, float pz, float vx,
       h.nz = nw[2];
       h.mat = static_cast<int>(row[25]);
       h.ml = -1;
+      if constexpr (kWin) best_sph = s;
     }
+  }
+  if constexpr (kWin) {
+    win[0] = best_sph >= 0 ? -1 : best;
+    win[1] = best_sph;
   }
   h.t = tb;
   h.hit = tb < BIG * 0.5f;

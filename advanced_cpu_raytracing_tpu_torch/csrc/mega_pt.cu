@@ -1,6 +1,6 @@
-// mega_pt.cu — the path-tracing megakernel (K1b) and its extension with
-// spot and area lights, BRDFs, roughness and motion blur (K1c) for NVIDIA
-// Hopper (sm_90a).
+// mega_pt.cu — the path-tracing megakernel (K1b), its extension with spot
+// and area lights, BRDFs, roughness and motion blur (K1c), and that with
+// textures and the environment light (K1d) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the path-tracing part of the TPU kernel
 // advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py::_kernel (lines
@@ -30,6 +30,17 @@
 // most 4 of each).  K1b is the instantiation with NoExt, whose code is that
 // of the static scene; mega_pt_launch picks the instantiation.
 //
+// K1d (mega_tex_kernel, mega_tex_motion_kernel) is K1c's tree with a third
+// policy, TexParams (mega_tex.cuh; NoTex for K1b and K1c compiles none of
+// it): the trace names its winner, whose texture slots, UV and tangent
+// frame shade it (Perlin and image bumps, normal maps, replace_all,
+// diffuse and specular textures); a primary miss sees the
+// replace_background texture at the ray's pixel UV, else the env map, and
+// a mirror or dielectric child's miss sees the env map (the env-on-miss
+// flag rides the stack); the env light's direct term takes the first of 16
+// rejection candidates, draw slots 3 + 3 n_ml + 2 n_area onwards, before
+// the roughness pair (megakernel.py:1548-2135, 2352-2374, 2383-2678).
+//
 // Design.  As K1a (mega_whitted.cu), whose scene tables and ray queries it
 // shares through mega_common.cuh: one thread per ray, 128 threads per
 // block, one node per loop iteration.  A live ray's own node count equals
@@ -52,10 +63,13 @@
 // precision come folded from the host (ops/megakernel.py, MATX_COLS).
 
 #include "mega_common.cuh"
+#include "mega_tex.cuh"
 
 namespace mp {
 
 using namespace mw;
+using mt::NoTex;
+using mt::TexParams;
 
 constexpr int MAX_K = 40;
 constexpr int ML_FACE_COLS = 10;   // corners v0 v1 v2, area weight
@@ -75,6 +89,7 @@ constexpr int MATX_COLS = 11;  // roughness, BRDF kind, exponent, normalized,
 constexpr int BRDF_PHONG = 0, BRDF_MODIFIED_PHONG = 1, BRDF_BLINN_PHONG = 2,
               BRDF_MODIFIED_BLINN_PHONG = 3;  // 4: Torrance-Sparrow
 constexpr float ROUGH_MIN = 0.001f;
+constexpr int ENV_DRAWS = 48;  // 16 env candidates x 3 draws
 
 struct PtParams {
   Params g;
@@ -173,6 +188,23 @@ __device__ __forceinline__ void shade_unit(const float* m, float nx, float ny,
   vx = m[4] * cos_t + m[7] * spec;
   vy = m[5] * cos_t + m[8] * spec;
   vz = m[6] * cos_t + m[9] * spec;
+}
+
+// shade_unit with a reflectance kd, ks of the ray's own (K1d: textured)
+__device__ __forceinline__ void shade_kd(const float* kd, const float* ks,
+                                         float phong, float nx, float ny,
+                                         float nz, float wox, float woy,
+                                         float woz, float wix, float wiy,
+                                         float wiz, float& vx, float& vy,
+                                         float& vz) {
+  const float cos_t = fmaxf(0.0f, wix * nx + wiy * ny + wiz * nz);
+  float hx = wix + wox, hy = wiy + woy, hz = wiz + woz;
+  norm3(hx, hy, hz);
+  const float cos_hm = fmaxf(0.0f, hx * nx + hy * ny + hz * nz);
+  const float spec = powmax(cos_hm, phong);
+  vx = kd[0] * cos_t + ks[0] * spec;
+  vy = kd[1] * cos_t + ks[1] * spec;
+  vz = kd[2] * cos_t + ks[2] * spec;
 }
 
 // A pluggable BRDF's value times cos+, gated to the front side, with unit
@@ -324,9 +356,10 @@ __device__ __forceinline__ void ext_light(const PtParams& Q, const Ext& E,
 }
 
 // The whole shading tree of ray i; radiance to out[3i:3i+3].  M is the
-// scene's motion (Motion only with ExtParams).
-template <class Ext, class M = NoMotion>
-__device__ void shade_pt(const PtParams& Q, const Ext& E,
+// scene's motion (Motion only with ExtParams), T its textures and env
+// light (TexParams only with ExtParams).
+template <class Ext, class M = NoMotion, class T = NoTex>
+__device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
                          const float* __restrict__ o,
                          const float* __restrict__ d,
                          float* __restrict__ out, int i) {
@@ -349,11 +382,14 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
   const bool has_amb = P.amb[0] != 0.0f || P.amb[1] != 0.0f ||
                        P.amb[2] != 0.0f;
   const float eps = P.eps;
-  // stack entry: o3 d3 w3 a3 medium (13 f32) + depth
-  float stk[MAX_K][13];
+  // stack entry: o3 d3 w3 a3 medium (13 f32), K1d: + env-on-miss flag;
+  // + depth
+  constexpr int NS = T::kOn ? 14 : 13;
+  float stk[MAX_K][NS];
   int sdep[MAX_K];
   int sp = 0;
   bool act = true;
+  bool cenv = false;  // K1d: this ray's miss sees the env map
   // K1c: the scene at this ray's time, drawn once (megakernel.py:1776-1779)
   M mo{};
   if constexpr (M::kOn) {
@@ -367,16 +403,51 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
     n_sa = E.n_spot + E.n_area;
     base_rough = 3 + 3 * Q.n_ml + 2 * E.n_area;
   }
+  int base_env = 0;  // K1d: the env candidates' draws precede roughness's
+  if constexpr (T::kOn) {
+    base_env = base_rough;
+    if (X.env_w > 0) base_rough += ENV_DRAWS;
+  }
 
   for (int it = 0; act && it < P.max_iters; ++it) {
-    const Hit h = trace<true>(P, cox, coy, coz, cdx, cdy, cdz, mo);
+    Hit h;
+    mt::Surface S;
+    if constexpr (T::kOn) {
+      int win[2];  // the winning face, the winning sphere
+      h = trace<true, M, true>(P, cox, coy, coz, cdx, cdy, cdz, mo, win);
+      if (X.n_tex > 0)
+        mt::surface(P, X, h, win[0], win[1], cox, coy, coz, cdx, cdy, cdz, mo,
+                    S);
+    } else {
+      h = trace<true>(P, cox, coy, coz, cdx, cdy, cdz, mo);
+    }
     const float t_safe = h.hit ? h.t : 0.0f;
     if (diel) {  // Beer attenuation of this segment (raytracer.cpp:416-423)
       cwx = cwx * expf(-cax * t_safe);
       cwy = cwy * expf(-cay * t_safe);
       cwz = cwz * expf(-caz * t_safe);
     }
-    if (!h.hit && it == 0) {  // primary miss: background
+    if constexpr (T::kOn) {
+      // a primary miss sees the background texture at the pixel UV, else
+      // the env map, else the flat colour; a later miss the env map where
+      // its branch is flagged (raytracer.cpp:49-62)
+      if (!h.hit) {
+        float r = 0.0f, g = 0.0f, b = 0.0f;
+        if (X.bg_tex >= 0 && it == 0) {
+          mt::img_sample(X, X.bg_tex, X.pix_uv[2 * i], X.pix_uv[2 * i + 1],
+                         true, r, g, b);
+        } else if (X.env_w > 0) {
+          if (cenv || it == 0) mt::env_radiance(X, cdx, cdy, cdz, r, g, b);
+        } else if (it == 0) {
+          r = P.bg[0];
+          g = P.bg[1];
+          b = P.bg[2];
+        }
+        lr += cwx * r;
+        lg += cwy * g;
+        lb += cwz * b;
+      }
+    } else if (!h.hit && it == 0) {  // primary miss: background
       lr += cwx * P.bg[0];
       lg += cwy * P.bg[1];
       lb += cwz * P.bg[2];
@@ -385,7 +456,10 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
     const float py = coy + t_safe * cdy;
     const float pz = coz + t_safe * cdz;
     const float wox = -cdx, woy = -cdy, woz = -cdz;
-    const float nx = h.nx, ny = h.ny, nz = h.nz;
+    float nx = h.nx, ny = h.ny, nz = h.nz;
+    if constexpr (T::kOn) {
+      if (X.n_tex > 0) mt::shading_normal(X, S, px, py, pz, nx, ny, nz);
+    }
     const float* m = P.mat + h.mat * MAT_COLS;
     const float* mx = nullptr;
     if constexpr (Ext::kOn) mx = E.mx + h.mat * MATX_COLS;
@@ -399,6 +473,27 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
       lg += cwy * m[20] * TWO_PI;
       lb += cwz * m[21] * TWO_PI;
       shadeable = false;
+    }
+    // K1d: the ray's reflectances; replace_all shades with the raw sample
+    // alone (raytracer.cpp:87-89)
+    float kd[3], ks[3];
+    if constexpr (T::kOn) {
+      for (int c = 0; c < 3; ++c) {
+        kd[c] = m[4 + c];
+        ks[c] = m[7 + c];
+      }
+      if (X.n_tex > 0 && h.hit) {
+        if (shadeable && S.slot[3] >= 0) {
+          float r, g, b;
+          mt::img_sample(X, S.slot[3], S.u, S.v, true, r, g, b);
+          lr += cwx * r;
+          lg += cwy * g;
+          lb += cwz * b;
+        }
+        if (S.slot[3] >= 0) shadeable = false;
+        mt::reflectance(X, S.slot[0], S, px, py, pz, kd);
+        mt::reflectance(X, S.slot[1], S, px, py, pz, ks);
+      }
     }
     const bool lit = shadeable && !inside;
 
@@ -516,10 +611,50 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
         }
         if (shadow<true>(P, sox, soy, soz, wix, wiy, wiz, limit, mo)) continue;
         float vx, vy, vz;
-        shade<Ext>(m, mx, nx, ny, nz, wox, woy, woz, wix, wiy, wiz, vx, vy, vz);
+        if constexpr (T::kOn) {
+          if (mx[1] >= 0.0f)
+            brdf_unit(m, mx, nx, ny, nz, wox, woy, woz, wix, wiy, wiz, vx, vy, vz);
+          else
+            shade_kd(kd, ks, m[13], nx, ny, nz, wox, woy, woz, wix, wiy, wiz,
+                     vx, vy, vz);
+        } else {
+          shade<Ext>(m, mx, nx, ny, nz, wox, woy, woz, wix, wiy, wiz, vx, vy,
+                     vz);
+        }
         lr += cwx * ir * vx;
         lg += cwy * ig * vy;
         lb += cwz * ib * vz;
+      }
+      if constexpr (T::kOn) {
+        if (X.env_w > 0) {
+          // the env light (raytracer.cpp:741-755): the first of 16
+          // rejection candidates in the unit ball above the surface, else
+          // the normal; its radiance shaded with the normal as w_i and no
+          // shadow ray (reference quirks, kept)
+          float ex = nx, ey = ny, ez = nz;
+          for (int ci = 0; ci < 16; ++ci) {
+            const float cx = 2.0f * rnd(Q, i, it, base_env + 3 * ci) - 1.0f;
+            const float cy = 2.0f * rnd(Q, i, it, base_env + 3 * ci + 1) - 1.0f;
+            const float cz = 2.0f * rnd(Q, i, it, base_env + 3 * ci + 2) - 1.0f;
+            if (cx * cx + cy * cy + cz * cz <= 1.0f &&
+                cx * nx + cy * ny + cz * nz > 0.0f) {
+              ex = cx;
+              ey = cy;
+              ez = cz;
+              break;
+            }
+          }
+          float er, eg, eb, vx, vy, vz;
+          mt::env_radiance(X, ex, ey, ez, er, eg, eb);
+          if (mx[1] >= 0.0f)
+            brdf_unit(m, mx, nx, ny, nz, wox, woy, woz, nx, ny, nz, vx, vy, vz);
+          else
+            shade_kd(kd, ks, m[13], nx, ny, nz, wox, woy, woz, nx, ny, nz, vx,
+                     vy, vz);
+          lr += cwx * er * vx;
+          lg += cwy * eg * vy;
+          lb += cwz * eb * vz;
+        }
       }
     }
 
@@ -530,10 +665,20 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
     float ndx = wox, ndy = woy, ndz = woz;
     float nwx = cwx, nwy = cwy, nwz = cwz;
     float nax = 0.0f, nay = 0.0f, naz = 0.0f, nmed = 1.0f;
+    bool ncenv = false;
     float giwx = 0.0f, giwy = 0.0f, giwz = 0.0f;
     if (g_hit) {  // weight Shade(w_i = gi, unit Li) * 2pi * rr_scale
       float vx, vy, vz;
-      shade<Ext>(m, mx, nx, ny, nz, wox, woy, woz, gdx, gdy, gdz, vx, vy, vz);
+      if constexpr (T::kOn) {
+        if (mx[1] >= 0.0f)
+          brdf_unit(m, mx, nx, ny, nz, wox, woy, woz, gdx, gdy, gdz, vx, vy, vz);
+        else
+          shade_kd(kd, ks, m[13], nx, ny, nz, wox, woy, woz, gdx, gdy, gdz, vx,
+                   vy, vz);
+      } else {
+        shade<Ext>(m, mx, nx, ny, nz, wox, woy, woz, gdx, gdy, gdz, vx, vy,
+                   vz);
+      }
       const float fac = TWO_PI * rr_scale;
       giwx = cwx * vx * fac;
       giwy = cwy * vy * fac;
@@ -588,6 +733,8 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
           nwx = cwx * m[10];
           nwy = cwy * m[11];
           nwz = cwz * m[12];
+          // a mirror child's miss sees the env (raytracer.cpp:461-469)
+          if (type == MAT_MIRROR) ncenv = true;
           if (type == MAT_CONDUCTOR) {
             nwx = nwx * f;
             nwy = nwy * f;
@@ -641,6 +788,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
           nwx = cwx * r_refl;
           nwy = cwy * r_refl;
           nwz = cwz * r_refl;
+          ncenv = true;  // both legs' misses see the env; TIR's does not
           if (n2 > 1.00001f) {
             nax = m[16];
             nay = m[17];
@@ -675,6 +823,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
             e[10] = fin ? m[17] : 0.0f;
             e[11] = fin ? m[18] : 0.0f;
             e[12] = n2;
+            if constexpr (T::kOn) e[13] = 1.0f;
             sdep[sp] = cdep - 1;
           }
           ++sp;
@@ -697,6 +846,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
         nay = 0.0f;
         naz = 0.0f;
         nmed = cmed;
+        ncenv = false;
       } else {  // pushed after the refraction leg
         if (sp < P.stack_k) {
           float* e = stk[sp];
@@ -713,6 +863,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
           e[10] = 0.0f;
           e[11] = 0.0f;
           e[12] = cmed;
+          if constexpr (T::kOn) e[13] = 0.0f;
           sdep[sp] = cdep - 1;
         }
         ++sp;
@@ -722,8 +873,8 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
     int ndep = cdep - 1;
     if (!new_act && sp > 0) {  // pop
       const int top = sp - 1;
-      float e[13];
-      for (int k = 0; k < 13; ++k) e[k] = top < P.stack_k ? stk[top][k] : 0.0f;
+      float e[NS];
+      for (int k = 0; k < NS; ++k) e[k] = top < P.stack_k ? stk[top][k] : 0.0f;
       ndep = top < P.stack_k ? sdep[top] : 0;
       nox = e[0];
       noy = e[1];
@@ -738,6 +889,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
       nay = e[10];
       naz = e[11];
       nmed = e[12];
+      if constexpr (T::kOn) ncenv = e[13] != 0.0f;
       --sp;
       new_act = true;
     }
@@ -755,6 +907,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E,
     caz = naz;
     cmed = nmed;
     cdep = ndep;
+    cenv = ncenv;
     act = new_act;
   }
   out[3 * i] = lr;
@@ -768,7 +921,7 @@ __global__ void __launch_bounds__(THREADS)
 mega_pt_kernel(PtParams Q, const float* __restrict__ o,
                const float* __restrict__ d, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < Q.n) shade_pt(Q, NoExt(), o, d, out, i);
+  if (i < Q.n) shade_pt(Q, NoExt(), NoTex(), o, d, out, i);
 }
 
 // K1c on a static scene
@@ -776,7 +929,7 @@ __global__ void __launch_bounds__(THREADS)
 mega_ext_kernel(PtParams Q, ExtParams E, const float* __restrict__ o,
                 const float* __restrict__ d, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < Q.n) shade_pt(Q, E, o, d, out, i);
+  if (i < Q.n) shade_pt(Q, E, NoTex(), o, d, out, i);
 }
 
 // K1c on a scene with motion blur
@@ -784,7 +937,25 @@ __global__ void __launch_bounds__(THREADS)
 mega_ext_motion_kernel(PtParams Q, ExtParams E, const float* __restrict__ o,
                        const float* __restrict__ d, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < Q.n) shade_pt<ExtParams, Motion>(Q, E, o, d, out, i);
+  if (i < Q.n) shade_pt<ExtParams, Motion>(Q, E, NoTex(), o, d, out, i);
+}
+
+// K1d on a static scene
+__global__ void __launch_bounds__(THREADS)
+mega_tex_kernel(PtParams Q, ExtParams E, TexParams X,
+                const float* __restrict__ o, const float* __restrict__ d,
+                float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Q.n) shade_pt<ExtParams, NoMotion, TexParams>(Q, E, X, o, d, out, i);
+}
+
+// K1d on a scene with motion blur (an env light; textures exclude motion)
+__global__ void __launch_bounds__(THREADS)
+mega_tex_motion_kernel(PtParams Q, ExtParams E, TexParams X,
+                       const float* __restrict__ o,
+                       const float* __restrict__ d, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Q.n) shade_pt<ExtParams, Motion, TexParams>(Q, E, X, o, d, out, i);
 }
 
 // ints: max_depth, stack_k, max_iters, flags, n_draws, rr_floor
@@ -814,8 +985,8 @@ inline PtParams make_pt_params(
 }  // namespace mp
 
 // ints: max_depth, stack_k, max_iters, flags, n_draws, rr_floor.  ext null:
-// K1b; else K1c with those tables, its motion instantiation when the flags
-// say the scene has motion.
+// K1b; else K1c with those tables, or with tex K1d, each in its motion
+// instantiation when the flags say the scene has motion.
 extern "C" int mega_pt_launch(
     const float* o, const float* d, float* out, int n, const float* tri,
     int n_tri, const float* chunk, int n_chunks, const float* sph, int n_sph,
@@ -823,8 +994,9 @@ extern "C" int mega_pt_launch(
     const float* dl, int n_dir, const float* consts, const float* mlf,
     int n_mlf, const float* mll, int n_ml, const int* ints,
     const float* draws, unsigned seed, unsigned sample,
-    const mp::ExtParams* ext, void* stream) {
-  if (ints[1] > mp::MAX_K || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const mp::ExtParams* ext, const mt::TexParams* tex, void* stream) {
+  if (ints[1] > mp::MAX_K || n <= 0 || (tex != nullptr && ext == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const mp::PtParams Q = mp::make_pt_params(
       n, tri, n_tri, chunk, n_chunks, sph, n_sph, mat, n_mat, pl, n_point, dl,
       n_dir, consts, mlf, n_mlf, mll, n_ml, ints, draws, seed, sample);
@@ -832,6 +1004,12 @@ extern "C" int mega_pt_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ext == nullptr)
     mp::mega_pt_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, o, d, out);
+  else if (tex != nullptr && (ints[3] & mp::FLAG_MOTION))
+    mp::mega_tex_motion_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, *tex,
+                                                               o, d, out);
+  else if (tex != nullptr)
+    mp::mega_tex_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, *tex, o, d,
+                                                        out);
   else if (ints[3] & mp::FLAG_MOTION)
     mp::mega_ext_motion_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, o, d,
                                                                out);

@@ -43,6 +43,16 @@ class ExtParams(ctypes.Structure):
                 ("mx", _P), ("tmo", _P), ("smo", _P)]
 
 
+class TexParams(ctypes.Structure):
+    """K1d's texture and env tables: ``mt::TexParams`` of
+    csrc/mega_tex.cuh."""
+
+    _fields_ = [("face", _P), ("sph", _P), ("tint", _P), ("tflt", _P),
+                ("texels", _P), ("perm", _P), ("pix_uv", _P), ("n_tex", _I),
+                ("tbn_obj", _I), ("bg_tex", _I), ("env_w", _I), ("env_h", _I),
+                ("env_first", _I)]
+
+
 _SIGNATURES = {
     "mega_whitted": {
         "mega_whitted_launch": (
@@ -55,7 +65,8 @@ _SIGNATURES = {
             _I, [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
                  _P, _I, ctypes.POINTER(ctypes.c_float), _P, _I, _P, _I,
                  ctypes.POINTER(ctypes.c_int), _P, ctypes.c_uint32,
-                 ctypes.c_uint32, ctypes.POINTER(ExtParams), _P]),
+                 ctypes.c_uint32, ctypes.POINTER(ExtParams),
+                 ctypes.POINTER(TexParams), _P]),
         "mega_pt_error_string": (ctypes.c_char_p, [_I]),
     },
 }

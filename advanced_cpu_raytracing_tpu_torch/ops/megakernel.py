@@ -1,5 +1,5 @@
 """The megakernel: host tables, the plain torch version and the wrappers
-of its three CUDA variants.
+of its four CUDA variants.
 
 It replaces the JAX package's fused Pallas kernel
 (``ops/pallas/megakernel.py::_kernel``, launched by ``mega_trace_flat``):
@@ -15,7 +15,11 @@ mesh-light sampling (raytracer.cpp:135-191, 778-803) — K1b,
 same shading tree extended with spot and area lights, the five pluggable
 BRDFs, glossy roughness and motion blur (raytracer.cpp:192-206, 424-440,
 720-776; mesh.cpp:167-170) — K1c, the ``mega_ext`` instantiation of the
-same ``csrc/mega_pt.cu``.
+same ``csrc/mega_pt.cu`` — and that tree with image and Perlin textures in
+every decal mode, normal and bump maps, sphere textures, the background
+texture and the spherical environment light (raytracer.cpp:49-62, 87-89,
+741-755; mesh.cpp:264-357; sphere.cpp:116-169) — K1d, its ``mega_tex``
+instantiation with ``csrc/mega_tex.cuh``, over one texel pool.
 
 Scene constants travel as small f32 tensors (spheres, materials, lights,
 mesh-light faces) that the kernels read at run time, so one build serves
@@ -34,7 +38,19 @@ import numpy as np
 import torch
 
 from advanced_cpu_raytracing_tpu_torch.ops import rng
-from advanced_cpu_raytracing_tpu_torch.scene.types import BrdfType, MaterialType
+from advanced_cpu_raytracing_tpu_torch.ops import texture as _texture
+from advanced_cpu_raytracing_tpu_torch.scene.pack import (
+    SLOT_BUMP,
+    SLOT_DIFFUSE,
+    SLOT_NORMAL,
+    SLOT_REPLACE_ALL,
+    SLOT_SPECULAR,
+)
+from advanced_cpu_raytracing_tpu_torch.scene.types import (
+    BrdfType,
+    DecalMode,
+    MaterialType,
+)
 from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
 
 BIG = 3.0e37  # "no hit" distance
@@ -79,6 +95,21 @@ MATX_COLS = 11  # roughness 0, BRDF kind 1 (-1: none), exponent 2,
 #                 6:9, Torrance-Sparrow r0 9 and 1 - r0 10
 MOTION_COLS = 3  # per face (world) or per sphere (object space)
 ROUGH_MIN = 0.001  # a material is rough above this roughness
+# textures and the environment light (K1d; mirrored in csrc/mega_tex.cuh)
+TEXF_COLS = 29  # per face: texture slots diffuse 0, specular 1, bump 2,
+#                 replace_all 3, normal 4 (texture index or -1); vertex UVs
+#                 5:11; tangent 11:14, bitangent 14:17 (world, or object
+#                 space with tbn_obj), object normal 17:20, M^-T 20:29
+#                 (tbn_obj only)
+TEXS_COLS = 7  # per sphere: slots diffuse 0, specular 1, replace_all 2,
+#                bump 3, the bump texture's normaliser 4, -radius * pi 5,
+#                3 / normaliser 6 (the last two folded in double, as the
+#                JAX kernel folds them)
+TEXI_COLS = 7  # per texture (int32): kind 0 (0 image, 1 Perlin), interp 1
+#                (0 nearest, 1 bilinear), blend_kd 2, Perlin absval 3,
+#                width 4, height 5, first texel in the pool 6
+TEXR_COLS = 2  # per texture (f32): bump factor 0, noise scale 1
+ENV_DRAWS = 48  # env rejection candidates: 16 x 3 draws per node
 
 
 def _brdf_consts(kind: int, e: float, normed: bool, kd, ior: float):
@@ -137,13 +168,26 @@ class MegaConsts:
     has_brdf: bool = False  # a material shades with a pluggable BRDF
     faces_move: bool = False  # a face has non-zero motion
     spheres_move: bool = False  # a sphere has non-zero motion
+    # ---- textures and the environment light (K1d) ----
+    tex_face: torch.Tensor | None = None  # (max(W,1), TEXF_COLS)
+    tex_sph: torch.Tensor | None = None  # (S, TEXS_COLS)
+    tex_int: torch.Tensor | None = None  # (T, TEXI_COLS) int32
+    tex_flt: torch.Tensor | None = None  # (T, TEXR_COLS)
+    texels: torch.Tensor | None = None  # (N, 3) the texel pool, native RGB
+    perm: torch.Tensor | None = None  # (512,) int32 Perlin permutation
+    n_textures: int = 0
+    tbn_obj: bool = False  # the TBN columns are in object space
+    bg_tex: int = -1  # the replace_background texture, or -1
+    env: tuple = ()  # (width, height, first texel) of the env map, or ()
 
     @property
     def kernel(self) -> str:
-        """The CUDA variant that renders this scene: the K1c one for spot
-        or area lights, BRDFs, roughness or motion; else the K1b one for
-        path tracing, emissive surfaces and mesh lights; else the Whitted
-        one."""
+        """The CUDA variant that renders this scene: the K1d one for
+        textures or an environment light; else the K1c one for spot or
+        area lights, BRDFs, roughness or motion; else the K1b one for path
+        tracing, emissive surfaces and mesh lights; else the Whitted one."""
+        if self.n_textures or self.env:
+            return "mega_tex"
         if (self.spot_lights.shape[0] or self.area_lights.shape[0]
                 or self.has_brdf or self.has_rough or self.has_motion):
             return "mega_ext"
@@ -152,17 +196,18 @@ class MegaConsts:
         return "mega_whitted"
 
 
-def mega_missing(static, opts) -> list[str]:
+def mega_missing(static, opts, pack=None) -> list[str]:
     """Features of a scene/render outside the kernels' envelope (empty
-    list = eligible).  Mirrors the JAX ``mega_eligible`` for what K1a-K1c
-    cover, without its TPU unrolling caps on spot and area lights;
-    textures and the environment light wait for K1d, streamed geometry
-    for K1e."""
+    list = eligible).  Mirrors the JAX ``mega_eligible`` and its
+    ``_textures_eligible`` without their TPU caps (the count of spot and
+    area lights, of textures, of texels and the size of the env map);
+    streamed geometry waits for K1e.  A textured scene needs its ``pack``
+    for the per-texture gates."""
     missing = []
+    if static.n_env > 1:
+        missing.append("more than one environment light")
     if static.n_textures:
-        missing.append("textures")
-    if static.n_env:
-        missing.append("environment light")
+        missing += _texture_missing(static, pack)
     if static.n_mesh_lights > MAX_MESH_LIGHTS:
         missing.append(f"more than {MAX_MESH_LIGHTS} mesh lights")
     if static.n_work_items > MAX_FACES or (static.n_faces
@@ -179,9 +224,46 @@ def mega_missing(static, opts) -> list[str]:
     return missing
 
 
-def mega_eligible(static, opts) -> bool:
+# decals of the Perlin textures the kernel shades (an image texture may
+# have any of the seven)
+_PERLIN_DECALS = {int(DecalMode.REPLACE_KD), int(DecalMode.BLEND_KD),
+                  int(DecalMode.REPLACE_KS), int(DecalMode.BUMP_NORMAL)}
+
+
+def _texture_missing(static, pack) -> list[str]:
+    """The semantic gates of the JAX ``_textures_eligible``
+    (megakernel.py:319-397), each worded by what to remove."""
+    if pack is None:
+        raise TypeError("mega_missing: a textured scene needs its pack")
+    missing = []
+    if static.n_brdfs:
+        missing.append("textures together with a pluggable BRDF (remove "
+                       "the BRDFs or the textures)")
+    if static.has_motion:
+        missing.append("textures together with motion blur (remove the "
+                       "MotionBlur or the textures)")
+    kind = _np(pack.tex_kind)[:static.n_textures]
+    decal = _np(pack.tex_decal)[:static.n_textures]
+    timg = _np(pack.tex_img)[:static.n_textures]
+    for i in range(static.n_textures):
+        if kind[i] == 1 and int(decal[i]) not in _PERLIN_DECALS:
+            missing.append(f"a Perlin texture with decal "
+                           f"{DecalMode(int(decal[i])).name.lower()}")
+        if kind[i] == 0 and timg[i] < 0:
+            missing.append("an image texture without an image")
+    # a Perlin bump on a mesh is a world-space gradient projected off the
+    # world normal: only right where object and world space agree
+    pb = _np(pack.ent_tex)[:, SLOT_BUMP]
+    mapped = np.where((pb >= 0) & (kind[np.maximum(pb, 0)] == 1))[0]
+    if len(mapped) and not np.allclose(_np(pack.ent_nrm)[mapped],
+                                       np.eye(3, dtype=np.float32), atol=1e-6):
+        missing.append("a Perlin bump_normal on a rotated or scaled mesh")
+    return missing
+
+
+def mega_eligible(static, opts, pack=None) -> bool:
     """Static feature gate for the kernels (see ``mega_missing``)."""
-    return not mega_missing(static, opts)
+    return not mega_missing(static, opts, pack)
 
 
 def _np(x) -> np.ndarray:
@@ -356,6 +438,7 @@ def build_mega(pack, opts, device=None):
     ml_lights = np.asarray(ml_lights, np.float32).reshape(-1, ML_LIGHT_COLS)
 
     max_iters, stack_k, n_draws = _sizing(st, opts)
+    tx = _texture_tables(pack, tab)
 
     def tens(a):
         return torch.as_tensor(a, device=dev)
@@ -383,8 +466,128 @@ def build_mega(pack, opts, device=None):
         has_rough=bool(st.has_rough), has_motion=bool(st.has_motion),
         has_brdf=bool((mx[:, 1] >= 0).any()),
         faces_move=bool(tmo.any()), spheres_move=bool(smo.any()),
+        tex_face=tens(tx["face"]), tex_sph=tens(tx["sph"]),
+        tex_int=tens(tx["int"]), tex_flt=tens(tx["flt"]),
+        texels=tens(tx["texels"]), perm=tens(tx["perm"]),
+        n_textures=st.n_textures, tbn_obj=tx["tbn_obj"],
+        bg_tex=int(st.bg_tex) if st.n_textures else -1, env=tx["env"],
     )
     return mc, tens(tab), tens(ctab)
+
+
+def _unit_rows(v):
+    return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-20)
+
+
+def _tile_np(u):
+    frac = u - np.floor(u)
+    frac = np.where(frac < 0.0001, 1.0, frac)
+    return np.where(u > 1.0001, frac, u)
+
+
+def _texture_tables(pack, tab) -> dict:
+    """The K1d tables of a scene, as the JAX ``build_mega`` computes them
+    (megakernel.py:418-529, 681-814, 888-897) but in tables of their own:
+    per face the texture slots, vertex UVs and tangent frame (JAX tri
+    columns 19:48), per sphere its slots, per texture its parameters, and
+    every image texture's and the env map's texels in one plain f32 RGB
+    pool at native size (no packed texels, no tiles, no small/big split)."""
+    st = pack.static
+    w = st.n_work_items
+    n_tex = st.n_textures
+    face = np.zeros((max(w, 1), TEXF_COLS), np.float32)
+    face[:, 0:5] = -1.0
+    sph = np.zeros((st.n_spheres, TEXS_COLS), np.float32)
+    sph[:, 0:4] = -1.0
+    tint = np.zeros((max(n_tex, 1), TEXI_COLS), np.int32)
+    tflt = np.zeros((max(n_tex, 1), TEXR_COLS), np.float32)
+    pool: list = []
+    first: dict = {}  # image index -> first texel
+    atlas, img_w, img_h = (_np(pack.img_atlas), _np(pack.img_w),
+                           _np(pack.img_h))
+
+    def pooled(img: int) -> int:
+        if img not in first:
+            first[img] = sum(len(p) for p in pool)
+            pool.append(atlas[img, :img_h[img], :img_w[img]].reshape(-1, 3))
+        return first[img]
+
+    tbn_obj = False
+    if n_tex:
+        kind = _np(pack.tex_kind)[:n_tex]
+        et = _np(pack.ent_tex)
+        has_img = bool((kind == 0).any())
+        tbn_ents = (et[:, SLOT_NORMAL] >= 0) | (
+            (et[:, SLOT_BUMP] >= 0) & (kind[np.maximum(et[:, SLOT_BUMP], 0)] == 0))
+        has_tbn = has_img and bool(tbn_ents.any())
+        tbn_obj = has_tbn and not np.allclose(
+            _np(pack.ent_nrm)[np.where(tbn_ents)[0]],
+            np.eye(3, dtype=np.float32), atol=1e-6)
+        decal, interp = _np(pack.tex_decal), _np(pack.tex_interp)
+        for i in range(n_tex):
+            img = int(_np(pack.tex_img)[i])
+            tint[i, 0:4] = (kind[i], interp[i],
+                            int(decal[i]) == int(DecalMode.BLEND_KD),
+                            _np(pack.tex_noise_conv)[i])
+            if kind[i] == 0 and img >= 0:
+                tint[i, 4:7] = (img_w[img], img_h[img], pooled(img))
+            tflt[i] = (_np(pack.tex_bump_factor)[i],
+                       _np(pack.tex_noise_scale)[i])
+        if w:
+            wi_ent = _np(pack.wi_ent)[:w]
+            wi_face = _np(pack.wi_face)[:w]
+            face[:w, 0:5] = et[wi_ent][:, [SLOT_DIFFUSE, SLOT_SPECULAR,
+                                           SLOT_BUMP, SLOT_REPLACE_ALL,
+                                           SLOT_NORMAL]]
+            # vertex UVs (uvidx -1: uv 0), for barycentric interpolation
+            uvi = _np(pack.tri_uvidx)[wi_face]
+            uvv = _np(pack.uvs)[np.maximum(uvi, 0)]
+            uvv[uvi[:, 0] < 0] = 0.0
+            face[:w, 5:11] = uvv.reshape(w, 6)
+        if has_tbn and w:
+            # tangent and bitangent from the UV edges
+            # (Mesh::GetTangentAndBitangentForTriangle, mesh.cpp:390-422):
+            # from the world corners, or the object ones with tbn_obj
+            if tbn_obj:
+                vo = _np(pack.verts)[_np(pack.tri_vidx)[wi_face]]
+                e1, e2 = _unit_rows(vo[:, 1] - vo[:, 0]), _unit_rows(vo[:, 2] - vo[:, 1])
+            else:
+                e1 = _unit_rows(tab[:w, 3:6] - tab[:w, 0:3])
+                e2 = _unit_rows(tab[:w, 6:9] - tab[:w, 3:6])
+            uvt = _tile_np(face[:w, 5:11].reshape(w, 3, 2))
+            u1 = uvt[:, 1, 0] - uvt[:, 0, 0]
+            w1 = uvt[:, 1, 1] - uvt[:, 0, 1]
+            u2 = uvt[:, 2, 0] - uvt[:, 1, 0]
+            w2 = uvt[:, 2, 1] - uvt[:, 1, 1]
+            det = u1 * w2 - w1 * u2
+            det = 1.0 / np.where(det == 0, 1e-20, det)
+            face[:w, 11:14] = _unit_rows((w2[:, None] * e1 - w1[:, None] * e2)
+                                         * det[:, None])
+            face[:w, 14:17] = _unit_rows((-u2[:, None] * e1 + u1[:, None] * e2)
+                                         * det[:, None])
+            if tbn_obj:
+                face[:w, 17:20] = _np(pack.tri_normal)[wi_face]
+                face[:w, 20:29] = _np(pack.ent_nrm)[wi_ent].reshape(w, 9)
+        stx = _np(pack.sph_tex)
+        norm = _np(pack.tex_normalizer)
+        radius = _np(pack.sph_radius)
+        for i in range(st.n_spheres):
+            bump = int(stx[i, SLOT_BUMP])
+            sph[i] = (stx[i, SLOT_DIFFUSE], stx[i, SLOT_SPECULAR],
+                      stx[i, SLOT_REPLACE_ALL], bump, norm[max(bump, 0)],
+                      -float(radius[i]) * math.pi,
+                      3.0 / float(norm[max(bump, 0)]))
+    env = ()
+    if st.n_env:
+        img = int(_np(pack.env_img)[0])
+        env = (int(img_w[img]), int(img_h[img]), pooled(img))
+    texels = (np.concatenate(pool).astype(np.float32) if pool
+              else np.zeros((1, 3), np.float32))
+    if len(texels) >= 2 ** 31:
+        raise ValueError("texel pool past 2^31 texels")
+    return {"face": face, "sph": sph, "int": tint, "flt": tflt,
+            "texels": np.ascontiguousarray(texels), "env": env,
+            "perm": _texture.PERM512.astype(np.int32), "tbn_obj": bool(tbn_obj)}
 
 
 # ---------------------------------------------------------------------------
@@ -393,8 +596,23 @@ def build_mega(pack, opts, device=None):
 
 
 def _norm3(x, y, z):
-    inv = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
+    # the kernels' norm3: IEEE sqrt, then IEEE division (torch.rsqrt rounds
+    # otherwise, on the card in a few ulp)
+    inv = 1.0 / torch.sqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
     return x * inv, y * inv, z * inv
+
+
+def _div(a, b):
+    """a / b rounded once, as the kernels' IEEE division.  torch computes a
+    Python number over a tensor as the tensor's reciprocal times the number,
+    and on CUDA a tensor over a Python number as the tensor times the
+    number's reciprocal; each rounds twice, and a bump's finite differences
+    turn the last bit into a different path."""
+    if not torch.is_tensor(a):
+        a = torch.tensor(a, dtype=torch.float32, device=b.device)
+    if not torch.is_tensor(b):
+        b = torch.tensor(b, dtype=torch.float32, device=a.device)
+    return torch.div(a, b)
 
 
 def _onb(nx, ny, nz):
@@ -414,9 +632,10 @@ def _onb(nx, ny, nz):
     return (ux, uy, uz), (vx, vy, vz)
 
 
-def _tri_hit(v0, v1, v2, px, py, pz, vx, vy, vz):
+def _tri_hit(v0, v1, v2, px, py, pz, vx, vy, vz, bary=False):
     """Cramer's-rule test (Mesh::IntersectFace, src/mesh.cpp:201-236) of
-    rays (R,1) against faces (1,F): returns (t, valid), each (R,F)."""
+    rays (R,1) against faces (1,F): returns (t, valid), each (R,F), and
+    with ``bary`` the barycentrics (beta, gamma) too."""
     v0x, v0y, v0z = v0
     e1x, e1y, e1z = v0x - v1[0], v0y - v1[1], v0z - v1[2]
     e2x, e2y, e2z = v0x - v2[0], v0y - v2[1], v0z - v2[2]
@@ -437,6 +656,8 @@ def _tri_hit(v0, v1, v2, px, py, pz, vx, vy, vz):
     t = (e1x * q0 - e1y * q1 + e1z * q2) / safe
     valid = ((det_a != 0.0) & (beta >= 0.0) & (gamma >= 0.0)
              & (beta + gamma <= 1.0) & (t > 0.0))
+    if bary:
+        return t, valid, beta, gamma
     return t, valid
 
 
@@ -445,7 +666,7 @@ def _sphere_hit(s, px, py, pz, vx, vy, vz, mo=None, tau=None):
     src/sphere.cpp:31-72).  ``s`` is one row of the sphere table as Python
     floats; with motion ``mo`` (object space, Python floats) the local
     origin moves by ``mo * tau``.  Returns (t, valid, unnormalised world
-    normal xyz)."""
+    normal xyz, local hit point minus the center xyz)."""
     m = s[0:12]
     olx = m[0] * px + m[1] * py + m[2] * pz + m[3]
     oly = m[4] * px + m[5] * py + m[6] * pz + m[7]
@@ -476,7 +697,7 @@ def _sphere_hit(s, px, py, pz, vx, vy, vz, mo=None, tau=None):
     nwx = nm[0] * prx + nm[1] * pry + nm[2] * prz
     nwy = nm[3] * prx + nm[4] * pry + nm[5] * prz
     nwz = nm[6] * prx + nm[7] * pry + nm[8] * prz
-    return t, valid, nwx, nwy, nwz
+    return t, valid, nwx, nwy, nwz, prx, pry, prz
 
 
 def _slab_enter(box, px, py, pz, ivx, ivy, ivz, t_b):
@@ -532,12 +753,13 @@ class _Geometry:
         px, py, pz = (p + m * tau[:, None] for p, m in zip(rays[:3], cols[15:18]))
         return [px, py, pz, *rays[3:]]
 
-    def trace(self, px, py, pz, vx, vy, vz, tau=None):
+    def trace(self, px, py, pz, vx, vy, vz, tau=None, want_win=False):
         """Closest hit for rays (R,): (t, nx, ny, nz (unit), matf, mesh
-        light id (-1 for none), hit).  Faces in table order, strict
-        ``t < t_best``: the first index wins a tie, as in the kernel's
-        sequential sweep; a sphere hit resets the mesh-light id.  ``tau``
-        (R,) is each ray's motion time in a motion scene."""
+        light id (-1 for none), hit), and with ``want_win`` the winner:
+        the face index, -2 - s for sphere s, -1 for none.  Faces in table
+        order, strict ``t < t_best``: the first index wins a tie, as in
+        the kernel's sequential sweep; a sphere hit resets the mesh-light
+        id.  ``tau`` (R,) is each ray's motion time in a motion scene."""
         r = px.shape[0]
         t_b = torch.full((r,), BIG, dtype=px.dtype, device=px.device)
         nx = torch.zeros_like(px)
@@ -545,11 +767,12 @@ class _Geometry:
         nz = torch.ones_like(px)
         mf = torch.zeros_like(px)
         ml = torch.full_like(px, -1.0)
+        win = torch.full((r,), -1, dtype=torch.int64, device=px.device)
         rays = [c[:, None] for c in (px, py, pz, vx, vy, vz)]
         culled = self.mc.n_chunks > 1
         if culled:
             ivx, ivy, ivz = 1.0 / vx, 1.0 / vy, 1.0 / vz
-        for cols, box, moving in self.chunks:
+        for ci, (cols, box, moving) in enumerate(self.chunks):
             n_in = (_slab_enter(box, px, py, pz, ivx, ivy, ivz, t_b).sum()
                     if culled else r)
             if culled:
@@ -567,12 +790,14 @@ class _Geometry:
             nz = torch.where(better, cols[11][0, i_c], nz)
             mf = torch.where(better, cols[12][0, i_c], mf)
             ml = torch.where(better, cols[13][0, i_c], ml)
-        for s, mo in zip(self.spheres, self.sph_motion):
+            if want_win:
+                win = torch.where(better, ci * CHUNK + i_c, win)
+        for si, (s, mo) in enumerate(zip(self.spheres, self.sph_motion)):
             self._count("sphere_tests", r)
             if mo is not None and any(mo):
                 self._count("sphere_motion_tests", r)
             t, valid, nwx, nwy, nwz = _sphere_hit(s, px, py, pz, vx, vy, vz,
-                                                  mo, tau)
+                                                  mo, tau)[:5]
             better = valid & (t < t_b)
             t_b = torch.where(better, t, t_b)
             nx = torch.where(better, nwx, nx)
@@ -580,8 +805,12 @@ class _Geometry:
             nz = torch.where(better, nwz, nz)
             mf = torch.where(better, torch.full_like(mf, s[25]), mf)
             ml = torch.where(better, -1.0, ml)
+            if want_win:
+                win = torch.where(better, -2 - si, win)
         hit = t_b < BIG * 0.5
         nx, ny, nz = _norm3(nx, ny, nz)
+        if want_win:
+            return t_b, nx, ny, nz, mf, ml, hit, win
         return t_b, nx, ny, nz, mf, ml, hit
 
     def shadow(self, px, py, pz, vx, vy, vz, limit, tau=None):
@@ -623,6 +852,165 @@ class _Geometry:
             t, valid = _sphere_hit(s, px, py, pz, vx, vy, vz, mo, tau)[:2]
             blocked = blocked | (valid & (t < limit))
         return blocked
+
+
+# f32 constants of the JAX kernel (Python doubles rounded once)
+_PI = math.pi
+_INV255 = 1.0 / 255.0
+_BUMP_EPS = 1e-3
+
+
+class _Tex:
+    """The texture and env lookups of the plain version (the JAX kernel's
+    perlin_unit, img_sample, img_grey_at and env_radiance,
+    megakernel.py:1019-1142, 1323-1360), each counting its Perlin
+    evaluations and texel taps into ``count``."""
+
+    def __init__(self, mc: MegaConsts, count):
+        self.mc = mc
+        self.count = count
+        self.tint = mc.tex_int.tolist()
+        self.tflt = mc.tex_flt.tolist()
+        self.perm = mc.perm.to(torch.int64)
+
+    def kind(self, ti: int) -> int:
+        return self.tint[ti][0]
+
+    def ids(self, kind: int) -> list:
+        return [i for i in range(self.mc.n_textures) if self.tint[i][0] == kind]
+
+    def perlin(self, ti, px, py, pz):
+        """Converted Perlin sample in [0, 1] at world positions (R,)."""
+        self.count("perlin_evals", px.numel())
+        return _texture.perlin_sample(
+            torch.stack((px, py, pz), -1), torch.full_like(px, self.tflt[ti][1]),
+            torch.full_like(px, self.tint[ti][3], dtype=torch.int32), self.perm)
+
+    def _fetch(self, first, w):
+        pool = self.mc.texels
+        return lambda i, j: pool[first + j * w + i]
+
+    def sample(self, ti, u, v, raw=False):
+        """(R,3) RGB of image texture ``ti`` at tiled (u, v), scaled by
+        1/255 unless ``raw``."""
+        _, interp, _, _, w, h, first = self.tint[ti]
+        fetch = self._fetch(first, w)
+        if interp == 0:
+            rgb = fetch(*_texture.nearest_ij(u, v, w, h))
+        else:
+            rgb = _texture.bilinear(fetch, u, v, w, h)
+        self.count("texel_taps", u.numel() * (1 if interp == 0 else 4))
+        return rgb if raw else rgb * _INV255
+
+    def grey(self, ti, i, j):
+        """Mean-channel grey at integer texels (the bump taps)."""
+        _, _, _, _, w, _, first = self.tint[ti]
+        rgb = self._fetch(first, w)(i, j)
+        self.count("texel_taps", i.numel())
+        return (rgb[:, 0] + rgb[:, 1] + rgb[:, 2]) * (1.0 / 3.0)
+
+    def env(self, vx, vy, vz):
+        """Lat-long radiance * 2pi along (unnormalised) directions
+        (GetSample, sphericalEnvironmentLight.h:22-35)."""
+        w, h, first = self.mc.env
+        u = (1.0 + _div(torch.atan2(vx, -vz), _PI)) / 2.0
+        v = _div(torch.acos(torch.clamp(vy, -1.0, 1.0)), _PI)
+        self.count("texel_taps", vx.numel())
+        return self._fetch(first, w)(*_texture.nearest_ij(u, v, w, h)) * (
+            2.0 * _PI)
+
+    def surface(self, geo, tri_tab, win, hit, p, v, nrm):
+        """The winner's texture slots (R,5: diffuse, specular, bump,
+        replace_all, normal), untiled UV and tangent frame (R,18), and the
+        normal with a sphere's bump applied (megakernel.py:1548-1719)."""
+        mc = self.mc
+        r = win.shape[0]
+        nx, ny, nz = nrm
+        is_face = hit & (win >= 0)
+        fi = win.clamp(min=0)
+        row = mc.tex_face[fi]
+        slots = torch.where(is_face[:, None], row[:, 0:5], -1.0)
+        tbn = torch.where(is_face[:, None], row[:, 11:29], 0.0)
+        uu = torch.zeros(r, dtype=torch.float32, device=win.device)
+        vv = torch.zeros_like(uu)
+        sel = is_face.nonzero().squeeze(1)
+        if sel.numel():
+            f = tri_tab[fi[sel]]
+            _, _, beta, gamma = _tri_hit(
+                (f[:, 0], f[:, 1], f[:, 2]), (f[:, 3], f[:, 4], f[:, 5]),
+                (f[:, 6], f[:, 7], f[:, 8]), *(c[sel] for c in (*p, *v)),
+                bary=True)
+            q = row[sel]
+            uu[sel] = q[:, 5] + beta * (q[:, 7] - q[:, 5]) + gamma * (q[:, 9] - q[:, 5])
+            vv[sel] = q[:, 6] + beta * (q[:, 8] - q[:, 6]) + gamma * (q[:, 10] - q[:, 6])
+        for si, st in enumerate(mc.tex_sph.tolist()):
+            sel = (hit & (win == -2 - si)).nonzero().squeeze(1)
+            if not sel.numel():
+                continue
+            slots[sel] = torch.tensor([st[0], st[1], -1.0, st[2], -1.0],
+                                      device=win.device)
+            if not any(x >= 0 for x in st[0:4]):
+                continue
+            s = geo.spheres[si]
+            prx, pry, prz = _sphere_hit(s, *(c[sel] for c in (*p, *v)))[5:8]
+            # spherical UV of the local hit (sphere.cpp:138-167)
+            phi = torch.atan2(prz, prx)
+            th = torch.acos(torch.clamp(_div(pry, s[24]), -0.999999, 0.999999))
+            uu[sel] = _div(-phi + _PI, 2.0 * _PI)
+            vv[sel] = _div(th, _PI)
+            bti = int(st[3])
+            if bti < 0:
+                continue
+            # bump at intersect time in object space (sphere.cpp:116-169):
+            # analytic tangents, n = unit(bitangent x tangent), M^-T to world
+            tx_, ty_, tz_ = _norm3((2.0 * _PI) * prz, torch.zeros_like(prz),
+                                   -(2.0 * _PI) * prx)
+            bx_, by_, bz_ = _norm3(_PI * pry * torch.cos(phi),
+                                   st[5] * torch.sin(th),
+                                   _PI * pry * torch.sin(phi))
+            nbx, nby, nbz = _norm3(by_ * tz_ - bz_ * ty_, bz_ * tx_ - bx_ * tz_,
+                                   bx_ * ty_ - by_ * tx_)
+            if self.kind(bti) == 1:
+                # Perlin: local-frame gradient, no bump factor
+                h0 = self.perlin(bti, prx, pry, prz)
+                gx = _div(self.perlin(bti, prx + _BUMP_EPS, pry, prz) - h0, _BUMP_EPS)
+                gy = _div(self.perlin(bti, prx, pry + _BUMP_EPS, prz) - h0, _BUMP_EPS)
+                gz = _div(self.perlin(bti, prx, pry, prz + _BUMP_EPS) - h0, _BUMP_EPS)
+                gpar = gx * nbx + gy * nby + gz * nbz
+                obx, oby, obz = _norm3(nbx - (gx - gpar * nbx),
+                                       nby - (gy - gpar * nby),
+                                       nbz - (gz - gpar * nbz))
+            else:
+                # image: taps scale by w (not w - 1), the grey divides by
+                # the texture's normaliser (not 3)
+                w, h, bf = self.tint[bti][4], self.tint[bti][5], self.tflt[bti][0]
+                rescale = st[6]
+                i0 = torch.clamp((uu[sel] * float(w)).to(torch.int64), 0, w - 1)
+                j0 = torch.clamp((vv[sel] * float(h)).to(torch.int64), 0, h - 1)
+                i1 = torch.clamp(i0 + 1, max=w - 1)
+                j1 = torch.clamp(j0 + 1, max=h - 1)
+                h_uv = self.grey(bti, i0, j0) * rescale
+                h_du = self.grey(bti, i1, j0) * rescale
+                h_dv = self.grey(bti, i0, j1) * rescale
+                qux = tx_ + nbx * ((h_du - h_uv) * bf)
+                quy = ty_ + nby * ((h_du - h_uv) * bf)
+                quz = tz_ + nbz * ((h_du - h_uv) * bf)
+                qvx = bx_ + nbx * ((h_dv - h_uv) * bf)
+                qvy = by_ + nby * ((h_dv - h_uv) * bf)
+                qvz = bz_ + nbz * ((h_dv - h_uv) * bf)
+                obx, oby, obz = _norm3(qvy * quz - qvz * quy, qvz * qux - qvx * quz,
+                                       qvx * quy - qvy * qux)
+                flip = (obx * nbx <= 0) & (oby * nby <= 0) & (obz * nbz <= 0)
+                obx = torch.where(flip, -obx, obx)
+                oby = torch.where(flip, -oby, oby)
+                obz = torch.where(flip, -obz, obz)
+            m = s[12:21]
+            bnx, bny, bnz = _norm3(m[0] * obx + m[1] * oby + m[2] * obz,
+                                   m[3] * obx + m[4] * oby + m[5] * obz,
+                                   m[6] * obx + m[7] * oby + m[8] * obz)
+            nx, ny, nz = nx.clone(), ny.clone(), nz.clone()
+            nx[sel], ny[sel], nz[sel] = bnx, bny, bnz
+        return slots, (uu, vv), tbn, (nx, ny, nz)
 
 
 def _powmax(base, e):
@@ -669,7 +1057,7 @@ def _brdf_unit(mx, ks, nrm, wo, wi, h, default):
     wodh = torch.where(hdwo == 0.0, 1e-20, hdwo)
     g_t = torch.clamp(torch.minimum(2.0 * cos_hc * ndwo / wodh,
                                     2.0 * cos_hc * ndwi / wodh), max=1.0)
-    kd_c = torch.where(mx[:, 4] > 0.5, (1.0 - f_t) / math.pi, 1.0 / math.pi)
+    kd_c = torch.where(mx[:, 4] > 0.5, _div(1.0 - f_t, math.pi), 1.0 / math.pi)
     nn = ndwi * ndwo
     den = 4.0 * torch.where(nn == 0.0, 1e-20, nn)
     lobe = torch.where(ts, lobe * f_t * g_t / den, lobe)
@@ -696,7 +1084,7 @@ def _perturb(ax, ay, az, p1, p2, rough, is_rough):
 
 
 def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
-                   stats=None):
+                   stats=None, pix_uv=None):
     """Plain torch version of the kernels: radiance (R,3) for rays o/d (R,3).
 
     The shading tree runs as a loop over iterations, one node per active
@@ -708,18 +1096,24 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
     a time; in a motion scene every ray of a primary ray's tree sees the
     scene at the time drawn once for it.  ``draws`` is the draw table
     ``(max_iters * n_draws, R)`` of ``ops/rng.py``, needed when
-    ``mc.n_draws > 0``.  ``stats`` (a dict),
+    ``mc.n_draws > 0``; ``pix_uv`` (R,2), each ray's pixel position over
+    the image size, is needed when the scene has a replace_background
+    texture.  ``stats`` (a dict),
     when given, receives the slab, triangle and sphere tests the culled
     kernel performs on these rays, how many of the triangle and sphere
     tests are of a face or sphere that moves (``tri_motion_tests``,
-    ``sphere_motion_tests``), and the numbers of traced nodes, GI rays and
-    shadow rays."""
+    ``sphere_motion_tests``), the numbers of traced nodes, GI rays and
+    shadow rays, and the Perlin evaluations, texel taps and env
+    candidates (``perlin_evals``, ``texel_taps``, ``env_candidates``)."""
     dev, f32 = o.device, torch.float32
     r = o.shape[0]
     if mc.n_draws and (draws is None or tuple(draws.shape) != (
             mc.max_iters * mc.n_draws, r)):
         raise ValueError(f"this scene draws randoms: needs a draw table "
                          f"({mc.max_iters * mc.n_draws}, {r})")
+    if mc.bg_tex >= 0 and (pix_uv is None or tuple(pix_uv.shape) != (r, 2)):
+        raise ValueError(f"this scene has a background texture: needs "
+                         f"pix_uv ({r}, 2)")
     geo = _Geometry(mc, tri_tab, chunk_tab, stats)
     mats = mc.materials.tolist()
     ones, zeros = torch.ones(r, dtype=f32, device=dev), torch.zeros(
@@ -740,9 +1134,16 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
     cmed = ones.clone()
     cdep = torch.full((r,), mc.max_depth, dtype=torch.int32, device=dev)
     act = torch.ones(r, dtype=torch.bool, device=dev)
+    tex, env = mc.n_textures > 0, bool(mc.env)
+    tex_ops = _Tex(mc, count) if (tex or env) else None
+    # env scenes: the env-on-miss flag of each ray, carried through
+    # children and the stack (megakernel.py:1790-1824)
+    cenv = zeros.clone()
     k = mc.stack_k
-    # stack: (K, R) planes for o3 d3 w3 a3 med, plus depth
-    s_f = torch.zeros((13, max(k, 1), r), dtype=f32, device=dev)
+    # stack: (K, R) planes for o3 d3 w3 a3 med (env scenes: + the flag),
+    # plus depth
+    n_planes = 14 if env else 13
+    s_f = torch.zeros((n_planes, max(k, 1), r), dtype=f32, device=dev)
     s_dep = torch.zeros((max(k, 1), r), dtype=torch.int32, device=dev)
     sp = torch.zeros(r, dtype=torch.int64, device=dev)
     diel = mc.has_dielectric
@@ -752,9 +1153,11 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
     types = [int(m[0]) for m in mats]
     sample_direct = (not mc.pt) or mc.pt_nee
     ml_lights = mc.ml_lights.tolist()
-    # draw slots of the area lights and of the roughness pairs (rng.py)
+    # draw slots of the area lights, the env candidates and the roughness
+    # pairs (rng.py)
     base_area = 3 + 3 * len(ml_lights)
-    base_rough = base_area + 2 * mc.area_lights.shape[0]
+    base_env = base_area + 2 * mc.area_lights.shape[0]
+    base_rough = base_env + (ENV_DRAWS if env else 0)
     # the motion time: one draw per primary ray, at iteration 0, from the
     # last slot (megakernel.py:1776-1779)
     tau_all = (rng.rnd(draws, 0, mc.n_draws - 1, mc.max_iters, mc.n_draws)
@@ -789,22 +1192,55 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
         g = [x[idx] for x in (*co, *cd, *cw, *ca, cmed)]
         cox, coy, coz, cdx, cdy, cdz, cwx, cwy, cwz, cax, cay, caz, med = g
         dep = cdep[idx]
+        env_i = cenv[idx]
         tau = None if tau_all is None else tau_all[idx]
-        t, nx, ny, nz, matf, _, hit = geo.trace(cox, coy, coz, cdx, cdy, cdz,
-                                                tau)
+        if tex:
+            t, nx, ny, nz, matf, _, hit, win = geo.trace(
+                cox, coy, coz, cdx, cdy, cdz, tau, want_win=True)
+            slots, (hu, hv), tbn, (nx, ny, nz) = tex_ops.surface(
+                geo, tri_tab, win, hit, (cox, coy, coz), (cdx, cdy, cdz),
+                (nx, ny, nz))
+        else:
+            t, nx, ny, nz, matf, _, hit = geo.trace(cox, coy, coz, cdx, cdy,
+                                                    cdz, tau)
         t_safe = torch.where(hit, t, torch.zeros_like(t))
         if diel:
             cwx = cwx * torch.exp(-cax * t_safe)
             cwy = cwy * torch.exp(-cay * t_safe)
             cwz = cwz * torch.exp(-caz * t_safe)
         lr, lg, lb = (x[idx] for x in L)
-        if it == 0:
-            miss = ~hit
+
+        def add_on(lrgb, gate, rgb_of):
+            """Radiance ``rgb_of(sel)`` (n,3) on the rays ``gate``."""
+            sel = gate.nonzero().squeeze(1)
+            add = torch.zeros((gate.shape[0], 3), dtype=f32, device=dev)
+            if sel.numel():
+                add[sel] = rgb_of(sel)
+            return [lrgb[c] + torch.where(gate, (cwx, cwy, cwz)[c] * add[:, c],
+                                          0.0) for c in range(3)]
+
+        # miss resolution (raytracer.cpp:49-62; megakernel.py:1837-1872):
+        # primary misses see the background texture at the pixel UV, else
+        # the env map, else the flat colour; later misses see the env map
+        # where their branch is flagged
+        miss = ~hit
+        if mc.bg_tex >= 0 and it == 0:
+            puv = pix_uv[idx]
+            lr, lg, lb = add_on((lr, lg, lb), miss, lambda sel: tex_ops.sample(
+                mc.bg_tex, puv[sel, 0], puv[sel, 1], raw=True))
+        elif env and (mc.bg_tex < 0 or it > 0):
+            gate = miss & ((env_i > 0.5) | (it == 0 and mc.bg_tex < 0))
+            lr, lg, lb = add_on((lr, lg, lb), gate, lambda sel: tex_ops.env(
+                cdx[sel], cdy[sel], cdz[sel]))
+        elif it == 0:
             lr = lr + torch.where(miss, cwx * mc.bg[0], 0.0)
             lg = lg + torch.where(miss, cwy * mc.bg[1], 0.0)
             lb = lb + torch.where(miss, cwz * mc.bg[2], 0.0)
         px, py, pz = cox + t_safe * cdx, coy + t_safe * cdy, coz + t_safe * cdz
         wox, woy, woz = -cdx, -cdy, -cdz
+        if tex:
+            nx, ny, nz, uu, vv = _tex_normal(tex_ops, slots, (hu, hv), tbn,
+                                             (px, py, pz), (nx, ny, nz))
         inside = (med > 1.00001) if diel else torch.zeros_like(hit)
         mi = matf.to(torch.int64)
 
@@ -816,6 +1252,14 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             lg = lg + torch.where(gate_em, cwy * mat_field(mi, 20) * TWO_PI, 0.0)
             lb = lb + torch.where(gate_em, cwz * mat_field(mi, 21) * TWO_PI, 0.0)
             shadeable = hit & ~gate_em
+        if tex:
+            # replace_all: the raw sample, no lighting and no children
+            # (raytracer.cpp:87-89)
+            for ti in tex_ops.ids(0):
+                gate = shadeable & (slots[:, 3] == float(ti))
+                lr, lg, lb = add_on((lr, lg, lb), gate, lambda sel: tex_ops.sample(
+                    ti, uu[sel], vv[sel], raw=True))
+            shadeable = shadeable & (slots[:, 3] < 0.0)
         lit = shadeable & ~inside
 
         # ---- path tracing: the GI sample, traced at once so that NEE can
@@ -865,6 +1309,9 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             lb = lb + torch.where(lit, cwz * (mc.ambient[2] * mat_field(mi, 3)), 0.0)
         kd = [mat_field(mi, c) for c in (4, 5, 6)]
         ks = [mat_field(mi, c) for c in (7, 8, 9)]
+        if tex:
+            kd = _tex_reflectance(tex_ops, slots[:, 0], kd, (px, py, pz), (uu, vv))
+            ks = _tex_reflectance(tex_ops, slots[:, 1], ks, (px, py, pz), (uu, vv))
         phong = mat_field(mi, 13)
         sox, soy, soz = px + nx * eps, py + ny * eps, pz + nz * eps
 
@@ -906,7 +1353,7 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             inv = 1.0 / dist
             wi = (tlx * inv, tly * inv, tlz * inv)
             blocked = shadow_of(lit, wi, dist)
-            lrgb = add_light(lrgb, wi, [lp[3 + c] / d2 for c in range(3)],
+            lrgb = add_light(lrgb, wi, [_div(lp[3 + c], d2) for c in range(3)],
                              lit & ~blocked)
         for ld in (mc.dir_lights.tolist() if sample_direct else ()):
             wi = tuple(torch.full_like(px, ld[c]) for c in range(3))
@@ -926,7 +1373,7 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             cos_a = torch.clamp(-(sl[3] * wi[0] + sl[4] * wi[1] + sl[5] * wi[2]),
                                 -1.0, 1.0)
             irr = 1.0 / d2
-            frac = torch.clamp((cos_a - sl[9]) / sl[11], min=0.0)
+            frac = torch.clamp(_div(cos_a - sl[9], sl[11]), min=0.0)
             scale = torch.where(cos_a < sl[10], frac * frac * frac * frac, 1.0)
             scale = torch.where((cos_a >= 1.0) | (cos_a < sl[9]), 0.0, scale)
             blocked = shadow_of(lit, wi, dist)
@@ -975,6 +1422,33 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             lrgb = add_light(lrgb, wi, [rad * wgt * TWO_PI for rad in
                                         (rad_r, rad_g, rad_b)],
                              gate_in & ~blocked)
+        # the env light's direct term (raytracer.cpp:741-755): the first of
+        # 16 rejection candidates in the unit ball above the surface (the
+        # normal if none), its radiance shaded with the normal as w_i and
+        # no shadow ray — reference quirks, kept
+        if env and sample_direct:
+            ex, ey, ez = nx, ny, nz
+            accepted = torch.zeros_like(lit)
+            n_cand = torch.zeros(idx.shape[0], dtype=torch.int64, device=dev)
+            for ci in range(16):
+                n_cand = n_cand + (~accepted).to(torch.int64)
+                cx_ = 2.0 * rnd(base_env + 3 * ci) - 1.0
+                cy_ = 2.0 * rnd(base_env + 3 * ci + 1) - 1.0
+                cz_ = 2.0 * rnd(base_env + 3 * ci + 2) - 1.0
+                ok = ((cx_ * cx_ + cy_ * cy_ + cz_ * cz_ <= 1.0)
+                      & (cx_ * nx + cy_ * ny + cz_ * nz > 0.0))
+                take = ok & ~accepted
+                ex = torch.where(take, cx_, ex)
+                ey = torch.where(take, cy_, ey)
+                ez = torch.where(take, cz_, ez)
+                accepted = accepted | ok
+            count("env_candidates", n_cand[lit].sum())
+            sel = lit.nonzero().squeeze(1)
+            erad = torch.zeros((idx.shape[0], 3), dtype=f32, device=dev)
+            if sel.numel():
+                erad[sel] = tex_ops.env(ex[sel], ey[sel], ez[sel])
+            lrgb = add_light(lrgb, (nx, ny, nz), [erad[:, c] for c in range(3)],
+                             lit)
         lr, lg, lb = lrgb
 
         # ---- children: reflection continues in place, refraction pushes
@@ -984,6 +1458,7 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
         nwx, nwy, nwz = cwx, cwy, cwz
         nax = nay = naz = torch.zeros_like(px)
         nmed = torch.ones_like(px)
+        ncenv = torch.zeros_like(px)
         sp_i = sp[idx]
 
         if mc.pt:
@@ -1025,6 +1500,8 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                 nwx = torch.where(mm, cwx * mir[0], nwx)
                 nwy = torch.where(mm, cwy * mir[1], nwy)
                 nwz = torch.where(mm, cwz * mir[2], nwz)
+                # a mirror child's miss sees the env (raytracer.cpp:461-469)
+                ncenv = torch.where(mm, 1.0, ncenv)
             if mc.has_conductor:
                 # conductor Fresnel (raytracer.cpp:208-254)
                 n2 = mat_field(mi, 14)
@@ -1110,6 +1587,9 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                 nay = torch.where(rin, ab[1], nay)
                 naz = torch.where(rin, ab[2], naz)
                 nmed = torch.where(is_rl, obj_n, nmed)
+                # the reflection and refraction legs' misses see the env;
+                # total internal reflection's does not
+                ncenv = torch.where(is_rl, 1.0, ncenv)
                 # refraction leg -> push
                 f0x = (cdx + nmx * cos_i) * ratio_n - nmx * cos_p
                 f0y = (cdy + nmy * cos_i) * ratio_n - nmy * cos_p
@@ -1125,7 +1605,8 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                     px - nmx * eps, py - nmy * eps, pz - nmz * eps,
                     fdx, fdy, fdz, cwx * r_refr, cwy * r_refr, cwz * r_refr,
                     torch.where(fin, ab[0], 0.0), torch.where(fin, ab[1], 0.0),
-                    torch.where(fin, ab[2], 0.0), obj_n), dep - 1)
+                    torch.where(fin, ab[2], 0.0), obj_n)
+                    + ((torch.ones_like(px),) if env else ()), dep - 1)
 
             if mc.pt:
                 # the GI child continues where no specular chain does, and
@@ -1145,10 +1626,11 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                 nay = torch.where(gi_cont, 0.0, nay)
                 naz = torch.where(gi_cont, 0.0, naz)
                 nmed = torch.where(gi_cont, med, nmed)
+                ncenv = torch.where(gi_cont, 0.0, ncenv)
                 zero = torch.zeros_like(px)
                 sp_i = push(sp_i, idx, gi_push, (
-                    gox, goy, goz, gdx, gdy, gdz, *gi_w, zero, zero, zero, med),
-                    dep - 1)
+                    gox, goy, goz, gdx, gdy, gdz, *gi_w, zero, zero, zero, med)
+                    + ((zero,) if env else ()), dep - 1)
                 new_act = new_act | gi_cont
 
         # ---- pop for rays without a continuation
@@ -1159,12 +1641,15 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             pop_ok = need & (top < k)
             pi = idx[pop_ok]
             slot = top[pop_ok]
-            outs = [nox, noy, noz, ndx, ndy, ndz, nwx, nwy, nwz, nax, nay, naz, nmed]
-            for f in range(13):
+            outs = [nox, noy, noz, ndx, ndy, ndz, nwx, nwy, nwz, nax, nay, naz,
+                    nmed, ncenv][:n_planes]
+            for f in range(n_planes):
                 v = torch.where(need, torch.zeros_like(outs[f]), outs[f])
                 v[pop_ok] = s_f[f, slot, pi]
                 outs[f] = v
-            nox, noy, noz, ndx, ndy, ndz, nwx, nwy, nwz, nax, nay, naz, nmed = outs
+            nox, noy, noz, ndx, ndy, ndz, nwx, nwy, nwz, nax, nay, naz, nmed = outs[:13]
+            if env:
+                ncenv = outs[13]
             ndep = torch.where(need, torch.zeros_like(ndep), ndep)
             ndep[pop_ok] = s_dep[slot, pi]
             sp_i = sp_i - need.to(sp_i.dtype)
@@ -1178,8 +1663,112 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                            nax, nay, naz, nmed)):
             dst[idx] = v
         cdep[idx] = ndep
+        cenv[idx] = ncenv
         act[idx] = new_act
     return torch.stack(L, dim=-1)
+
+
+def _tex_normal(tx: _Tex, slots, uv, tbn, p, nrm):
+    """The normal after the Perlin bump, the normal map and the image bump
+    (megakernel.py:1880-2007), in that order, and the tiled UV."""
+    nx, ny, nz = nrm
+    tb, tn = slots[:, 2], slots[:, 4]
+    for ti in tx.ids(1):  # Perlin bump: the world-space gradient
+        sel = (tb == float(ti)).nonzero().squeeze(1)
+        if not sel.numel():
+            continue
+        bf = tx.tflt[ti][0]
+        qx, qy, qz = (c[sel] for c in p)
+        mx_, my_, mz_ = nx[sel], ny[sel], nz[sel]
+        h0 = tx.perlin(ti, qx, qy, qz) * bf
+        gx = _div(tx.perlin(ti, qx + _BUMP_EPS, qy, qz) * bf - h0, _BUMP_EPS)
+        gy = _div(tx.perlin(ti, qx, qy + _BUMP_EPS, qz) * bf - h0, _BUMP_EPS)
+        gz = _div(tx.perlin(ti, qx, qy, qz + _BUMP_EPS) * bf - h0, _BUMP_EPS)
+        gpar = gx * mx_ + gy * my_ + gz * mz_
+        nx, ny, nz = nx.clone(), ny.clone(), nz.clone()
+        nx[sel], ny[sel], nz[sel] = _norm3(mx_ - (gx - gpar * mx_),
+                                           my_ - (gy - gpar * my_),
+                                           mz_ - (gz - gpar * mz_))
+    uu, vv = _texture.tile_uv(uv[0]), _texture.tile_uv(uv[1])
+    # the tangent frame: world (identity scenes, against the current
+    # normal) or object space with the entity's M^-T (tbn_obj)
+    obj = tx.mc.tbn_obj
+    on = (tbn[:, 6], tbn[:, 7], tbn[:, 8]) if obj else (nx, ny, nz)
+
+    def to_world(sel, ax, ay, az):
+        if not obj:
+            return _norm3(ax, ay, az)
+        m = tbn[sel, 9:18]
+        return _norm3(m[:, 0] * ax + m[:, 1] * ay + m[:, 2] * az,
+                      m[:, 3] * ax + m[:, 4] * ay + m[:, 5] * az,
+                      m[:, 6] * ax + m[:, 7] * ay + m[:, 8] * az)
+
+    out = [nx.clone(), ny.clone(), nz.clone()]
+    for ti in tx.ids(0):
+        # tangent-space normal map (mesh.cpp:264-275): rgb / 127.5 - 1
+        sel = (tn == float(ti)).nonzero().squeeze(1)
+        if sel.numel():
+            rgb = tx.sample(ti, uu[sel], vv[sel], raw=True)
+            sx, sy, sz = (_div(rgb[:, c], 127.5) - 1.0 for c in range(3))
+            sx, sy, sz = _norm3(sx, sy, sz)
+            t3, b3 = tbn[sel, 0:3], tbn[sel, 3:6]
+            o3 = [c[sel] for c in on]
+            mapped = to_world(sel, *(t3[:, c] * sx + b3[:, c] * sy + o3[c] * sz
+                                     for c in range(3)))
+            for c in range(3):
+                out[c][sel] = mapped[c]
+        # height-field bump (mesh.cpp:310-357): forward differences of the
+        # mean-channel grey at integer texels, where no normal map fired
+        sel = ((tb == float(ti)) & (tn < 0.0)).nonzero().squeeze(1)
+        if sel.numel():
+            w, h, bf = tx.tint[ti][4], tx.tint[ti][5], tx.tflt[ti][0]
+            i0 = torch.clamp((uu[sel] * float(w - 1)).to(torch.int64), 0, w - 1)
+            j0 = torch.clamp((vv[sel] * float(h - 1)).to(torch.int64), 0, h - 1)
+            i1 = torch.clamp(i0 + 1, max=w - 1)
+            j1 = torch.clamp(j0 + 1, max=h - 1)
+            h_uv, h_du, h_dv = (tx.grey(ti, i0, j0), tx.grey(ti, i1, j0),
+                                tx.grey(ti, i0, j1))
+            t3, b3 = tbn[sel, 0:3], tbn[sel, 3:6]
+            ox, oy, oz = (c[sel] for c in on)
+            qu = [t3[:, c] + o * ((h_du - h_uv) * bf)
+                  for c, o in enumerate((ox, oy, oz))]
+            qv = [b3[:, c] + o * ((h_dv - h_uv) * bf)
+                  for c, o in enumerate((ox, oy, oz))]
+            nix, niy, niz = _norm3(qv[1] * qu[2] - qv[2] * qu[1],
+                                   qv[2] * qu[0] - qv[0] * qu[2],
+                                   qv[0] * qu[1] - qv[1] * qu[0])
+            flip = (((nix * ox <= 0) & (niy * oy <= 0) & (niz * oz <= 0))
+                    | ((nix - ox).abs() > 0.9) | ((niy - oy).abs() > 0.9)
+                    | ((niz - oz).abs() > 0.9))
+            mapped = to_world(sel, torch.where(flip, -nix, nix),
+                              torch.where(flip, -niy, niy),
+                              torch.where(flip, -niz, niz))
+            for c in range(3):
+                out[c][sel] = mapped[c]
+    return (*out, uu, vv)
+
+
+def _tex_reflectance(tx: _Tex, slot, k3, p, uv):
+    """A diffuse or specular reflectance (three (R,) channels) with the
+    texture of ``slot`` applied: a Perlin grey or an image RGB / 255
+    replaces it, or with blend_kd averages with it
+    (megakernel.py:2100-2137)."""
+    k3 = list(k3)
+    for ti in range(tx.mc.n_textures):
+        sel = (slot == float(ti)).nonzero().squeeze(1)
+        if not sel.numel():
+            continue
+        if tx.kind(ti) == 1:
+            val = tx.perlin(ti, *(c[sel] for c in p))
+            rgb = (val, val, val)
+        else:
+            s = tx.sample(ti, uv[0][sel], uv[1][sel])
+            rgb = (s[:, 0], s[:, 1], s[:, 2])
+        blend = tx.tint[ti][2]
+        for c in range(3):
+            k3[c] = k3[c].clone()
+            k3[c][sel] = (rgb[c] + k3[c][sel]) * 0.5 if blend else rgb[c]
+    return k3
 
 
 # ---------------------------------------------------------------------------
@@ -1187,17 +1776,17 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
 # ---------------------------------------------------------------------------
 
 # kernel launches per variant; only the launches of the CUDA kernels count
-LAUNCHES = {"mega_whitted": 0, "mega_pt": 0, "mega_ext": 0}
+LAUNCHES = {"mega_whitted": 0, "mega_pt": 0, "mega_ext": 0, "mega_tex": 0}
 # the csrc/<library>.cu that holds each variant
 LIBRARY = {"mega_whitted": "mega_whitted", "mega_pt": "mega_pt",
-           "mega_ext": "mega_pt"}
+           "mega_ext": "mega_pt", "mega_tex": "mega_pt"}
 # flags of the K1c variant, beside the K1a/K1b ones (csrc/mega_pt.cu)
 FLAG_ROUGH, FLAG_MOTION = 256, 512
 
 
-def _check(name, x, shape=None):
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.device.type != "cuda":
-        raise ValueError(f"{name}: needs a contiguous float32 CUDA tensor, got "
+def _check(name, x, shape=None, dtype=torch.float32):
+    if x.dtype != dtype or not x.is_contiguous() or x.device.type != "cuda":
+        raise ValueError(f"{name}: needs a contiguous {dtype} CUDA tensor, got "
                          f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
     if shape is not None and tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(x.shape)} != {tuple(shape)}")
@@ -1208,7 +1797,7 @@ def _ptr(x):
 
 
 def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
-               seed: int = 0, sample: int = 0):
+               seed: int = 0, sample: int = 0, pix_uv=None):
     """Radiance (R,3) f32 for rays o/d (R,3) f32.
 
     CPU tensors run the plain version (``mega_trace_ref``); CUDA tensors
@@ -1216,13 +1805,15 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
     draws randoms (``mc.n_draws > 0``) takes them from ``draws`` (the
     ``ops/rng.py`` table) when given, else from Philox keyed by (``seed``,
     ``sample``) — on the CPU through the table that ``philox_table`` makes
-    for the same key, so both devices draw the same numbers.  ``LAUNCHES``
-    counts the kernel launches."""
+    for the same key, so both devices draw the same numbers.  A scene with
+    a background texture needs ``pix_uv`` (R,2).  ``LAUNCHES`` counts the
+    kernel launches."""
     r = o.shape[0]
     if o.device.type == "cpu":
         if mc.n_draws and draws is None:
             draws = rng.philox_table(seed, sample, r, mc.max_iters, mc.n_draws)
-        return mega_trace_ref(mc, tri_tab, chunk_tab, o, d, draws=draws)
+        return mega_trace_ref(mc, tri_tab, chunk_tab, o, d, draws=draws,
+                              pix_uv=pix_uv)
     from advanced_cpu_raytracing_tpu_torch.ops import _build
 
     _check("o", o, (r, 3))
@@ -1235,11 +1826,23 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
         tables += ["ml_faces", "ml_lights"]
         if draws is not None:
             _check("draws", draws, (mc.max_iters * mc.n_draws, r))
-    if name == "mega_ext":
+    if name in ("mega_ext", "mega_tex"):
         tables += ["spot_lights", "area_lights", "mat_ext", "tri_motion",
                    "sph_motion"]
         _check("tri_motion", mc.tri_motion, (max(mc.n_tri, 1), MOTION_COLS))
         _check("mat_ext", mc.mat_ext, (mc.materials.shape[0], MATX_COLS))
+    if name == "mega_tex":
+        tables += ["tex_face", "tex_sph", "tex_flt", "texels"]
+        _check("tex_face", mc.tex_face, (max(mc.n_tri, 1), TEXF_COLS))
+        _check("tex_sph", mc.tex_sph, (mc.spheres.shape[0], TEXS_COLS))
+        _check("tex_int", mc.tex_int, (max(mc.n_textures, 1), TEXI_COLS),
+               torch.int32)
+        _check("perm", mc.perm, (512,), torch.int32)
+        if mc.bg_tex >= 0:
+            if pix_uv is None:
+                raise ValueError("this scene has a background texture: "
+                                 "needs pix_uv")
+            _check("pix_uv", pix_uv, (r, 2))
     for t in tables:
         _check(t, getattr(mc, t))
     if tri_tab.data_ptr() % 16 or chunk_tab.data_ptr() % 16:
@@ -1251,6 +1854,10 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                                *(getattr(mc, t) for t in tables))}
     if draws is not None:
         devs.add(draws.device)
+    if name == "mega_tex":
+        devs |= {mc.tex_int.device, mc.perm.device}
+        if mc.bg_tex >= 0:
+            devs.add(pix_uv.device)
     if len(devs) != 1:
         raise ValueError(f"mega_trace: tensors on several devices {devs}")
     out = torch.empty((r, 3), dtype=torch.float32, device=o.device)
@@ -1285,8 +1892,8 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                                        else draws.data_ptr()),
                        ctypes.c_uint32(seed & 0xFFFFFFFF),
                        ctypes.c_uint32(sample & 0xFFFFFFFF))
-            ext = None
-            if name == "mega_ext":
+            ext = tex = None
+            if name in ("mega_ext", "mega_tex"):
                 # a motion table that moves nothing goes as null: its tests
                 # skip the move
                 ext = ctypes.byref(_build.ExtParams(
@@ -1295,7 +1902,16 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                     mc.mat_ext.data_ptr(),
                     mc.tri_motion.data_ptr() if mc.faces_move else None,
                     mc.sph_motion.data_ptr() if mc.spheres_move else None))
-            rc = lib.mega_pt_launch(*pt_args, ext, stream)
+            if name == "mega_tex":
+                env_w, env_h, env_first = mc.env or (0, 0, 0)
+                tex = ctypes.byref(_build.TexParams(
+                    mc.tex_face.data_ptr(), mc.tex_sph.data_ptr(),
+                    mc.tex_int.data_ptr(), mc.tex_flt.data_ptr(),
+                    mc.texels.data_ptr(), mc.perm.data_ptr(),
+                    pix_uv.data_ptr() if mc.bg_tex >= 0 else None,
+                    mc.n_textures, int(mc.tbn_obj), mc.bg_tex, env_w, env_h,
+                    env_first))
+            rc = lib.mega_pt_launch(*pt_args, ext, tex, stream)
     if rc != 0:
         err = getattr(lib, LIBRARY[name] + "_error_string")(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({err})")

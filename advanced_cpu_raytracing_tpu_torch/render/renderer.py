@@ -128,8 +128,13 @@ def _render_image_mega(mc, tri_tab, chunk_tab, cam, n_cells: int, w: int,
             lens = torch.rand((px2.shape[0], 2), generator=generator,
                               device=dev) * 2.0 - 1.0
         o, d = generate_rays(cam, px2, py2, lens, dof=cam.use_dof)
+        # the replace_background decal samples at the pixel UV of the
+        # jittered sample (texture.h:49-52)
+        pix_uv = (torch.stack((px2 * (1.0 / w), py2 * (1.0 / h)), -1)
+                  if mc.bg_tex >= 0 else None)
         return mega_trace(mc, tri_tab, chunk_tab, o.contiguous(),
-                          d.contiguous(), seed=seed, sample=sample)
+                          d.contiguous(), seed=seed, sample=sample,
+                          pix_uv=pix_uv)
 
     col = _gaussian_multisample(trace, px, py, n_cells, jitter=jitter,
                                 generator=generator)
@@ -165,7 +170,7 @@ def render_camera(pack: ScenePack, cfg: SceneConfig, cam_cfg: CameraCfg,
     (see ``_gaussian_multisample``)."""
     dev = resolve_device(device)
     opts = options_for_camera(cfg, cam_cfg)
-    missing = mega_missing(pack.static, opts)
+    missing = mega_missing(pack.static, opts, pack)
     if missing:
         raise NotImplementedError(
             "scene outside the megakernel's envelope: "

@@ -1,18 +1,27 @@
 """Small scenes on which the K1c kernel (spot and area lights, the
-pluggable BRDFs, roughness, motion blur) is held against its plain version.
+pluggable BRDFs, roughness, motion blur) and the K1d kernel (textures and
+the environment light) are held against their plain version.
 
 They are the scenes of the JAX package's own kernel tests
 (tests/test_megakernel.py: spot + directional at line 202, the BRDF zoo at
-361, the demo scene's area light at 243, motion + roughness at 262-300),
-copied here as XML text, plus ``scenes/feat_spotareaml.xml`` as Whitted and
-as path tracing with a rough absorbing dielectric.  ``chip_smoke.py`` and
-the port's tests both take them from ``k1c_scenes``.
+361, the demo scene's area light at 243, motion + roughness at 262-300;
+Perlin textures at 403, image textures at 600, normal and bump maps at
+916, six textures at 1060, megapixel and HDR textures at 1152-1174, the
+background texture at 1261, sphere textures at 1338, transformed maps at
+1431, the sphere Perlin bump at 1558, the env light at 781 and 1227),
+copied here as XML text with writers for their image assets, plus
+``scenes/feat_spotareaml.xml`` as Whitted and as path tracing with a rough
+absorbing dielectric.  ``chip_smoke.py`` and the port's tests both take
+them from ``k1c_scenes`` and ``k1d_scenes``; ``write_feature_textures``
+makes the committed assets of ``scenes/feat_textures.xml``.
 """
 
 from __future__ import annotations
 
 import re
 from pathlib import Path
+
+import numpy as np
 
 CAM = """
   <Cameras><Camera id="1">
@@ -252,3 +261,566 @@ def k1c_scenes(scenes_dir: Path) -> dict:
         "spotareaml": spotareaml,
         "spotareaml_pt_rough_glass": spotareaml_pt_xml(spotareaml),
     }
+
+
+# ---------------------------------------------------------------------------
+# K1d: textures and the environment light
+# ---------------------------------------------------------------------------
+
+TEX_CAM = CAM.format(pos="0 1.2 4", gaze="0 -0.25 -1", name="{name}")
+
+_MATS3 = """<Materials>
+    <Material id="1"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.7 0.5 0.4</DiffuseReflectance>
+      <SpecularReflectance>0.3 0.3 0.3</SpecularReflectance>
+      <PhongExponent>25</PhongExponent></Material>
+    <Material id="2"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.2 0.4 0.8</DiffuseReflectance>
+      <SpecularReflectance>0.5 0.5 0.5</SpecularReflectance>
+      <PhongExponent>60</PhongExponent></Material>
+    <Material id="3" type="mirror"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.1 0.1 0.1</DiffuseReflectance>
+      <SpecularReflectance>0.1 0.1 0.1</SpecularReflectance>
+      <MirrorReflectance>0.9 0.9 0.9</MirrorReflectance>
+      <PhongExponent>5</PhongExponent></Material>
+  </Materials>"""
+
+_LIGHTS = """<Lights>
+    <AmbientLight>25 25 25</AmbientLight>
+    <PointLight id="1"><Position>2 4 2</Position>
+      <Intensity>900 900 900</Intensity></PointLight>
+  </Lights>"""
+
+_QUADS = """<VertexData>
+    -8 -1 4   8 -1 4   8 -1 -12   -8 -1 -12
+    -8 -1 -6   8 -1 -6   8 7 -6   -8 7 -6
+    -3 -1 1   -1 -1 1   -1 1 1    -3 1 1
+    1 -1 0.5   3 -1 0.5   3 1 0.5   1 1 0.5
+  </VertexData>"""
+
+# tests/test_megakernel.py:403: Perlin replace_kd (absval), blend_kd
+# (linear), bump_normal and replace_ks, a mirror bouncing onto the floor
+PERLIN_XML = f"""<Scene>
+  <BackgroundColor>4 4 8</BackgroundColor>
+  <MaxRecursionDepth>3</MaxRecursionDepth>
+  <ShadowRayEpsilon>1e-3</ShadowRayEpsilon>
+  {TEX_CAM.format(name="megaperlin")}
+  {_LIGHTS}
+  {_MATS3}
+  <Textures>
+    <TextureMap id="1" type="perlin">
+      <DecalMode>replace_kd</DecalMode>
+      <NoiseConversion>absval</NoiseConversion>
+      <NoiseScale>3</NoiseScale>
+    </TextureMap>
+    <TextureMap id="2" type="perlin">
+      <DecalMode>blend_kd</DecalMode>
+      <NoiseConversion>linear</NoiseConversion>
+      <NoiseScale>1.5</NoiseScale>
+    </TextureMap>
+    <TextureMap id="3" type="perlin">
+      <DecalMode>bump_normal</DecalMode>
+      <NoiseConversion>linear</NoiseConversion>
+      <NoiseScale>2.2</NoiseScale>
+      <BumpFactor>3</BumpFactor>
+    </TextureMap>
+    <TextureMap id="4" type="perlin">
+      <DecalMode>replace_ks</DecalMode>
+      <NoiseConversion>absval</NoiseConversion>
+      <NoiseScale>4</NoiseScale>
+    </TextureMap>
+  </Textures>
+  {_QUADS}
+  <TexCoordData>
+    0 1   1 1   1 0   0 0
+    0 1   1 1   1 0   0 0
+    0 1   1 1   1 0   0 0
+    0 1   1 1   1 0   0 0
+  </TexCoordData>
+  <Objects>
+    <Mesh id="1"><Material>1</Material><Textures>1 3</Textures>
+      <Faces>1 2 3  1 3 4</Faces></Mesh>
+    <Mesh id="2"><Material>2</Material><Textures>2 4</Textures>
+      <Faces>5 6 7  5 7 8</Faces></Mesh>
+    <Mesh id="3"><Material>3</Material>
+      <Faces>9 10 11  9 11 12</Faces></Mesh>
+    <Mesh id="4"><Material>2</Material><Textures>2</Textures>
+      <Faces>13 14 15  13 15 16</Faces></Mesh>
+  </Objects>
+</Scene>"""
+
+# tests/test_megakernel.py:600: nearest replace_kd with UVs tiled 0..3,
+# bilinear blend_kd and replace_ks, a Perlin replace_kd beside an image
+# replace_ks on one mesh, UVs below 0 and above 1
+IMAGE_XML = f"""<Scene>
+  <BackgroundColor>6 6 10</BackgroundColor>
+  <MaxRecursionDepth>3</MaxRecursionDepth>
+  <ShadowRayEpsilon>1e-3</ShadowRayEpsilon>
+  {TEX_CAM.format(name="megaimage")}
+  {_LIGHTS}
+  {_MATS3}
+  <Textures>
+    <Images>
+      <Image id="1">{{img1}}</Image>
+      <Image id="2">{{img2}}</Image>
+    </Images>
+    <TextureMap id="1" type="image">
+      <DecalMode>replace_kd</DecalMode><ImageId>1</ImageId>
+      <Interpolation>nearest</Interpolation>
+    </TextureMap>
+    <TextureMap id="2" type="image">
+      <DecalMode>blend_kd</DecalMode><ImageId>2</ImageId>
+      <Interpolation>bilinear</Interpolation>
+    </TextureMap>
+    <TextureMap id="3" type="image">
+      <DecalMode>replace_ks</DecalMode><ImageId>2</ImageId>
+      <Interpolation>bilinear</Interpolation>
+    </TextureMap>
+    <TextureMap id="4" type="perlin">
+      <DecalMode>replace_kd</DecalMode>
+      <NoiseConversion>absval</NoiseConversion>
+      <NoiseScale>3</NoiseScale>
+    </TextureMap>
+  </Textures>
+  {_QUADS}
+  <TexCoordData>
+    0 3   3 3   3 0   0 0
+    0 1   1 1   1 0   0 0
+    0 1   1 1   1 0   0 0
+    -0.25 1.3   1.3 1.3   1.3 -0.25   -0.25 -0.25
+  </TexCoordData>
+  <Objects>
+    <Mesh id="1"><Material>1</Material><Textures>1</Textures>
+      <Faces>1 2 3  1 3 4</Faces></Mesh>
+    <Mesh id="2"><Material>2</Material><Textures>2 3</Textures>
+      <Faces>5 6 7  5 7 8</Faces></Mesh>
+    <Mesh id="3"><Material>3</Material>
+      <Faces>9 10 11  9 11 12</Faces></Mesh>
+    <Mesh id="4"><Material>2</Material><Textures>3 4</Textures>
+      <Faces>13 14 15  13 15 16</Faces></Mesh>
+  </Objects>
+</Scene>"""
+
+# tests/test_megakernel.py:916: a nearest normal map, an image bump and a
+# bilinear replace_all
+MAPS_XML = f"""<Scene>
+  <BackgroundColor>6 6 10</BackgroundColor>
+  <MaxRecursionDepth>2</MaxRecursionDepth>
+  <ShadowRayEpsilon>1e-3</ShadowRayEpsilon>
+  {TEX_CAM.format(name="megamaps")}
+  {_LIGHTS}
+  <Materials>
+    <Material id="1"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.7 0.5 0.4</DiffuseReflectance>
+      <SpecularReflectance>0.3 0.3 0.3</SpecularReflectance>
+      <PhongExponent>25</PhongExponent></Material>
+    <Material id="2"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.2 0.4 0.8</DiffuseReflectance>
+      <SpecularReflectance>0.5 0.5 0.5</SpecularReflectance>
+      <PhongExponent>60</PhongExponent></Material>
+  </Materials>
+  <Textures>
+    <Images>
+      <Image id="1">{{img1}}</Image>
+      <Image id="2">{{img2}}</Image>
+    </Images>
+    <TextureMap id="1" type="image">
+      <DecalMode>replace_normal</DecalMode><ImageId>1</ImageId>
+      <Interpolation>nearest</Interpolation>
+    </TextureMap>
+    <TextureMap id="2" type="image">
+      <DecalMode>bump_normal</DecalMode><ImageId>2</ImageId>
+      <Interpolation>nearest</Interpolation>
+      <BumpFactor>2.5</BumpFactor>
+    </TextureMap>
+    <TextureMap id="3" type="image">
+      <DecalMode>replace_all</DecalMode><ImageId>2</ImageId>
+      <Interpolation>bilinear</Interpolation>
+    </TextureMap>
+  </Textures>
+  <VertexData>
+    -8 -1 4   8 -1 4   8 -1 -12   -8 -1 -12
+    -3 -1 1   -1 -1 1   -1 1 1    -3 1 1
+    1 -1 0.5   3 -1 0.5   3 1 0.5   1 1 0.5
+  </VertexData>
+  <TexCoordData>
+    0 3   3 3   3 0   0 0
+    0 1   1 1   1 0   0 0
+    0 1   1 1   1 0   0 0
+  </TexCoordData>
+  <Objects>
+    <Mesh id="1"><Material>1</Material>
+      <Textures>2</Textures>
+      <Faces>1 2 3  1 3 4</Faces></Mesh>
+    <Mesh id="2"><Material>2</Material>
+      <Textures>1</Textures>
+      <Faces vertexOffset="4" textureOffset="4">1 2 3  1 3 4</Faces></Mesh>
+    <Mesh id="3"><Material>2</Material>
+      <Textures>3</Textures>
+      <Faces vertexOffset="8" textureOffset="8">1 2 3  1 3 4</Faces></Mesh>
+  </Objects>
+</Scene>"""
+
+# tests/test_megakernel.py:1261: a replace_background texture around a
+# centred quad
+BG_XML = """<Scene>
+  <BackgroundColor>9 9 9</BackgroundColor>
+  <MaxRecursionDepth>2</MaxRecursionDepth>
+  <Cameras><Camera id="1">
+    <Position>0 0 3</Position><Gaze>0 0 -1</Gaze><Up>0 1 0</Up>
+    <NearPlane>-1 1 -0.75 0.75</NearPlane><NearDistance>1</NearDistance>
+    <ImageResolution>320 240</ImageResolution>
+    <ImageName>bg.png</ImageName>
+  </Camera></Cameras>
+  <Lights>
+    <AmbientLight>20 20 20</AmbientLight>
+    <PointLight id="1"><Position>0 2 3</Position>
+      <Intensity>300 300 300</Intensity></PointLight>
+  </Lights>
+  <Materials>
+    <Material id="1"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.5 0.4 0.3</DiffuseReflectance>
+      <SpecularReflectance>0.2 0.2 0.2</SpecularReflectance>
+      <PhongExponent>12</PhongExponent></Material>
+  </Materials>
+  <Textures>
+    <Images><Image id="1">{img}</Image></Images>
+    <TextureMap id="1" type="image">
+      <DecalMode>replace_background</DecalMode><ImageId>1</ImageId>
+      <Interpolation>{interp}</Interpolation>
+    </TextureMap>
+  </Textures>
+  <VertexData>
+    -0.6 -0.6 0   0.6 -0.6 0   0.6 0.6 0   -0.6 0.6 0
+  </VertexData>
+  <Objects>
+    <Mesh id="1"><Material>1</Material><Faces>1 2 3  1 3 4</Faces></Mesh>
+  </Objects>
+</Scene>"""
+
+# tests/test_megakernel.py:1338: an image texture through spherical UV
+# beside a Perlin replace_ks on one sphere
+SPHERE_TEX_XML = """<Scene>
+  <BackgroundColor>2 2 2</BackgroundColor>
+  <MaxRecursionDepth>2</MaxRecursionDepth>
+  <Cameras><Camera id="1">
+    <Position>0 0 3</Position><Gaze>0 0 -1</Gaze><Up>0 1 0</Up>
+    <NearPlane>-1 1 -0.75 0.75</NearPlane><NearDistance>1</NearDistance>
+    <ImageResolution>320 240</ImageResolution>
+    <ImageName>stex.png</ImageName>
+  </Camera></Cameras>
+  <Lights>
+    <AmbientLight>20 20 20</AmbientLight>
+    <PointLight id="1"><Position>2 3 3</Position>
+      <Intensity>500 500 500</Intensity></PointLight>
+  </Lights>
+  <Materials>
+    <Material id="1"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.5 0.4 0.3</DiffuseReflectance>
+      <SpecularReflectance>0.3 0.3 0.3</SpecularReflectance>
+      <PhongExponent>15</PhongExponent></Material>
+  </Materials>
+  <Textures>
+    <Images><Image id="1">{img}</Image></Images>
+    <TextureMap id="1" type="image">
+      <DecalMode>{decal}</DecalMode><ImageId>1</ImageId>
+      <Interpolation>{interp}</Interpolation>
+    </TextureMap>
+    <TextureMap id="2" type="perlin">
+      <DecalMode>replace_ks</DecalMode>
+      <NoiseScale>4</NoiseScale>
+      <NoiseConversion>absval</NoiseConversion>
+    </TextureMap>
+  </Textures>
+  <VertexData>
+    0 0 0   -2 -1.2 -1   2 -1.2 -1   0 1.4 -1
+  </VertexData>
+  <Objects>
+    <Mesh id="1"><Material>1</Material>
+      <Faces>2 3 4</Faces></Mesh>
+    <Sphere id="1"><Material>1</Material><Textures>{tex}</Textures>
+      <Center>1</Center><Radius>0.8</Radius></Sphere>
+  </Objects>
+</Scene>"""
+
+
+def env_xml(image: str = "env.exr", mirror: bool = True,
+            roughness: float | None = None) -> str:
+    """tests/test_megakernel.py:781: a floor and a mirror sphere under a
+    SphericalDirectionalLight (mirror children see the env on a miss);
+    with ``roughness`` the mirror is rough (the env's 48 draw slots then
+    sit below the roughness pair's)."""
+    rough = ("" if roughness is None
+             else f"<Roughness>{roughness}</Roughness>")
+    sphere = """<Sphere id="1"><Material>2</Material><Center>5</Center>
+      <Radius>1.0</Radius></Sphere>""" if mirror else ""
+    return f"""<Scene>
+  <BackgroundColor>0 0 0</BackgroundColor>
+  <MaxRecursionDepth>2</MaxRecursionDepth>
+  <Cameras><Camera id="1">
+    <Position>0 1 4</Position><Gaze>0 -0.1 -1</Gaze><Up>0 1 0</Up>
+    <NearPlane>-1 1 -0.75 0.75</NearPlane><NearDistance>1</NearDistance>
+    <ImageResolution>320 240</ImageResolution>
+    <ImageName>t.png</ImageName>
+  </Camera></Cameras>
+  <Lights>
+    <AmbientLight>5 5 5</AmbientLight>
+    <SphericalDirectionalLight id="1"><ImageId>1</ImageId>
+    </SphericalDirectionalLight>
+  </Lights>
+  <Materials>
+    <Material id="1"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.6 0.6 0.6</DiffuseReflectance>
+      <SpecularReflectance>0.2 0.2 0.2</SpecularReflectance>
+      <PhongExponent>20</PhongExponent></Material>
+    <Material id="2" type="Mirror"><AmbientReflectance>0 0 0</AmbientReflectance>
+      <DiffuseReflectance>0.1 0.1 0.1</DiffuseReflectance>
+      <SpecularReflectance>0 0 0</SpecularReflectance>
+      <MirrorReflectance>0.9 0.9 0.9</MirrorReflectance>
+      <PhongExponent>1</PhongExponent>{rough}</Material>
+  </Materials>
+  <Textures><Images><Image id="1">{image}</Image></Images></Textures>
+  <VertexData>
+    -6 -1 4   6 -1 4   6 -1 -8   -6 -1 -8
+    0 0 -2
+  </VertexData>
+  <Objects>
+    <Mesh id="1"><Material>1</Material><Faces>1 2 3  1 3 4</Faces></Mesh>
+    {sphere}
+  </Objects>
+</Scene>"""
+
+
+def write_random_png(path, w: int, h: int, seed: int) -> None:
+    """Uniform random LDR texels from a seed (the JAX tests'
+    ``_write_test_png``)."""
+    from advanced_cpu_raytracing_tpu_torch.scene.images import write_png
+
+    write_png(str(path), np.random.default_rng(seed).integers(
+        0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def env_map(w: int = 64, h: int = 32) -> np.ndarray:
+    """The JAX env test's lat-long map: ramps in x and y, a bright band."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    return np.stack([1.0 + 3.0 * xs / w, 0.5 + 2.0 * ys / h,
+                     2.0 + np.where((ys > 8) & (ys < 14), 6.0, 0.0)],
+                    axis=-1).astype(np.float32)
+
+
+def checkerboard_png(path, n: int = 8, cell: int = 4) -> None:
+    """tests/scene_builders.py:13-20: an n x n checkerboard of cell-pixel
+    squares, yellow-ish and blue-ish."""
+    from advanced_cpu_raytracing_tpu_torch.scene.images import write_png
+
+    size = n * cell
+    yy, xx = np.mgrid[0:size, 0:size]
+    mask = ((yy // cell + xx // cell) % 2).astype(np.uint8)
+    write_png(str(path), np.stack([mask * 255, mask * 255,
+                                   np.full_like(mask, 128)], axis=-1))
+
+
+def gradient_map(w: int = 64, h: int = 32) -> np.ndarray:
+    """tests/scene_builders.py:23-32: a lat-long map bright near the +y
+    pole, dark at -y."""
+    v = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    img = np.zeros((h, w, 3), np.float32)
+    img[..., 0] = 2.0 * (1 - v)
+    img[..., 1] = 1.0
+    img[..., 2] = 2.0 * v
+    return img
+
+
+def _six_textures(xml: str) -> str:
+    """IMAGE_XML grown to six maps (tests/test_megakernel.py:1060): a
+    Perlin bump beside the floor's image, an image blend on the mirror."""
+    xml = xml.replace(
+        """    <TextureMap id="4" type="perlin">""",
+        """    <TextureMap id="5" type="perlin">
+      <DecalMode>bump_normal</DecalMode>
+      <NoiseConversion>linear</NoiseConversion>
+      <NoiseScale>2</NoiseScale>
+      <BumpFactor>0.5</BumpFactor>
+    </TextureMap>
+    <TextureMap id="6" type="image">
+      <DecalMode>blend_kd</DecalMode><ImageId>1</ImageId>
+      <Interpolation>nearest</Interpolation>
+    </TextureMap>
+    <TextureMap id="4" type="perlin">""")
+    xml = xml.replace(
+        '<Mesh id="3"><Material>3</Material>\n      <Faces>9 10 11  9 11 12</Faces></Mesh>',
+        '<Mesh id="3"><Material>3</Material><Textures>6</Textures>\n'
+        '      <Faces>9 10 11  9 11 12</Faces></Mesh>')
+    return xml.replace("<Textures>1</Textures>", "<Textures>1 5</Textures>")
+
+
+def _transformed_maps(xml: str) -> str:
+    """MAPS_XML with a non-uniform scale on the bump floor and a rotation
+    on the normal-mapped wall (tests/test_megakernel.py:1431)."""
+    xml = xml.replace("<Objects>", """<Transformations>
+    <Scaling id="1">1.4 0.8 1.1</Scaling>
+    <Rotation id="1">25 0 1 0</Rotation>
+  </Transformations>
+  <Objects>""")
+    xml = xml.replace('<Mesh id="1"><Material>1</Material>',
+                      '<Mesh id="1"><Material>1</Material>'
+                      '<Transformations>s1</Transformations>')
+    return xml.replace('<Mesh id="2"><Material>2</Material>',
+                       '<Mesh id="2"><Material>2</Material>'
+                       '<Transformations>r1</Transformations>')
+
+
+# the K1d scenes that draw randoms (the env light's candidates)
+K1D_SAMPLED = {"env", "env_big", "env_rough", "env_motion_rough",
+               "spotareaml_env", "spotareaml_env_pt_rough_glass"}
+
+
+def with_env(xml: str, image: str) -> str:
+    """A scene's XML with a SphericalDirectionalLight on ``image`` added
+    (the scene must have no <Textures> of its own)."""
+    return xml.replace(
+        "</Lights>", "<SphericalDirectionalLight id=\"1\"><ImageId>1"
+        "</ImageId></SphericalDirectionalLight></Lights>"
+        f"<Textures><Images><Image id=\"1\">{image}</Image></Images></Textures>")
+
+
+def k1d_scenes(asset_dir, scenes_dir=None) -> dict:
+    """name -> XML of the K1d checks' scenes, their image assets written
+    into ``asset_dir`` (the XML names them relative to it: write the XML
+    there too).  With ``scenes_dir`` (the repo's scenes/), also
+    ``feat_spotareaml.xml`` under the env light, as Whitted and as path
+    tracing with a rough glass sphere: every light kind's draw slots below
+    the env's, and the roughness pair above them."""
+    from advanced_cpu_raytracing_tpu_torch.scene.images import write_exr, write_hdr
+
+    d = Path(asset_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    pngs = {"t16.png": (16, 16, 3), "t33x7.png": (33, 7, 4),
+            "nm16.png": (16, 16, 5), "bump33x7.png": (33, 7, 6),
+            "big164x127.png": (164, 127, 3), "big150x110.png": (150, 110, 4),
+            "bg37x23.png": (37, 23, 8), "stex48x31.png": (48, 31, 9),
+            "stex16.png": (16, 16, 9)}
+    for name, (w, h, seed) in pngs.items():
+        write_random_png(d / name, w, h, seed)
+    write_exr(str(d / "hdr40x30.exr"), np.random.default_rng(9).uniform(
+        0.0, 400.0, (30, 40, 3)).astype(np.float32))
+    write_exr(str(d / "env64x32.exr"), env_map(64, 32))
+    write_exr(str(d / "env200x100.exr"), env_map(200, 100))
+    checkerboard_png(d / "checker32.png")
+    write_hdr(str(d / "gradient64x32.hdr"), gradient_map())
+
+    scenes = {
+        "perlin": PERLIN_XML,
+        "image": IMAGE_XML.format(img1="t16.png", img2="t33x7.png"),
+        "maps": MAPS_XML.format(img1="nm16.png", img2="bump33x7.png"),
+        "six_textures": _six_textures(IMAGE_XML.format(img1="t16.png",
+                                                       img2="t33x7.png")),
+        "big_nearest": IMAGE_XML.format(img1="big164x127.png", img2="t33x7.png"),
+        "big_bilinear": IMAGE_XML.format(img1="t16.png", img2="big150x110.png"),
+        "hdr_texture": IMAGE_XML.format(img1="hdr40x30.exr", img2="t33x7.png"),
+        "bg_nearest": BG_XML.format(img="bg37x23.png", interp="nearest"),
+        "bg_bilinear": BG_XML.format(img="bg37x23.png", interp="bilinear"),
+        "transformed_maps": _transformed_maps(
+            MAPS_XML.format(img1="nm16.png", img2="bump33x7.png")),
+        "sphere_perlin_bump": SPHERE_TEX_XML.format(
+            img="stex16.png", decal="replace_kd", interp="nearest",
+            tex="1 2").replace("<DecalMode>replace_ks</DecalMode>",
+                               "<DecalMode>bump_normal</DecalMode>"),
+        "env": env_xml("env64x32.exr"),
+        "env_big": env_xml("env200x100.exr"),
+        "env_rough": env_xml("env64x32.exr", roughness=0.2),
+        # the env light with motion (the K1d motion instantiation): the
+        # roughness pair above the env's 48 slots, the motion time last
+        "env_motion_rough": with_env(MOTION_ROUGH_XML, "env64x32.exr"),
+    }
+    for decal, interp, tex in (("replace_kd", "nearest", "1 2"),
+                               ("blend_kd", "bilinear", "1"),
+                               ("replace_all", "bilinear", "1"),
+                               ("bump_normal", "nearest", "1")):
+        # the bump reads the checkerboard: steps of the height field
+        img = "checker32.png" if decal == "bump_normal" else "stex48x31.png"
+        scenes[f"sphere_{decal}"] = SPHERE_TEX_XML.format(
+            img=img, decal=decal, interp=interp, tex=tex)
+    if scenes_dir is not None:
+        spotareaml = (Path(scenes_dir) / "feat_spotareaml.xml").read_text()
+        scenes["spotareaml_env"] = with_env(spotareaml, "gradient64x32.hdr")
+        scenes["spotareaml_env_pt_rough_glass"] = with_env(
+            spotareaml_pt_xml(spotareaml), "gradient64x32.hdr")
+    return scenes
+
+
+# ---------------------------------------------------------------------------
+# the assets of scenes/feat_textures.xml (committed under scenes/textures/)
+# ---------------------------------------------------------------------------
+
+
+def _bricks(w: int, h: int, bw: int = 128, bh: int = 64):
+    """Per texel: (brick row, brick column, x within the brick, y within
+    it) of a running-bond brick wall, rows offset by half a brick."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    row = yy // bh
+    xs = xx + (row % 2) * (bw // 2)
+    return row, xs // bw, xs % bw, yy % bh
+
+
+def feature_texture_images() -> dict:
+    """file name -> (H,W,3) array of the main-path scene's textures, made
+    deterministically: a 1024x1024 tile floor (uint8), a 1024x1024 brick
+    normal map (uint8, replace_normal and replace_kd of the back wall), a
+    1024x1024 brick height map (uint8 grey, the left wall's bump), a
+    1024x512 lat-long checker for the sphere (uint8) and a 1024x512 HDR sky
+    (float32) for the SphericalDirectionalLight."""
+    rng = np.random.default_rng(2024)
+    # floor: 16 x 16 tiles of 64 px from a 24-colour palette, dark grout
+    palette = rng.integers(40, 256, (24, 3))
+    ty, tx = np.mgrid[0:1024, 0:1024] // 64
+    floor = palette[rng.integers(0, 24, (16, 16))[ty, tx]]
+    yy, xx = np.mgrid[0:1024, 0:1024]
+    floor[((yy % 64) < 4) | ((xx % 64) < 4)] = (30, 28, 26)
+    # bricks: bevelled edges as constant normals, flat faces, mortar
+    row, _, bx, by = _bricks(1024, 1024)
+    nrm = np.zeros((1024, 1024, 3), np.float32)
+    nrm[..., 2] = 1.0
+    bev, s = 10, 0.6
+    for mask, (nx, ny) in (((bx < bev), (-s, 0.0)), ((bx >= 128 - bev), (s, 0.0)),
+                           ((by < bev), (0.0, s)), ((by >= 64 - bev), (0.0, -s))):
+        nrm[mask] = (nx, ny, np.sqrt(1.0 - s * s))
+    mortar = (bx < 3) | (by < 3)
+    nrm[mortar] = (0.0, 0.0, 1.0)
+    normal = np.clip(np.round(nrm * 127.5 + 127.5), 0, 255)
+    height = np.where(mortar, 40, 40 + np.minimum(np.minimum(bx, 127 - bx),
+                                                  np.minimum(by, 63 - by))
+                      .clip(0, 12) * 15)
+    # sphere: a 32 x 16 lat-long checker of two colours
+    sy, sx = np.mgrid[0:512, 0:1024]
+    check = ((sy // 32 + sx // 32) % 2)[..., None]
+    sphere = np.where(check, (230, 190, 60), (40, 90, 200))
+    # sky: zenith blue to a warm horizon, a dim ground, one small sun
+    v = (np.arange(512, dtype=np.float32) + 0.5) / 512.0
+    u = (np.arange(1024, dtype=np.float32) + 0.5) / 1024.0
+    sky = np.zeros((512, 1024, 3), np.float32)
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)[:, None, None]
+    sky[:] = (up * np.float32([4.0, 7.0, 14.0])
+              + (1.0 - up) * np.float32([12.0, 9.0, 6.0]))
+    sky[256:] = np.float32([2.0, 1.8, 1.5])
+    sun = ((u[None, :] - 0.3) ** 2 * 4.0 + (v[:, None] - 0.2) ** 2) < 0.0004
+    sky[sun] = (300.0, 280.0, 240.0)
+    return {"floor_tiles.png": floor.astype(np.uint8),
+            "brick_normal.png": normal.astype(np.uint8),
+            "brick_height.png": np.repeat(height[..., None], 3, -1).astype(np.uint8),
+            "sphere_checker.png": sphere.astype(np.uint8),
+            "sky.hdr": sky}
+
+
+def write_feature_textures(out_dir) -> None:
+    """Write ``feature_texture_images`` into ``out_dir`` (PNG and flat
+    RGBE .hdr)."""
+    from advanced_cpu_raytracing_tpu_torch.scene.images import write_hdr, write_png
+
+    d = Path(out_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    for name, img in feature_texture_images().items():
+        if name.endswith(".hdr"):
+            write_hdr(str(d / name), img)
+        else:
+            write_png(str(d / name), img)

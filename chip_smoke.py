@@ -5,10 +5,10 @@
 Phases, each printing one JSON line:
   1. probe: the card's name and power limit, torch's CUDA version, nvcc;
   2. build the megakernel sources, one nvcc each, started together:
-     csrc/mega_whitted.cu (K1a) and csrc/mega_pt.cu (K1b and K1c, static
-     and with motion), with ptxas's register, frame and spill lines per
-     kernel (kept beside a cached library); K1a must keep its 72 registers
-     and K1b its 77;
+     csrc/mega_whitted.cu (K1a) and csrc/mega_pt.cu (K1b, and K1c and K1d,
+     each static and with motion), with ptxas's register, frame and spill
+     lines per kernel (kept beside a cached library); K1a must keep its 72
+     registers, K1b its 77 and K1c its 84 (90 with motion);
   3. K1a against its plain torch version on 65,536 primary rays of
      scenes/whitted_conductors.xml (1 spp, no DoF);
   4. the Whitted main path: render_camera on scenes/whitted_conductors.xml
@@ -47,8 +47,32 @@ Phases, each printing one JSON line:
  11. K1c at its main path's shape (640,000 rays of one sample through
      the lens, Philox):
      time per launch, the plain version's time and error on the same rays
-     and draws, and the bound of the counted FP32 work.
-Then the kernels line, the card line and, last, the result line.  Any
+     and draws, and the bound of the counted FP32 work;
+ 12. K1d (mega_tex) against its plain version on 65,536 primary rays in
+     both draw modes on the K1d scenes of
+     advanced_cpu_raytracing_tpu_torch/scene/feature_scenes.py (Perlin,
+     image, normal and bump maps, six textures, megapixel and HDR
+     textures, the background texture, transformed maps, sphere textures
+     and bumps, the env light with small and large maps and with a rough
+     mirror, scenes/feat_spotareaml.xml under the env light as Whitted and
+     as path tracing with a rough glass) and on scenes/feat_textures.xml
+     as Whitted and as path tracing at its depth 4 (NEE + importance
+     sampling, by substitution; the plain version on every 4th of the
+     65,536 rays); scenes without draws are held to K1a's bound, the others
+     to K1c's;
+ 13. the K1d main path: render_camera on scenes/feat_textures.xml at
+     800x800, 16 spp, depth 4, u8 clamp on the device — with the counters
+     set to 0 before it, K1d must launch 16 times and the others never;
+     one warm-up frame, then the median of 3 timed frames; then one
+     unwarmed 16-spp frame of its path-tracing variant;
+ 14. K1d at its main path's shape (640,000 rays of one sample, Philox):
+     time per launch, the plain version's time and error on every 8th of
+     those rays and their draws, and the bound of the counted FP32 work
+     (the plain version's counts times 8), Perlin evaluations, texel taps
+     and env candidates included.
+Every phase line carries t_s, the seconds since the script started.
+Then the kernels line (each entry with its rays and the plain version's
+stride over them), the card line and, last, the result line.  Any
 failed check raises and ends the run with a non-zero exit code; without a
 CUDA card it exits non-zero before printing any result.
 """
@@ -72,12 +96,15 @@ SCENES = ROOT / "scenes"
 WHITTED_SCENE = SCENES / "whitted_conductors.xml"
 PT_SCENE = SCENES / "feat_pt.xml"
 LIGHTS_SCENE = SCENES / "feat_lights_brdf.xml"
+TEXTURES_SCENE = SCENES / "feat_textures.xml"
 REPLACES = "advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py:912"
-# registers of the K1a and K1b kernels since they were first measured;
-# K1c's extension must not change their code
-KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77}
+# registers of the K1a, K1b and K1c kernels since they were first
+# measured; the later variants' policies must not change their code
+KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
+                  "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90}
 KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
-                  "mega_ext_motion_kernel")
+                  "mega_ext_motion_kernel", "mega_tex_kernel",
+                  "mega_tex_motion_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -104,10 +131,22 @@ TRI_FLOPS, SLAB_FLOPS, SPHERE_FLOPS = 38, 22, 66
 # motion moves the origin of each test of a moving face or sphere (3 mul +
 # 3 add)
 MOTION_FLOPS = 6
+# K1d, counted in csrc/mega_tex.cuh: a Perlin evaluation (3 scales, 3
+# floors, 3 fractions, then per corner of 8: 3 offsets, the gradient dot
+# (3 mul + 2 add), three fades (10 each), their product (2) and the
+# accumulation (2); the conversion 2); a texel tap (a bilinear sample's
+# coordinates, weights and RGB blend over its 4 taps: 44 / 4); an env
+# candidate (3 draws to [-1, 1]: 6, the ball test 5, the hemisphere test 5)
+PERLIN_FLOPS, TAP_FLOPS, ENV_CAND_FLOPS = 347, 11, 16
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw, "t_s": time.perf_counter() - T0}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -117,9 +156,16 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def exact_frac(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The share of rays whose radiance equals the plain version's bit for
+    bit."""
+    return float((got == ref).all(dim=1).double().mean())
+
+
 def check_close(got: torch.Tensor, ref: torch.Tensor, what: str) -> dict:
     diff = (got - ref).abs().flatten().double()
     err = {"max_abs_err": float(diff.max()),
+           "exact_frac": exact_frac(got, ref),
            "mean_abs_err": float(diff.mean()),
            "q999_abs_err": float(torch.quantile(diff, 0.999))}
     if not (torch.isfinite(got).all() and err["mean_abs_err"] < MEAN_TOL
@@ -135,6 +181,7 @@ def check_close_pt(got: torch.Tensor, ref: torch.Tensor, what: str,
     m_got, m_ref = float(got.double().mean()), float(ref.double().mean())
     err = {"max_abs_err": float(diff.max()),
            "frac_within": float(within.double().mean()),
+           "exact_frac": exact_frac(got, ref),
            "mean": m_got, "plain_mean": m_ref}
     if not (torch.isfinite(got).all() and err["frac_within"] >= PT_FRAC
             and abs(m_got - m_ref) <= mean_rel * abs(m_ref)):
@@ -159,7 +206,10 @@ def bound(stats: dict, n_bytes: int) -> dict:
              + stats.get("slab_tests", 0) * SLAB_FLOPS
              + stats.get("sphere_tests", 0) * SPHERE_FLOPS
              + (stats.get("tri_motion_tests", 0)
-                + stats.get("sphere_motion_tests", 0)) * MOTION_FLOPS)
+                + stats.get("sphere_motion_tests", 0)) * MOTION_FLOPS
+             + stats.get("perlin_evals", 0) * PERLIN_FLOPS
+             + stats.get("texel_taps", 0) * TAP_FLOPS
+             + stats.get("env_candidates", 0) * ENV_CAND_FLOPS)
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
     return {"flops": flops, "bytes": n_bytes, "ops_ms": ops_ms,
@@ -205,7 +255,9 @@ def main() -> int:
         generate_rays,
     )
     from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+        K1D_SAMPLED,
         k1c_scenes,
+        k1d_scenes,
         path_traced,
     )
     from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
@@ -242,14 +294,18 @@ def main() -> int:
             raise AssertionError(f"{kern}: {regs.get(kern)}, expected {n} "
                                  f"registers")
 
-    def kernel_entry(name, launches, kernel_ms, plain_ms, bd, err):
+    def kernel_entry(name, launches, kernel_ms, plain_ms, bd, err, rays,
+                     stride):
+        """One kernel's entry of the kernels line; plain_ms is the plain
+        version's time on every ``stride``-th of the ``rays`` rays."""
         return {"name": name, "route": "cuda",
                 "source": f"advanced_cpu_raytracing_tpu_torch/csrc/"
                           f"{mk.LIBRARY[name]}.cu",
                 "replaces": REPLACES, "launches": launches,
                 "max_abs_err": err["max_abs_err"], "ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
-                "bound_by": bd["bound_by"], "library_ms": None}
+                "bound_by": bd["bound_by"], "library_ms": None, "rays": rays,
+                "plain_stride": stride, "plain_rays": -(-rays // stride)}
 
     def scene(path_or_xml, name=None):
         if name is not None:  # an XML text: write it beside nothing else
@@ -331,41 +387,51 @@ def main() -> int:
     def table_bytes(mc, tabs):
         tables = [*tabs[:2], mc.spheres, mc.materials, mc.point_lights,
                   mc.dir_lights, mc.ml_faces, mc.ml_lights]
-        if mc.kernel == "mega_ext":
+        if mc.kernel in ("mega_ext", "mega_tex"):
             tables += [mc.spot_lights, mc.area_lights, mc.mat_ext]
             # a motion table that moves nothing is not read
             tables += ([mc.tri_motion] if mc.faces_move else []) + (
                 [mc.sph_motion] if mc.spheres_move else [])
+        if mc.kernel == "mega_tex":
+            # the texel pool and the texture tables, each read once
+            tables += [mc.texels, mc.tex_face, mc.tex_sph, mc.tex_int,
+                       mc.tex_flt, mc.perm]
         return sum(t.numel() * 4 for t in tables)
 
-    def at_main_shape(mc, tri_tab, chunk_tab, cam_cfg, cam, kernel, what):
+    def at_main_shape(mc, tri_tab, chunk_tab, cam_cfg, cam, kernel, what,
+                      stride=1):
         """The kernel on one sample's rays (Philox): ms per launch, the
-        plain version's time and error on the same rays and draws, and the
-        bound of the counted work."""
+        plain version's time and error on the same rays and draws (every
+        ``stride``-th ray), and the bound of the counted work (the plain
+        version's counts times ``stride``)."""
         o, d = sample_rays(cam_cfg, cam, cam_cfg.num_samples)
         got = mk.mega_trace(mc, tri_tab, chunk_tab, o, d, seed=0, sample=0)
         kernel_ms = cuda_ms(lambda: mk.mega_trace(mc, tri_tab, chunk_tab, o, d,
                                                   seed=0, sample=0), 5)
+        n_rays = o.shape[0]
         stats: dict = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        draws = (philox_table(0, 0, o.shape[0], mc.max_iters, mc.n_draws,
-                              device=dev) if mc.n_draws else None)
+        draws = (philox_table(0, 0, n_rays, mc.max_iters, mc.n_draws,
+                              device=dev)[:, ::stride].contiguous()
+                 if mc.n_draws else None)
+        o, d, got = (t[::stride].contiguous() for t in (o, d, got))
         ref = mk.mega_trace_ref(mc, tri_tab, chunk_tab, o, d, draws=draws,
                                 stats=stats)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        del draws
         if kernel == "mega_whitted":
             err = check_close(got, ref, what)
         else:
-            err = check_close_pt(got, ref, what, EXT_MEAN_REL if kernel ==
-                                 "mega_ext" else PT_MEAN_REL)
-        bd = bound(stats, (o.numel() + d.numel() + got.numel()) * 4
-                   + table_bytes(mc, (tri_tab, chunk_tab)))
-        emit("kernel_at_main_shape", kernel=kernel, rays=o.shape[0],
-             kernel_ms=kernel_ms, plain_ms=plain_ms, **bd, **err, **stats,
-             card=card)
-        return kernel_ms, plain_ms, bd, err
+            err = check_close_pt(got, ref, what, EXT_MEAN_REL if kernel in (
+                "mega_ext", "mega_tex") else PT_MEAN_REL)
+        bd = bound({k: v * stride for k, v in stats.items()},
+                   n_rays * 9 * 4 + table_bytes(mc, (tri_tab, chunk_tab)))
+        emit("kernel_at_main_shape", kernel=kernel, rays=n_rays,
+             plain_stride=stride, kernel_ms=kernel_ms, plain_ms=plain_ms, **bd,
+             **err, **stats, card=card)
+        return kernel_ms, plain_ms, bd, err, n_rays, stride
 
     kernels = []
 
@@ -386,11 +452,11 @@ def main() -> int:
     emit("main_path", kernel="mega_whitted", scene=WHITTED_SCENE.name, **mp)
 
     # 5. K1a at the main path's shape: one sample's 640,000 rays
-    kernel_ms, plain_ms, bd, err = at_main_shape(
+    kernel_ms, plain_ms, bd, err, n_rays, stride = at_main_shape(
         mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_whitted",
         "K1a, 640,000 rays of one sample")
     kernels.append(kernel_entry("mega_whitted", mp["launches"], kernel_ms, plain_ms,
-                                bd, err))
+                                bd, err, n_rays, stride))
 
     # ---- K1b: the path-tracing path ----
     # 6. kernel vs plain on 65,536 primary rays, both draw modes
@@ -452,11 +518,11 @@ def main() -> int:
              radiance_mean=float(hdr.mean()), card=card)
 
     # 8. K1b at the main path's shape: one sample's 640,000 rays, Philox
-    kernel_ms, plain_ms, bd, err = at_main_shape(
+    kernel_ms, plain_ms, bd, err, n_rays, stride = at_main_shape(
         mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_pt",
         "K1b, 640,000 rays of one sample")
     kernels.append(kernel_entry("mega_pt", mp["launches"], kernel_ms, plain_ms,
-                                bd, err))
+                                bd, err, n_rays, stride))
 
     # ---- K1c: spot and area lights, BRDFs, roughness, motion ----
     # 9. kernel vs plain on 65,536 primary rays, both draw modes
@@ -517,11 +583,103 @@ def main() -> int:
          radiance_mean=float(hdr.mean()), card=card)
 
     # 11. K1c at the main path's shape: one sample's 640,000 rays, Philox
-    kernel_ms, plain_ms, bd, err = at_main_shape(
+    kernel_ms, plain_ms, bd, err, n_rays, stride = at_main_shape(
         mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_ext",
         "K1c, 640,000 rays of one sample")
     kernels.append(kernel_entry("mega_ext", mp["launches"], kernel_ms, plain_ms,
-                                bd, err))
+                                bd, err, n_rays, stride))
+
+    # ---- K1d: textures and the environment light ----
+    # 12. kernel vs plain on 65,536 primary rays, both draw modes
+    tex_dir = out_dir / "k1d"
+    variants = [(name, xml, name in K1D_SAMPLED, tex_dir / f"{name}.xml", 1)
+                for name, xml in k1d_scenes(tex_dir, SCENES).items()]
+    # the main path's scene beside its mesh and textures, Whitted and PT;
+    # the plain version's path tracing at depth 4 (247 node iterations over
+    # 257 chunks) takes minutes on all 65,536 rays, so its PT check runs on
+    # every 4th of them
+    main_dir = out_dir / "feat_textures"
+    main_dir.mkdir()
+    for name in ("whitted_conductors_mesh.ply", "textures"):
+        (main_dir / name).symlink_to(SCENES / name)
+    tex_xml = TEXTURES_SCENE.read_text()
+    variants += [
+        ("feat_textures.xml", tex_xml, True, main_dir / "feat_textures.xml", 1),
+        ("feat_textures.xml, path tracing", path_traced(tex_xml), True,
+         main_dir / "feat_textures_pt.xml", 4)]
+    for label, xml, sampled, path, stride in variants:
+        path.write_text(xml)
+        _, _, v_cam_cfg, (vmc, vtri, vchunk), vcam = scene(path)
+        if vmc.kernel != "mega_tex":
+            raise AssertionError(f"{label}: routed to {vmc.kernel}")
+        if sampled != (vmc.n_draws > 0):
+            raise AssertionError(f"{label}: n_draws {vmc.n_draws}")
+        rng = np.random.default_rng(4)
+        w, h = v_cam_cfg.width, v_cam_cfg.height
+        px = torch.as_tensor(rng.uniform(0, w, 65536).astype(np.float32),
+                             device=dev)[::stride].contiguous()
+        py = torch.as_tensor(rng.uniform(0, h, 65536).astype(np.float32),
+                             device=dev)[::stride].contiguous()
+        o, d = (t.contiguous() for t in generate_rays(vcam, px, py))
+        pix_uv = (torch.stack((px * (1.0 / w), py * (1.0 / h)), -1)
+                  if vmc.bg_tex >= 0 else None)
+        rows = vmc.max_iters * vmc.n_draws
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        for mode, draws in (
+                ("table", torch.rand((rows, o.shape[0]), generator=gen,
+                                     device=dev) if rows else None),
+                ("philox", None)):
+            got = mk.mega_trace(vmc, vtri, vchunk, o, d, draws=draws, seed=13,
+                                sample=6, pix_uv=pix_uv)
+            torch.cuda.synchronize()
+            if draws is None and rows:
+                draws = philox_table(13, 6, o.shape[0], vmc.max_iters,
+                                     vmc.n_draws, device=dev)
+            ref = mk.mega_trace_ref(vmc, vtri, vchunk, o, d, draws=draws,
+                                    pix_uv=pix_uv)
+            if rows:
+                err = check_close_pt(got, ref, f"K1d, {label}, {mode}",
+                                     EXT_MEAN_REL)
+                tol = dict(atol=PT_ATOL, rtol=PT_RTOL, frac_tol=PT_FRAC,
+                           mean_rel_tol=EXT_MEAN_REL)
+            else:
+                err = check_close(got, ref, f"K1d, {label}, {mode}")
+                tol = dict(mean_tol=MEAN_TOL, q999_tol=Q999_TOL)
+            emit("kernel_vs_plain", kernel="mega_tex", scene=label, draws=mode,
+                 rays=o.shape[0], stride=stride, depth=vmc.max_depth,
+                 max_iters=vmc.max_iters, stack_k=vmc.stack_k,
+                 n_draws=vmc.n_draws, n_textures=vmc.n_textures,
+                 texels=vmc.texels.shape[0], **err, **tol)
+        del draws
+
+    # 13. the K1d main path, then one frame of its path-tracing variant
+    cfg, pack, cam_cfg, (mc, tri_tab, chunk_tab), cam = scene(TEXTURES_SCENE)
+    mp = main_path(pack, cfg, cam_cfg, "mega_tex", "K1d main path")
+    emit("main_path", kernel="mega_tex", scene=TEXTURES_SCENE.name, **mp)
+    v_cfg, v_pack, v_cam_cfg, _, _ = scene(main_dir / "feat_textures_pt.xml")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hdr = renderer.render_camera(v_pack, v_cfg, v_cam_cfg, seed=0, device=dev)
+    frame_s = time.perf_counter() - t0
+    ldr = renderer.ldr_from_radiance(hdr)
+    if not (np.isfinite(hdr).all() and hdr.min() >= 0.0
+            and 5.0 < float(ldr.mean()) < 250.0):
+        raise AssertionError(f"K1d path-tracing frame: finite "
+                             f"{np.isfinite(hdr).all()}, min {hdr.min()}, "
+                             f"u8 mean {ldr.mean()}")
+    write_png(str(out_dir / "mega_tex_feat_textures_pt.png"), ldr)
+    emit("frame", kernel="mega_tex", scene="feat_textures.xml, path tracing",
+         spp=v_cam_cfg.num_samples, frame_s=frame_s, u8_mean=float(ldr.mean()),
+         radiance_mean=float(hdr.mean()), card=card)
+
+    # 14. K1d at the main path's shape: one sample's 640,000 rays, Philox;
+    # the plain version on every 8th of them, to keep the script's time
+    kernel_ms, plain_ms, bd, err, n_rays, stride = at_main_shape(
+        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_tex",
+        "K1d, 640,000 rays of one sample", stride=8)
+    kernels.append(kernel_entry("mega_tex", mp["launches"], kernel_ms, plain_ms,
+                                bd, err, n_rays, stride))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -17,14 +17,22 @@ from advanced_cpu_raytracing_tpu_torch.render.renderer import (
     options_for_camera,
     render_camera,
 )
-from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import path_traced
+from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+    K1D_SAMPLED,
+    k1d_scenes,
+    path_traced,
+)
 from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
 from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
 from test_torch_common import (
+    COARSE_TORUS,
+    REPO,
     coarse_slice_scene,
     k1c_scenes,
     lights_brdf_scene,
+    ply_bytes,
     pt_scene,
+    torus_mesh,
 )
 
 pytestmark = pytest.mark.cuda
@@ -86,15 +94,28 @@ def test_wrapper_checks_inputs(cuda, tmp_path):
 
 
 def test_scene_outside_envelope_raises_on_cuda(cuda, tmp_path):
+    """A textured scene renders through K1d on the card; with a pluggable
+    BRDF added it is outside the envelope and raises, naming that."""
     from PIL import Image
     from scene_builders import textured_xml
 
     Image.fromarray(np.kron(np.eye(2, dtype=np.uint8) * 255, np.ones(
         (4, 4), np.uint8))[..., None].repeat(3, -1)).save(tmp_path / "checker.png")
     path = tmp_path / "tex.xml"
-    path.write_text(textured_xml(str(tmp_path / "checker.png"), tex_ids="1"))
+    path.write_text(textured_xml(str(tmp_path / "checker.png"), tex_ids="1 2",
+                                 res=16))
     cfg = load_scene(str(path))
-    with pytest.raises(NotImplementedError, match="textures"):
+    before = dict(mk.LAUNCHES)
+    img = render_camera(pack_scene(cfg, device=cuda), cfg, cfg.cameras[0],
+                        spp=1, device=cuda)
+    assert mk.LAUNCHES["mega_tex"] == before["mega_tex"] + 1
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    path.write_text(path.read_text().replace(
+        '<Material id="1">', '<Material id="1" BRDF="1">').replace(
+        "<Materials>", "<BRDFs><OriginalPhong id=\"1\"><Exponent>20"
+        "</Exponent></OriginalPhong></BRDFs><Materials>"))
+    cfg = load_scene(str(path))
+    with pytest.raises(NotImplementedError, match="textures together with"):
         render_camera(pack_scene(cfg, device=cuda), cfg, cfg.cameras[0],
                       device=cuda)
 
@@ -206,3 +227,72 @@ def test_ext_render_camera_launches_once_per_sample(cuda, tmp_path, pt):
     assert (after["mega_pt"], after["mega_whitted"]) == (
         before["mega_pt"], before["mega_whitted"])
     assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("name,mode", [("six_textures", "philox"),
+                                       ("env_rough", "table"),
+                                       ("spotareaml_env_pt_rough_glass",
+                                        "philox")])
+def test_tex_kernel_matches_plain_version(cuda, tmp_path, name, mode):
+    """K1d against its plain version on the same draws: scenes without
+    draws to K1a's bound, the others to K1c's."""
+    path = tmp_path / f"{name}.xml"
+    path.write_text(k1d_scenes(tmp_path, REPO / "scenes")[name])
+    cfg = load_scene(str(path))
+    pack = pack_scene(cfg, device=cuda)
+    mc, tab, ctab = mk.build_mega(pack, options_for_camera(cfg, cfg.cameras[0]),
+                                  device=cuda)
+    assert mc.kernel == "mega_tex" and (mc.n_draws > 0) == (name in K1D_SAMPLED)
+    cam = build_camera(cfg.cameras[0], device=cuda)
+    rng = np.random.default_rng(6)
+    n = 4096
+    w, h = cfg.cameras[0].width, cfg.cameras[0].height
+    px = torch.as_tensor(rng.uniform(0, w, n).astype(np.float32), device=cuda)
+    py = torch.as_tensor(rng.uniform(0, h, n).astype(np.float32), device=cuda)
+    o, d = (t.contiguous() for t in generate_rays(cam, px, py))
+    rows = mc.max_iters * mc.n_draws
+    draws = (torch.rand((rows, n), generator=torch.Generator(device=cuda)
+                        .manual_seed(4), device=cuda)
+             if mode == "table" and rows else None)
+    before = dict(mk.LAUNCHES)
+    got = mk.mega_trace(mc, tab, ctab, o, d, draws=draws, seed=5, sample=2)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["mega_tex"] == before["mega_tex"] + 1
+    if draws is None and rows:
+        draws = philox_table(5, 2, n, mc.max_iters, mc.n_draws, device=cuda)
+    ref = mk.mega_trace_ref(mc, tab, ctab, o, d, draws=draws)
+    diff = (got - ref).abs()
+    assert torch.isfinite(got).all()
+    if rows:
+        assert (diff <= 1e-3 + 1e-3 * ref.abs()).all(dim=1).float().mean() >= 0.995
+        assert abs(float(got.mean()) - float(ref.mean())) <= 1e-3 * float(ref.mean())
+    else:
+        assert float(diff.mean()) < 0.01
+        assert float(torch.quantile(diff.flatten(), 0.999)) < 0.5
+
+
+def test_tex_render_camera_launches_once_per_sample(cuda, tmp_path):
+    """feat_textures.xml (coarse torus, 48 px) on the card: K1d launches
+    once per sample and no other variant, and the frame agrees with the
+    CPU frame of the same jitter and Philox draws."""
+    xml = (REPO / "scenes" / "feat_textures.xml").read_text().replace(
+        "800 800", "48 48")
+    path = tmp_path / "feat_textures.xml"
+    path.write_text(xml)
+    (tmp_path / "whitted_conductors_mesh.ply").write_bytes(
+        ply_bytes(*torus_mesh(**COARSE_TORUS)))
+    (tmp_path / "textures").symlink_to(REPO / "scenes" / "textures")
+    cfg = load_scene(str(path))
+    jitter = torch.rand((4, 48 * 48, 2), generator=torch.Generator().manual_seed(3))
+    before = dict(mk.LAUNCHES)
+    got = render_camera(pack_scene(cfg, device=cuda), cfg, cfg.cameras[0],
+                        seed=7, spp=4, device=cuda, jitter=jitter)
+    after = dict(mk.LAUNCHES)
+    assert after["mega_tex"] == before["mega_tex"] + 4
+    assert all(after[k] == before[k] for k in ("mega_whitted", "mega_pt",
+                                                "mega_ext"))
+    want = render_camera(pack_scene(cfg, device="cpu"), cfg, cfg.cameras[0],
+                         seed=7, spp=4, device="cpu", jitter=jitter)
+    du8 = np.abs(ldr_from_radiance(got).astype(int)
+                 - ldr_from_radiance(want).astype(int))
+    assert np.isfinite(got).all() and (du8.max(axis=-1) > 1).mean() <= 0.01

@@ -124,10 +124,11 @@ def test_mega_eligible_accepts_path_tracing(name):
     assert mc.kernel == "mega_pt" and mc.n_draws == 6
 
 
-def test_mega_eligible_rejects_spot_and_area_lights(tmp_path):
-    """Spot and area lights are inside the envelope since K1c; the scene
-    with them is refused once it also has an environment light (K1d), and
-    only for that."""
+def test_mega_eligible_accepts_spot_area_and_env_lights(tmp_path):
+    """Spot and area lights are inside the envelope since K1c, and an
+    environment light since K1d: the scene with both routes to the K1d
+    variant and renders on the CPU; a second environment light is refused,
+    and only for that."""
     cfg = load_scene(str(REPO / "scenes" / "feat_spotareaml.xml"))
     pack = pack_scene(cfg, device="cpu")
     opts = options_for_camera(cfg, cfg.cameras[0])
@@ -136,31 +137,56 @@ def test_mega_eligible_rejects_spot_and_area_lights(tmp_path):
     assert mk.mega_eligible(pack.static, opts)
     img = tmp_path / "sky.png"
     Image.fromarray(np.full((4, 8, 3), 200, np.uint8)).save(img)
+    env = ("<SphericalDirectionalLight id=\"{}\"><ImageId>1</ImageId>"
+           "</SphericalDirectionalLight>")
     xml = (REPO / "scenes" / "feat_spotareaml.xml").read_text().replace(
-        "</Lights>", "<SphericalDirectionalLight id=\"1\"><ImageId>1"
-        "</ImageId></SphericalDirectionalLight></Lights>"
+        "</Lights>", env.format(1) + "</Lights>"
         f"<Textures><Images><Image id=\"1\">{img}</Image></Images></Textures>")
+    xml = re.sub(r"<ImageResolution>.*?</ImageResolution>",
+                 "<ImageResolution>12 9</ImageResolution>", xml)
     path = tmp_path / "env.xml"
     path.write_text(xml)
     cfg = load_scene(str(path))
     pack = pack_scene(cfg, device="cpu")
-    assert mk.mega_missing(pack.static, opts) == ["environment light"]
-    assert not mk.mega_eligible(pack.static, opts)
+    assert mk.mega_missing(pack.static, opts, pack) == []
+    assert mk.mega_eligible(pack.static, opts, pack)
+    mc = mk.build_mega(pack, opts, device="cpu")[0]
+    assert mc.kernel == "mega_tex" and mc.env == (8, 4, 0)
+    frame = render_camera(pack, cfg, cfg.cameras[0], spp=1, device="cpu")
+    assert frame.shape == (9, 12, 3) and np.isfinite(frame).all()
+    path.write_text(xml.replace("</Lights>", env.format(2) + "</Lights>"))
+    cfg = load_scene(str(path))
+    pack = pack_scene(cfg, device="cpu")
+    assert mk.mega_missing(pack.static, opts, pack) == [
+        "more than one environment light"]
     with pytest.raises(NotImplementedError, match="environment light"):
         render_camera(pack, cfg, cfg.cameras[0], device="cpu")
 
 
 def test_mega_eligible_rejects_textures(tmp_path):
+    """Image and Perlin textures route to the K1d variant since K1d; the
+    same scene is refused once a pluggable BRDF shades it, naming that."""
     img = tmp_path / "checker.png"
     Image.fromarray(np.kron(np.eye(2, dtype=np.uint8) * 255, np.ones(
         (4, 4), np.uint8))[..., None].repeat(3, -1)).save(img)
     xml = tmp_path / "tex.xml"
-    xml.write_text(textured_xml(str(img), tex_ids="1"))
+    xml.write_text(textured_xml(str(img), tex_ids="1 2", res=8))
     cfg = load_scene(str(xml))
     pack = pack_scene(cfg, device="cpu")
     opts = options_for_camera(cfg, cfg.cameras[0])
-    assert mk.mega_missing(pack.static, opts) == ["textures"]
-    with pytest.raises(NotImplementedError, match="textures"):
+    assert mk.mega_missing(pack.static, opts, pack) == []
+    assert mk.build_mega(pack, opts, device="cpu")[0].kernel == "mega_tex"
+    frame = render_camera(pack, cfg, cfg.cameras[0], spp=1, device="cpu")
+    assert frame.shape == (8, 8, 3) and np.isfinite(frame).all()
+    xml.write_text(xml.read_text().replace(
+        '<Material id="1">', '<Material id="1" BRDF="1">').replace(
+        "<Materials>", "<BRDFs><OriginalPhong id=\"1\"><Exponent>20"
+        "</Exponent></OriginalPhong></BRDFs><Materials>"))
+    cfg = load_scene(str(xml))
+    pack = pack_scene(cfg, device="cpu")
+    missing = mk.mega_missing(pack.static, opts, pack)
+    assert len(missing) == 1 and "pluggable BRDF" in missing[0]
+    with pytest.raises(NotImplementedError, match="textures together with"):
         render_camera(pack, cfg, cfg.cameras[0], device="cpu")
 
 
@@ -183,3 +209,17 @@ def test_scene_without_materials_renders_with_the_default_row(tmp_path):
     assert cfg.materials == [] and mc.materials.shape == (1, mk.MAT_COLS)
     img = render_camera(pack, cfg, cfg.cameras[0], device="cpu", spp=1)
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+
+
+def test_plain_version_divides_once():
+    """``_div`` rounds a quotient once, as the kernels' IEEE division does
+    (a float32 quotient rounded from float64 is the correctly rounded one);
+    torch's number over a tensor is the tensor's reciprocal times the
+    number, which rounds twice."""
+    x = torch.as_tensor(np.random.default_rng(3).uniform(0.01, 10.0, 4096)
+                        .astype(np.float32))
+    want = (7.0 / x.double()).float()
+    assert torch.equal(mk._div(7.0, x), want)
+    assert not torch.equal(7.0 / x, want)
+    eps = float(np.float32(1e-3))
+    assert torch.equal(mk._div(x, 1e-3), (x.double() / eps).float())
