@@ -12,14 +12,32 @@ SoA node table:
 
 Interior nodes have count == 0 (mesh.cpp:125).  The face permutation makes
 consecutive faces spatially coherent, which the megakernel's 128-face chunk
-culls rely on.
+culls and its tree's 16-row leaves rely on.
+
+From ``NATIVE_MIN_FACES`` faces, as in the JAX package (its accel/bvh.py),
+the build runs in ``native/bvh_builder.cpp``: compiled with g++ at first use
+into ``build/native/`` beside the package, named by a hash of the source and
+flags, and called through ctypes.  It builds the same tree as the numpy
+builder, node for node.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
+import subprocess
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
+
+NATIVE_MIN_FACES = 4096
+_SOURCE = Path(__file__).resolve().parents[1] / "native" / "bvh_builder.cpp"
+_BUILD_DIR = _SOURCE.parents[2] / "build" / "native"
+# no FMA contraction, so the split planes round as numpy's do
+_CXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
+_LIB = None
 
 
 @dataclass
@@ -40,9 +58,58 @@ class FlatBVH:
 
 def build_bvh(face_bbox_min: np.ndarray, face_bbox_max: np.ndarray,
               face_center: np.ndarray) -> FlatBVH:
-    """Build a BVH over faces given per-face bboxes and centers (numpy;
-    the JAX package switches to native C++ code from 4,096 faces, which
-    orders faces differently)."""
+    """Build a BVH over faces given per-face bboxes and centers: numpy
+    below ``NATIVE_MIN_FACES`` faces, the native builder from there."""
+    if len(face_center) >= NATIVE_MIN_FACES:
+        return _build_bvh_native(face_bbox_min, face_bbox_max, face_center)
+    return _build_bvh_numpy(face_bbox_min, face_bbox_max, face_center)
+
+
+def _native_lib() -> ctypes.CDLL:
+    """The native builder, compiled on first use; a failed build raises
+    with the compiler's output."""
+    global _LIB
+    if _LIB is None:
+        blob = _SOURCE.read_bytes() + " ".join(_CXX_FLAGS).encode()
+        lib = _BUILD_DIR / f"libbvh_{hashlib.sha1(blob).hexdigest()[:16]}.so"
+        if not lib.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(["g++", *_CXX_FLAGS, "-o", str(tmp),
+                                   str(_SOURCE)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed on {_SOURCE.name}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, lib)
+        cdll = ctypes.CDLL(str(lib))
+        cdll.acrt_build_bvh.restype = ctypes.c_int32
+        cdll.acrt_build_bvh.argtypes = [ctypes.c_int32] + [ctypes.c_void_p] * 11
+        _LIB = cdll
+    return _LIB
+
+
+def _build_bvh_native(face_bbox_min, face_bbox_max, face_center) -> FlatBVH:
+    n = len(face_center)
+    cap = 2 * n - 1
+    ins = [np.ascontiguousarray(a, np.float32)
+           for a in (face_bbox_min, face_bbox_max, face_center)]
+    node_min = np.empty((cap, 3), np.float32)
+    node_max = np.empty((cap, 3), np.float32)
+    ints = [np.empty(cap, np.int32) for _ in range(4)]
+    order = np.empty(n, np.int32)
+    depth = np.zeros(1, np.int32)
+    num = _native_lib().acrt_build_bvh(
+        n, *(a.ctypes.data for a in (*ins, node_min, node_max, *ints, order,
+                                     depth)))
+    if num <= 0:
+        raise RuntimeError(f"native BVH build failed on {n} faces")
+    left, right, first, count = (a[:num] for a in ints)
+    return FlatBVH(node_min[:num], node_max[:num], left, right, first, count,
+                   order, int(depth[0]))
+
+
+def _build_bvh_numpy(face_bbox_min: np.ndarray, face_bbox_max: np.ndarray,
+                     face_center: np.ndarray) -> FlatBVH:
     n = len(face_center)
     fmin = np.asarray(face_bbox_min, np.float32)
     fmax = np.asarray(face_bbox_max, np.float32)

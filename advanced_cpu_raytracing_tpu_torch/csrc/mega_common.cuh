@@ -1,5 +1,5 @@
 // mega_common.cuh — scene tables and ray queries shared by the megakernel
-// variants (mega_whitted.cu: K1a, mega_pt.cu: K1b and K1c).
+// variants (mega_whitted.cu: K1a, mega_pt.cu: K1b, K1c and K1d).
 //
 // The closest hit over BVH-ordered 128-face triangle chunks behind AABB
 // slab culls plus analytic spheres, and the shadow query, of the TPU kernel
@@ -12,6 +12,24 @@
 // scene's motion as a type: NoMotion (K1a, K1b) compiles to the static
 // scene's code, Motion (K1c) moves each test's ray origin by +motion * tau
 // before the test, as the TPU kernel does (lines 1379-1382, 1421-1425).
+//
+// They take the geometry as a type too.  FlatChunks sweeps the 128-face
+// chunks in table order, for scenes up to 98,304 faces.  ChunkTree (K1e)
+// replaces the TPU kernel's streamed two-level sweep over larger tables
+// (chunk_sweep's stream_geo branch, lines 1481-1526, its DMA from HBM at
+// 2725-2777): each thread walks a BVH over leaves of at most 16 consecutive
+// rows (ops/megakernel.py::_tree_table) with a stack of TREE_STACK node
+// indices in local memory, nearer child first, culled by slab tests that
+// keep a box whose face plane the ray runs in.  The walk visits faces out
+// of row order, so the closest hit keeps a node while its entry is <=
+// t_best and takes a face at t < t_best, or at t == t_best from a lower
+// row: the sequential sweep's winner, the lowest row among the closest
+// faces.  Bound: on the 524,288-face terrain the bytes of its tables, each
+// read once (tri_tab 33.5 MB, the tree 2 MB), just above the FP32 work of
+// the nodes and faces the walks visit (ops/megakernel.py::TreeWalker counts
+// them); a query reads only its path's nodes and leaves, so the table need
+// not fit the 50 MB L2, but the walks diverge and each node load waits on
+// the last.
 
 #pragma once
 
@@ -31,12 +49,18 @@ constexpr int MAT_MIRROR = 1, MAT_DIELECTRIC = 2, MAT_CONDUCTOR = 3,
               MAT_EMISSIVE = 4;
 constexpr int FLAG_MIRROR = 1, FLAG_DIELECTRIC = 2, FLAG_CONDUCTOR = 4;
 constexpr int THREADS = 128;
+constexpr int NODE_COLS = 8;     // tree node: min xyz, max xyz, then two
+                                 // int32: interior: second child (the first
+                                 // is the next node), 0; leaf: first row,
+                                 // row count (1..16)
+constexpr int TREE_STACK = 64;   // the walk's stack; the host checks depth
 
 struct Params {
   const float* tri;
   int n_tri;
   const float* chunk;
   int n_chunks;
+  const float* nodes;  // the tree (ChunkTree), or null
   const float* sph;
   int n_sph;
   const float* mat;
@@ -51,7 +75,8 @@ struct Params {
 
 // The scene part of the launch arguments; consts = eps, ambient 3, bg 3.
 inline Params make_params(const float* tri, int n_tri, const float* chunk,
-                          int n_chunks, const float* sph, int n_sph,
+                          int n_chunks, const float* nodes, const float* sph,
+                          int n_sph,
                           const float* mat, int n_mat, const float* pl,
                           int n_point, const float* dl, int n_dir,
                           const float* consts, int max_depth, int stack_k,
@@ -61,6 +86,7 @@ inline Params make_params(const float* tri, int n_tri, const float* chunk,
   P.n_tri = n_tri;
   P.chunk = chunk;
   P.n_chunks = n_chunks;
+  P.nodes = nodes;
   P.sph = sph;
   P.n_sph = n_sph;
   P.mat = mat;
@@ -235,6 +261,122 @@ __device__ __forceinline__ bool slab(const float* box, float px, float py,
   return tmax > 0.0f && tmax >= tmin && tmin < t_b;
 }
 
+// The geometry of trace and shadow: the 128-face chunks in table order
+// (K1a-K1d), or the tree over 16-row leaves (K1e).
+struct FlatChunks {
+  static constexpr bool kTree = false;
+};
+struct ChunkTree {
+  static constexpr bool kTree = true;
+};
+
+// One axis of a node's slab test: the distances at which the ray enters and
+// leaves [lo, hi] along it.  A ray parallel to the axis (iv = +-inf) that
+// lies on one of the two planes makes 0 * inf = NaN there; that plane then
+// counts as not limiting the ray, so the walk keeps every box the ray
+// touches (the chunk sweep's `slab` would drop it).
+__device__ __forceinline__ void slab_axis(float lo, float hi, float p,
+                                          float iv, float& t_in,
+                                          float& t_out) {
+  float t1 = (lo - p) * iv, t2 = (hi - p) * iv;
+  const float inf = copysignf(__int_as_float(0x7f800000), iv);
+  if (t1 != t1) t1 = -inf;
+  if (t2 != t2) t2 = inf;
+  t_in = fminf(t1, t2);
+  t_out = fmaxf(t1, t2);
+}
+
+// The slab test of a node's box (lo: min xyz, max x; hi: max yz): the
+// ray's entry distance, or +inf where the ray misses the box.
+__device__ __forceinline__ float slab_entry(const float4 lo, const float4 hi,
+                                            float px, float py, float pz,
+                                            float ivx, float ivy, float ivz) {
+  float tmin, tmax, t_in, t_out;
+  slab_axis(lo.x, lo.w, px, ivx, tmin, tmax);
+  slab_axis(lo.y, hi.x, py, ivy, t_in, t_out);
+  tmin = fmaxf(tmin, t_in);
+  tmax = fminf(tmax, t_out);
+  slab_axis(lo.z, hi.y, pz, ivz, t_in, t_out);
+  tmin = fmaxf(tmin, t_in);
+  tmax = fminf(tmax, t_out);
+  return tmax > 0.0f && tmax >= tmin ? tmin : __int_as_float(0x7f800000);
+}
+
+// The tree walk (K1e).  kAny: any face hit below tb (the shadow limit),
+// skipping emissive faces with kSkipEmissive; returns at the first.  Else
+// the closest hit: tb and best become the lowest row among the closest
+// faces, as the sequential sweep finds it.
+template <bool kAny, bool kSkipEmissive, class M>
+__device__ bool tree_walk(const Params& P, const M& mo, float px, float py,
+                          float pz, float vx, float vy, float vz, float& tb,
+                          int& best) {
+  const float ivx = 1.0f / vx, ivy = 1.0f / vy, ivz = 1.0f / vz;
+  int stack[TREE_STACK];
+  float stack_t[TREE_STACK];
+  int sp = 0;
+  int node = 0;
+  float4 lo = ld4(P.nodes), hi = ld4(P.nodes + 4);
+  float t_in = slab_entry(lo, hi, px, py, pz, ivx, ivy, ivz);
+  if (kAny ? !(t_in < tb) : !(t_in <= tb)) return false;
+  while (true) {
+    const int a = __float_as_int(hi.z), cnt = __float_as_int(hi.w);
+    if (cnt > 0) {  // a leaf: rows a .. a + cnt - 1
+      for (int f = a; f < a + cnt; ++f) {
+        const float* r = P.tri + f * TRI_COLS;
+        float t;
+        if constexpr (kAny) {
+          if (tri_hit_m(mo, f, r, px, py, pz, vx, vy, vz, tb, t) &&
+              !(kSkipEmissive && __ldg(r + 14) >= 0.5f))
+            return true;
+        } else {
+          // t <= tb passes (the next float above tb > 0); at t == tb the
+          // lower row wins
+          if (tri_hit_m(mo, f, r, px, py, pz, vx, vy, vz,
+                        __int_as_float(__float_as_int(tb) + 1), t) &&
+              (t < tb || f < best)) {
+            tb = t;
+            best = f;
+          }
+        }
+      }
+    } else {  // interior: children node + 1 and a, the nearer one first
+      const float* nl = P.nodes + (node + 1) * NODE_COLS;
+      const float* nr = P.nodes + a * NODE_COLS;
+      const float4 llo = ld4(nl), lhi = ld4(nl + 4);
+      const float4 rlo = ld4(nr), rhi = ld4(nr + 4);
+      const float tl = slab_entry(llo, lhi, px, py, pz, ivx, ivy, ivz);
+      const float tr = slab_entry(rlo, rhi, px, py, pz, ivx, ivy, ivz);
+      const bool hl = kAny ? tl < tb : tl <= tb;
+      const bool hr = kAny ? tr < tb : tr <= tb;
+      if (hl && hr) {
+        const bool right_first = tr < tl;
+        stack[sp] = right_first ? node + 1 : a;
+        stack_t[sp] = right_first ? tl : tr;
+        ++sp;
+        node = right_first ? a : node + 1;
+        lo = right_first ? rlo : llo;
+        hi = right_first ? rhi : lhi;
+        continue;
+      }
+      if (hl || hr) {
+        node = hl ? node + 1 : a;
+        lo = hl ? llo : rlo;
+        hi = hl ? lhi : rhi;
+        continue;
+      }
+    }
+    // pop the next node still in reach
+    do {
+      if (sp == 0) return false;
+      --sp;
+      t_in = stack_t[sp];
+    } while (kAny ? !(t_in < tb) : !(t_in <= tb));
+    node = stack[sp];
+    lo = ld4(P.nodes + node * NODE_COLS);
+    hi = ld4(P.nodes + node * NODE_COLS + 4);
+  }
+}
+
 struct Hit {
   float t, nx, ny, nz;
   int mat;
@@ -246,16 +388,19 @@ struct Hit {
 // the strict t < t_best test, so a tie keeps the earlier face.  With
 // kMeshLight the winner's mesh-light id comes along; a sphere resets it.
 // With kWin, win[0] names the winning face and win[1] the winning sphere
-// (-1 where the other won or nothing was hit).  The chunk culls test the
-// unmoved origin against boxes swept over the motion.
-template <bool kMeshLight, class M = NoMotion, bool kWin = false>
+// (-1 where the other won or nothing was hit).  The chunk and node culls
+// test the unmoved origin against boxes swept over the motion.
+template <bool kMeshLight, class M = NoMotion, bool kWin = false,
+          class G = FlatChunks>
 __device__ Hit trace(const Params& P, float px, float py, float pz, float vx,
                      float vy, float vz, const M& mo = M(),
                      int* win = nullptr) {
   float tb = BIG;
   int best = -1;
   if (P.n_tri > 0) {
-    if (P.n_chunks <= 1) {
+    if constexpr (G::kTree) {
+      tree_walk<false, false>(P, mo, px, py, pz, vx, vy, vz, tb, best);
+    } else if (P.n_chunks <= 1) {
       for (int f = 0; f < P.n_tri; ++f) {
         float t;
         if (tri_hit_m(mo, f, P.tri + f * TRI_COLS, px, py, pz, vx, vy, vz,
@@ -322,11 +467,19 @@ __device__ Hit trace(const Params& P, float px, float py, float pz, float vx,
 // src/raytracer.cpp:567-583); returns at the first blocker.  With
 // kSkipEmissive, emissive faces cast no shadow (CastShadowRay,
 // raytracer.cpp:590-593).
-template <bool kSkipEmissive, class M = NoMotion>
+template <bool kSkipEmissive, class M = NoMotion, class G = FlatChunks>
 __device__ bool shadow(const Params& P, float px, float py, float pz,
                        float vx, float vy, float vz, float limit,
                        const M& mo = M()) {
-  if (P.n_tri > 0) {
+  if constexpr (G::kTree) {
+    if (P.n_tri > 0) {
+      float lim = limit;
+      int none = -1;
+      if (tree_walk<true, kSkipEmissive>(P, mo, px, py, pz, vx, vy, vz, lim,
+                                         none))
+        return true;
+    }
+  } else if (P.n_tri > 0) {
     float t;
     if (P.n_chunks <= 1) {
       for (int f = 0; f < P.n_tri; ++f) {

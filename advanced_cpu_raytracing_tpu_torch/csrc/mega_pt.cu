@@ -41,6 +41,10 @@
 // rejection candidates, draw slots 3 + 3 n_ml + 2 n_area onwards, before
 // the roughness pair (megakernel.py:1548-2135, 2352-2374, 2383-2678).
 //
+// K1e (the *_tree_kernel entries) is each of these five over a tree in
+// place of the 128-face chunk sweep, for scenes past 98,304 faces: the
+// geometry policy ChunkTree of mega_common.cuh (FlatChunks for the others).
+//
 // Design.  As K1a (mega_whitted.cu), whose scene tables and ray queries it
 // shares through mega_common.cuh: one thread per ray, 128 threads per
 // block, one node per loop iteration.  A live ray's own node count equals
@@ -357,8 +361,10 @@ __device__ __forceinline__ void ext_light(const PtParams& Q, const Ext& E,
 
 // The whole shading tree of ray i; radiance to out[3i:3i+3].  M is the
 // scene's motion (Motion only with ExtParams), T its textures and env
-// light (TexParams only with ExtParams).
-template <class Ext, class M = NoMotion, class T = NoTex>
+// light (TexParams only with ExtParams), G its geometry (the 128-face
+// chunks, or the tree of K1e).
+template <class Ext, class M = NoMotion, class T = NoTex,
+          class G = FlatChunks>
 __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
                          const float* __restrict__ o,
                          const float* __restrict__ d,
@@ -414,12 +420,12 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
     mt::Surface S;
     if constexpr (T::kOn) {
       int win[2];  // the winning face, the winning sphere
-      h = trace<true, M, true>(P, cox, coy, coz, cdx, cdy, cdz, mo, win);
+      h = trace<true, M, true, G>(P, cox, coy, coz, cdx, cdy, cdz, mo, win);
       if (X.n_tex > 0)
         mt::surface(P, X, h, win[0], win[1], cox, coy, coz, cdx, cdy, cdz, mo,
                     S);
     } else {
-      h = trace<true>(P, cox, coy, coz, cdx, cdy, cdz, mo);
+      h = trace<true, M, false, G>(P, cox, coy, coz, cdx, cdy, cdz, mo);
     }
     const float t_safe = h.hit ? h.t : 0.0f;
     if (diel) {  // Beer attenuation of this segment (raytracer.cpp:416-423)
@@ -536,7 +542,8 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
         gox = px + nx * 1e-4f;
         goy = py + ny * 1e-4f;
         goz = pz + nz * 1e-4f;
-        const Hit g = trace<true>(P, gox, goy, goz, gdx, gdy, gdz, mo);
+        const Hit g =
+            trace<true, M, false, G>(P, gox, goy, goz, gdx, gdy, gdz, mo);
         g_hit = g.hit;
         if (g_hit && g.ml >= 0) skip_ml = g.ml;
       }
@@ -609,7 +616,8 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
           ig = L[1] * wgt * TWO_PI;
           ib = L[2] * wgt * TWO_PI;
         }
-        if (shadow<true>(P, sox, soy, soz, wix, wiy, wiz, limit, mo)) continue;
+        if (shadow<true, M, G>(P, sox, soy, soz, wix, wiy, wiz, limit, mo))
+          continue;
         float vx, vy, vz;
         if constexpr (T::kOn) {
           if (mx[1] >= 0.0f)
@@ -958,17 +966,66 @@ mega_tex_motion_kernel(PtParams Q, ExtParams E, TexParams X,
   if (i < Q.n) shade_pt<ExtParams, Motion, TexParams>(Q, E, X, o, d, out, i);
 }
 
+// K1e: the five variants above over the tree
+__global__ void __launch_bounds__(THREADS)
+mega_pt_tree_kernel(PtParams Q, const float* __restrict__ o,
+                    const float* __restrict__ d, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Q.n)
+    shade_pt<NoExt, NoMotion, NoTex, ChunkTree>(Q, NoExt(), NoTex(), o, d, out,
+                                                i);
+}
+
+__global__ void __launch_bounds__(THREADS)
+mega_ext_tree_kernel(PtParams Q, ExtParams E, const float* __restrict__ o,
+                     const float* __restrict__ d, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Q.n)
+    shade_pt<ExtParams, NoMotion, NoTex, ChunkTree>(Q, E, NoTex(), o, d, out,
+                                                    i);
+}
+
+__global__ void __launch_bounds__(THREADS)
+mega_ext_motion_tree_kernel(PtParams Q, ExtParams E,
+                            const float* __restrict__ o,
+                            const float* __restrict__ d,
+                            float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Q.n)
+    shade_pt<ExtParams, Motion, NoTex, ChunkTree>(Q, E, NoTex(), o, d, out, i);
+}
+
+__global__ void __launch_bounds__(THREADS)
+mega_tex_tree_kernel(PtParams Q, ExtParams E, TexParams X,
+                     const float* __restrict__ o, const float* __restrict__ d,
+                     float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Q.n)
+    shade_pt<ExtParams, NoMotion, TexParams, ChunkTree>(Q, E, X, o, d, out, i);
+}
+
+__global__ void __launch_bounds__(THREADS)
+mega_tex_motion_tree_kernel(PtParams Q, ExtParams E, TexParams X,
+                            const float* __restrict__ o,
+                            const float* __restrict__ d,
+                            float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Q.n)
+    shade_pt<ExtParams, Motion, TexParams, ChunkTree>(Q, E, X, o, d, out, i);
+}
+
 // ints: max_depth, stack_k, max_iters, flags, n_draws, rr_floor
 inline PtParams make_pt_params(
     int n, const float* tri, int n_tri, const float* chunk, int n_chunks,
-    const float* sph, int n_sph, const float* mat, int n_mat, const float* pl,
+    const float* nodes, const float* sph, int n_sph, const float* mat,
+    int n_mat, const float* pl,
     int n_point, const float* dl, int n_dir, const float* consts,
     const float* mlf, int n_mlf, const float* mll, int n_ml, const int* ints,
     const float* draws, unsigned seed, unsigned sample) {
   PtParams Q;
-  Q.g = mw::make_params(tri, n_tri, chunk, n_chunks, sph, n_sph, mat, n_mat,
-                        pl, n_point, dl, n_dir, consts, ints[0], ints[1],
-                        ints[2], ints[3]);
+  Q.g = mw::make_params(tri, n_tri, chunk, n_chunks, nodes, sph, n_sph, mat,
+                        n_mat, pl, n_point, dl, n_dir, consts, ints[0],
+                        ints[1], ints[2], ints[3]);
   Q.mlf = mlf;
   Q.n_mlf = n_mlf;
   Q.mll = mll;
@@ -986,35 +1043,55 @@ inline PtParams make_pt_params(
 
 // ints: max_depth, stack_k, max_iters, flags, n_draws, rr_floor.  ext null:
 // K1b; else K1c with those tables, or with tex K1d, each in its motion
-// instantiation when the flags say the scene has motion.
+// instantiation when the flags say the scene has motion; with nodes (the
+// tree) the K1e instantiation of each, else the chunk sweep's.
 extern "C" int mega_pt_launch(
     const float* o, const float* d, float* out, int n, const float* tri,
-    int n_tri, const float* chunk, int n_chunks, const float* sph, int n_sph,
-    const float* mat, int n_mat, const float* pl, int n_point,
-    const float* dl, int n_dir, const float* consts, const float* mlf,
-    int n_mlf, const float* mll, int n_ml, const int* ints,
-    const float* draws, unsigned seed, unsigned sample,
-    const mp::ExtParams* ext, const mt::TexParams* tex, void* stream) {
+    int n_tri, const float* chunk, int n_chunks, const float* nodes,
+    const float* sph, int n_sph, const float* mat, int n_mat,
+    const float* pl, int n_point, const float* dl, int n_dir,
+    const float* consts, const float* mlf, int n_mlf, const float* mll,
+    int n_ml, const int* ints, const float* draws, unsigned seed,
+    unsigned sample, const mp::ExtParams* ext, const mt::TexParams* tex,
+    void* stream) {
   if (ints[1] > mp::MAX_K || n <= 0 || (tex != nullptr && ext == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const mp::PtParams Q = mp::make_pt_params(
-      n, tri, n_tri, chunk, n_chunks, sph, n_sph, mat, n_mat, pl, n_point, dl,
-      n_dir, consts, mlf, n_mlf, mll, n_ml, ints, draws, seed, sample);
+      n, tri, n_tri, chunk, n_chunks, nodes, sph, n_sph, mat, n_mat, pl,
+      n_point, dl, n_dir, consts, mlf, n_mlf, mll, n_ml, ints, draws, seed,
+      sample);
   const int blocks = (n + mw::THREADS - 1) / mw::THREADS;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ext == nullptr)
+  const bool motion = (ints[3] & mp::FLAG_MOTION) != 0;
+  if (nodes != nullptr) {
+    if (ext == nullptr)
+      mp::mega_pt_tree_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, o, d, out);
+    else if (tex != nullptr && motion)
+      mp::mega_tex_motion_tree_kernel<<<blocks, mw::THREADS, 0, st>>>(
+          Q, *ext, *tex, o, d, out);
+    else if (tex != nullptr)
+      mp::mega_tex_tree_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, *tex,
+                                                               o, d, out);
+    else if (motion)
+      mp::mega_ext_motion_tree_kernel<<<blocks, mw::THREADS, 0, st>>>(
+          Q, *ext, o, d, out);
+    else
+      mp::mega_ext_tree_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, o, d,
+                                                               out);
+  } else if (ext == nullptr) {
     mp::mega_pt_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, o, d, out);
-  else if (tex != nullptr && (ints[3] & mp::FLAG_MOTION))
+  } else if (tex != nullptr && motion) {
     mp::mega_tex_motion_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, *tex,
                                                                o, d, out);
-  else if (tex != nullptr)
+  } else if (tex != nullptr) {
     mp::mega_tex_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, *tex, o, d,
                                                         out);
-  else if (ints[3] & mp::FLAG_MOTION)
+  } else if (motion) {
     mp::mega_ext_motion_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, o, d,
                                                                out);
-  else
+  } else {
     mp::mega_ext_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, *ext, o, d, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,8 @@
 // spheres, materials, lights) are read from global memory through the
 // read-only path: the lanes of a warp sweep a chunk together, so a face row
 // is one broadcast load, and a 98,304-face table (6 MB) stays in the 50 MB
-// L2.
+// L2.  Past 98,304 faces mega_whitted_tree_kernel (K1e) walks a tree over
+// the table instead of the chunks (ChunkTree, mega_common.cuh).
 //
 // Bound.  FP32 arithmetic on the CUDA cores: 38 operations per
 // ray x triangle test up to its t test (22 more for the barycentrics of a
@@ -38,7 +39,9 @@ namespace mw {
 
 constexpr int MAX_K = 12;  // stack slots: max_depth (<= 10) + 2
 
-// The whole shading tree of ray i; radiance to out[3i:3i+3].
+// The whole shading tree of ray i; radiance to out[3i:3i+3].  G is the
+// geometry: the 128-face chunks, or the tree (K1e).
+template <class G>
 __device__ void shade_ray(const Params& P, const float* __restrict__ o,
                           const float* __restrict__ d,
                           float* __restrict__ out, int i) {
@@ -61,7 +64,8 @@ __device__ void shade_ray(const Params& P, const float* __restrict__ o,
   bool act = true;
 
   for (int it = 0; act && it < P.max_iters; ++it) {
-    const Hit h = trace<false>(P, cox, coy, coz, cdx, cdy, cdz);
+    const Hit h = trace<false, NoMotion, false, G>(P, cox, coy, coz, cdx, cdy,
+                                                   cdz);
     const float t_safe = h.hit ? h.t : 0.0f;
     if (diel) {  // Beer attenuation of this segment (raytracer.cpp:416-423)
       cwx = cwx * expf(-cax * t_safe);
@@ -117,7 +121,8 @@ __device__ void shade_ray(const Params& P, const float* __restrict__ o,
           ig = L[4];
           ib = L[5];
         }
-        if (shadow<false>(P, sox, soy, soz, wix, wiy, wiz, limit)) continue;
+        if (shadow<false, NoMotion, G>(P, sox, soy, soz, wix, wiy, wiz, limit))
+          continue;
         // default diffuse + Blinn-Phong (raytracer.cpp:540-554)
         const float cos_t = fmaxf(0.0f, wix * nx + wiy * ny + wiz * nz);
         float hx = wix + wox, hy = wiy + woy, hz = wiz + woz;
@@ -297,27 +302,42 @@ mega_whitted_kernel(Params P, const float* __restrict__ o,
                     const float* __restrict__ d, float* __restrict__ out,
                     int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) shade_ray(P, o, d, out, i);
+  if (i < n) shade_ray<FlatChunks>(P, o, d, out, i);
+}
+
+// K1e: the same over the tree
+__global__ void __launch_bounds__(THREADS)
+mega_whitted_tree_kernel(Params P, const float* __restrict__ o,
+                         const float* __restrict__ d, float* __restrict__ out,
+                         int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) shade_ray<ChunkTree>(P, o, d, out, i);
 }
 
 }  // namespace mw
 
 // ---- C interface (loaded with ctypes) ----
 
+// nodes: the tree (the K1e instantiation), or null (the chunk sweep)
 extern "C" int mega_whitted_launch(
     const float* o, const float* d, float* out, int n, const float* tri,
-    int n_tri, const float* chunk, int n_chunks, const float* sph, int n_sph,
-    const float* mat, int n_mat, const float* pl, int n_point,
-    const float* dl, int n_dir, const float* consts, int max_depth,
-    int stack_k, int max_iters, int flags, void* stream) {
+    int n_tri, const float* chunk, int n_chunks, const float* nodes,
+    const float* sph, int n_sph, const float* mat, int n_mat,
+    const float* pl, int n_point, const float* dl, int n_dir,
+    const float* consts, int max_depth, int stack_k, int max_iters, int flags,
+    void* stream) {
   if (stack_k > mw::MAX_K || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const mw::Params P = mw::make_params(tri, n_tri, chunk, n_chunks, sph, n_sph,
-                                       mat, n_mat, pl, n_point, dl, n_dir,
-                                       consts, max_depth, stack_k, max_iters,
-                                       flags);
+  const mw::Params P = mw::make_params(tri, n_tri, chunk, n_chunks, nodes, sph,
+                                       n_sph, mat, n_mat, pl, n_point, dl,
+                                       n_dir, consts, max_depth, stack_k,
+                                       max_iters, flags);
   const int blocks = (n + mw::THREADS - 1) / mw::THREADS;
-  mw::mega_whitted_kernel<<<blocks, mw::THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(P, o, d, out, n);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nodes != nullptr)
+    mw::mega_whitted_tree_kernel<<<blocks, mw::THREADS, 0, st>>>(P, o, d, out,
+                                                                 n);
+  else
+    mw::mega_whitted_kernel<<<blocks, mw::THREADS, 0, st>>>(P, o, d, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

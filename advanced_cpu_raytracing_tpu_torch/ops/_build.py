@@ -55,14 +55,15 @@ class TexParams(ctypes.Structure):
 
 _SIGNATURES = {
     "mega_whitted": {
+        # rays, out, n; tri, chunks, the tree (or null); spheres ...
         "mega_whitted_launch": (
-            _I, [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
+            _I, [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I,
                  _P, _I, ctypes.POINTER(ctypes.c_float), _I, _I, _I, _I, _P]),
         "mega_whitted_error_string": (ctypes.c_char_p, [_I]),
     },
     "mega_pt": {
         "mega_pt_launch": (
-            _I, [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
+            _I, [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I,
                  _P, _I, ctypes.POINTER(ctypes.c_float), _P, _I, _P, _I,
                  ctypes.POINTER(ctypes.c_int), _P, ctypes.c_uint32,
                  ctypes.c_uint32, ctypes.POINTER(ExtParams),

@@ -19,7 +19,11 @@ same ``csrc/mega_pt.cu`` — and that tree with image and Perlin textures in
 every decal mode, normal and bump maps, sphere textures, the background
 texture and the spherical environment light (raytracer.cpp:49-62, 87-89,
 741-755; mesh.cpp:264-357; sphere.cpp:116-169) — K1d, its ``mega_tex``
-instantiation with ``csrc/mega_tex.cuh``, over one texel pool.
+instantiation with ``csrc/mega_tex.cuh``, over one texel pool.  Past
+``FLAT_MAX_FACES`` work items each of them walks a BVH over 16-row leaves of
+the triangle table (``_tree_table``) in place of the 128-face chunk sweep —
+K1e, the ``*_tree`` instantiations, in place of the TPU kernel's
+HBM-streamed two-level sweep.
 
 Scene constants travel as small f32 tensors (spheres, materials, lights,
 mesh-light faces) that the kernels read at run time, so one build serves
@@ -37,6 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from advanced_cpu_raytracing_tpu_torch.accel.bvh import build_bvh
 from advanced_cpu_raytracing_tpu_torch.ops import rng
 from advanced_cpu_raytracing_tpu_torch.ops import texture as _texture
 from advanced_cpu_raytracing_tpu_torch.scene.pack import (
@@ -45,6 +50,7 @@ from advanced_cpu_raytracing_tpu_torch.scene.pack import (
     SLOT_NORMAL,
     SLOT_REPLACE_ALL,
     SLOT_SPECULAR,
+    STREAM_MAX_FACES,
 )
 from advanced_cpu_raytracing_tpu_torch.scene.types import (
     BrdfType,
@@ -55,7 +61,14 @@ from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
 
 BIG = 3.0e37  # "no hit" distance
 CHUNK = 128  # faces per culling chunk (BVH depth-first order)
-MAX_FACES = 98304  # beyond this the JAX kernel streams geometry (K1e)
+# past this many work items build_mega adds the tree and the kernels walk it
+# (K1e): the JAX kernel's _VMEM_MAX_FACES, past which it streams geometry
+FLAT_MAX_FACES = 98304
+LEAF_ROWS = 16  # consecutive tri_tab rows per tree leaf (the JAX STREAM_FINE)
+TREE_STACK = 64  # the tree walk's stack (csrc/mega_common.cuh)
+# rows per step of the plain version's brute force over a scene with a tree
+# (the same closest hit as 128 at a time, in fewer, larger steps)
+TREE_GROUP = 1024
 MAX_SPHERES = 8
 MAX_MATERIALS = 128
 MAX_MESH_LIGHTS = 4
@@ -109,6 +122,9 @@ TEXI_COLS = 7  # per texture (int32): kind 0 (0 image, 1 Perlin), interp 1
 #                (0 nearest, 1 bilinear), blend_kd 2, Perlin absval 3,
 #                width 4, height 5, first texel in the pool 6
 TEXR_COLS = 2  # per texture (f32): bump factor 0, noise scale 1
+NODE_COLS = 8  # per tree node: min 0:3, max 3:6, then two int32 bit views:
+#                interior: second child 6 (the first is the next row), 0 7;
+#                leaf: first tri_tab row 6, row count 7 (1..LEAF_ROWS)
 ENV_DRAWS = 48  # env rejection candidates: 16 x 3 draws per node
 
 
@@ -179,6 +195,9 @@ class MegaConsts:
     tbn_obj: bool = False  # the TBN columns are in object space
     bg_tex: int = -1  # the replace_background texture, or -1
     env: tuple = ()  # (width, height, first texel) of the env map, or ()
+    # ---- the tree over the work items past FLAT_MAX_FACES (K1e) ----
+    tree: torch.Tensor | None = None  # (N, NODE_COLS), depth-first
+    tree_depth: int = 0
 
     @property
     def kernel(self) -> str:
@@ -195,14 +214,21 @@ class MegaConsts:
             return "mega_pt"
         return "mega_whitted"
 
+    @property
+    def variant(self) -> str:
+        """The instantiation that ``mega_trace`` launches (its ``LAUNCHES``
+        key): ``kernel`` over the 128-face chunks, or its K1e twin over the
+        tree."""
+        return self.kernel + ("_tree" if self.tree is not None else "")
+
 
 def mega_missing(static, opts, pack=None) -> list[str]:
     """Features of a scene/render outside the kernels' envelope (empty
     list = eligible).  Mirrors the JAX ``mega_eligible`` and its
     ``_textures_eligible`` without their TPU caps (the count of spot and
-    area lights, of textures, of texels and the size of the env map);
-    streamed geometry waits for K1e.  A textured scene needs its ``pack``
-    for the per-texture gates."""
+    area lights, of textures, of texels and the size of the env map); the
+    only face limit is the pack's, ``STREAM_MAX_FACES`` work items.  A
+    textured scene needs its ``pack`` for the per-texture gates."""
     missing = []
     if static.n_env > 1:
         missing.append("more than one environment light")
@@ -210,9 +236,8 @@ def mega_missing(static, opts, pack=None) -> list[str]:
         missing += _texture_missing(static, pack)
     if static.n_mesh_lights > MAX_MESH_LIGHTS:
         missing.append(f"more than {MAX_MESH_LIGHTS} mesh lights")
-    if static.n_work_items > MAX_FACES or (static.n_faces
-                                           and not static.n_work_items):
-        missing.append(f"more than {MAX_FACES:,} faces")
+    if static.n_faces and not static.n_work_items:
+        missing.append(f"more than {STREAM_MAX_FACES:,} faces")
     if not (static.n_work_items or static.n_spheres):
         missing.append("empty scene")
     if static.n_spheres > MAX_SPHERES:
@@ -310,7 +335,9 @@ def build_mega(pack, opts, device=None):
     of the motion in motion scenes, and in tables of their own what the
     TPU kernel bakes in as constants or keeps in wider tri-table columns:
     mesh-light faces, spot and area lights, the materials' roughness and
-    BRDF, per-face and per-sphere motion."""
+    BRDF, per-face and per-sphere motion.  Past ``FLAT_MAX_FACES`` work
+    items ``mc.tree`` holds the tree over the rows (``_tree_table``) that
+    replaces the JAX kernel's streamed fine and coarse boxes."""
     dev = resolve_device(device)
     st = pack.static
     w = st.n_work_items
@@ -439,6 +466,8 @@ def build_mega(pack, opts, device=None):
 
     max_iters, stack_k, n_draws = _sizing(st, opts)
     tx = _texture_tables(pack, tab)
+    tree, tree_depth = (_tree_table(tab, tmo if st.has_motion else None, w)
+                        if w > FLAT_MAX_FACES else (None, 0))
 
     def tens(a):
         return torch.as_tensor(a, device=dev)
@@ -471,8 +500,68 @@ def build_mega(pack, opts, device=None):
         texels=tens(tx["texels"]), perm=tens(tx["perm"]),
         n_textures=st.n_textures, tbn_obj=tx["tbn_obj"],
         bg_tex=int(st.bg_tex) if st.n_textures else -1, env=tx["env"],
+        tree=None if tree is None else tens(tree), tree_depth=tree_depth,
     )
     return mc, tens(tab), tens(ctab)
+
+
+def _tree_table(tab, tmo, w):
+    """(nodes (N, NODE_COLS) f32, depth): the K1e tree over the first ``w``
+    rows of ``tab``.  Its leaves are runs of at most LEAF_ROWS consecutive
+    rows (the row order does not change), their boxes swept over both ends
+    of the motion ``tmo`` as the chunk boxes are; a BVH over the leaf boxes
+    by the midpoint builder (``accel/bvh.py``), where a builder leaf of
+    several runs becomes a balanced subtree of them; flattened depth-first,
+    so an interior node's first child is the next row.  Raises where the
+    tree is deeper than the kernel's stack."""
+    vs = tab[:w, 0:9].reshape(w, 3, 3)
+    fmin, fmax = vs.min(axis=1), vs.max(axis=1)
+    if tmo is not None:
+        moved = vs - tmo[:w, None]
+        fmin = np.minimum(fmin, moved.min(axis=1))
+        fmax = np.maximum(fmax, moved.max(axis=1))
+    starts = np.arange(0, w, LEAF_ROWS)
+    lmin = np.minimum.reduceat(fmin, starts, axis=0)
+    lmax = np.maximum.reduceat(fmax, starts, axis=0)
+    bvh = build_bvh(lmin, lmax, (lmin + lmax) * np.float32(0.5))
+    order = bvh.order.tolist()
+    boxes, ints = [], []
+    depth = 0
+    # (builder node or None, runs, depth, node whose second child this is)
+    todo = [(0, None, 1, -1)]
+    while todo:
+        bn, runs, dep, parent = todo.pop()
+        at = len(boxes)
+        depth = max(depth, dep)
+        if parent >= 0:
+            ints[parent][0] = at
+        if runs is None and bvh.node_count[bn] == 0:
+            boxes.append(np.concatenate((bvh.node_min[bn], bvh.node_max[bn])))
+            ints.append([0, 0])
+            kids = [(int(bvh.node_right[bn]), None), (int(bvh.node_left[bn]), None)]
+        else:
+            if runs is None:
+                first = int(bvh.node_first[bn])
+                runs = order[first:first + int(bvh.node_count[bn])]
+            boxes.append(np.concatenate((lmin[runs].min(axis=0),
+                                         lmax[runs].max(axis=0))))
+            if len(runs) == 1:
+                ints.append([int(starts[runs[0]]),
+                             min(LEAF_ROWS, w - int(starts[runs[0]]))])
+                continue
+            ints.append([0, 0])
+            half = len(runs) // 2
+            kids = [(None, runs[half:]), (None, runs[:half])]
+        # the second child first onto the stack, so the first is emitted next
+        todo.append((*kids[0], dep + 1, at))
+        todo.append((*kids[1], dep + 1, -1))
+    if depth > TREE_STACK:
+        raise ValueError(f"the tree over {w:,} faces is {depth} deep; the "
+                         f"kernels' stack holds {TREE_STACK} levels")
+    nodes = np.zeros((len(boxes), NODE_COLS), np.float32)
+    nodes[:, 0:6] = boxes
+    nodes.view(np.int32)[:, 6:8] = ints
+    return nodes, depth
 
 
 def _unit_rows(v):
@@ -717,16 +806,177 @@ def _slab_enter(box, px, py, pz, ivx, ivy, ivz, t_b):
     return (tmax > 0) & (tmax >= tmin) & (tmin < t_b)
 
 
+class TreeWalker:
+    """The kernels' tree walk (``ChunkTree``, csrc/mega_common.cuh) over the
+    same tables, on their device, the rays of a query in lockstep: the
+    nearer child first, a node kept while its entry is <= t_best (< the
+    limit in a shadow query), a face taken at t < t_best or at t == t_best
+    from a lower row.  It counts each ray's node boxes and face tests, and
+    marks in ``reads`` what the kernels read, across its calls: the node
+    boxes (``nodes``), the rows whose vertices they test (``rows``) and the
+    closest hits' rows (``won``).  Tests hold its hits to the brute force,
+    and the plain version's ``stats`` count a tree scene's kernel work with
+    it.  The render path never calls it."""
+
+    def __init__(self, mc: MegaConsts, tri_tab, reads: dict | None = None):
+        dev = tri_tab.device
+        nodes = mc.tree.to(dev)
+        self.box = nodes[:, 0:6].contiguous()
+        ints = nodes.view(torch.int32)
+        self.a, self.cnt = ints[:, 6].long(), ints[:, 7].long()
+        self.width = int(self.cnt.max())
+        self.tri = tri_tab
+        self.motion = mc.tri_motion.to(dev) if mc.faces_move else None
+        self.moving = (None if self.motion is None
+                       else (self.motion != 0).any(dim=1))
+        self.reads = {} if reads is None else reads
+        for key, n in (("nodes", nodes.shape[0]), ("rows", tri_tab.shape[0]),
+                       ("won", tri_tab.shape[0])):
+            self.reads.setdefault(key, torch.zeros(n, dtype=torch.bool,
+                                                   device=dev))
+
+    def _entry(self, node, p, iv):
+        """``slab_entry`` of the boxes ``node`` (R,) for rays (R,3): the
+        entry distance, +inf on a miss; a NaN (a ray in a face plane of the
+        box) does not limit the ray."""
+        box = self.box[node]
+        t1 = (box[:, 0:3] - p) * iv
+        t2 = (box[:, 3:6] - p) * iv
+        inf = torch.copysign(torch.full_like(iv, float("inf")), iv)
+        t1 = torch.where(torch.isnan(t1), -inf, t1)
+        t2 = torch.where(torch.isnan(t2), inf, t2)
+        tmin = torch.minimum(t1, t2).amax(dim=1)
+        tmax = torch.maximum(t1, t2).amin(dim=1)
+        return torch.where((tmax > 0) & (tmax >= tmin), tmin,
+                           torch.full_like(tmin, float("inf")))
+
+    def walk(self, o, d, limit=None, tau=None, skip_emissive=False) -> dict:
+        """Rays ``o``, ``d`` (R,3) f32, at motion times ``tau`` (R,): the
+        closest hits (``t``, ``row``; BIG and -1 on a miss), or with
+        ``limit`` (R,) shadow queries (``blocked``), each with the rays'
+        counts ``slab_tests``, ``tri_tests`` and ``tri_motion_tests``
+        (R,)."""
+        dev, f32 = self.tri.device, torch.float32
+        p = torch.as_tensor(o, dtype=f32, device=dev).reshape(-1, 3)
+        v = torch.as_tensor(d, dtype=f32, device=dev).reshape(-1, 3)
+        r = p.shape[0]
+        iv = 1.0 / v
+        shadow = limit is not None
+        tb = (torch.as_tensor(limit, dtype=f32, device=dev).reshape(-1).clone()
+              if shadow else torch.full((r,), BIG, dtype=f32, device=dev))
+        if tau is not None:
+            tau = torch.as_tensor(tau, dtype=f32, device=dev).reshape(-1)
+        best = torch.full((r,), -1, dtype=torch.long, device=dev)
+        blocked = torch.zeros(r, dtype=torch.bool, device=dev)
+        n = {k: torch.zeros(r, dtype=torch.long, device=dev)
+             for k in ("slab_tests", "tri_tests", "tri_motion_tests")}
+        stack = torch.zeros((r, TREE_STACK), dtype=torch.long, device=dev)
+        stack_t = torch.zeros((r, TREE_STACK), dtype=f32, device=dev)
+        sp = torch.zeros(r, dtype=torch.long, device=dev)
+        cols = torch.arange(self.width, device=dev)
+
+        def reach(t_in, lim):
+            return t_in < lim if shadow else t_in <= lim
+
+        # node: the node a ray visits next; -1 pops its stack, -2 is done
+        root = torch.zeros(r, dtype=torch.long, device=dev)
+        n["slab_tests"] += 1
+        if r:
+            self.reads["nodes"][0] = True
+        node = torch.where(reach(self._entry(root, p, iv), tb), root, -2)
+        while bool((node != -2).any()):
+            pop = torch.nonzero(node == -1).squeeze(1)
+            if len(pop):
+                empty = sp[pop] == 0
+                node[pop[empty]] = -2
+                pop = pop[~empty]
+                sp[pop] -= 1
+                back = pop[reach(stack_t[pop, sp[pop]], tb[pop])]
+                node[back] = stack[back, sp[back]]
+            live = torch.nonzero(node >= 0).squeeze(1)
+            at = node[live]
+            a, cnt = self.a[at], self.cnt[at]
+            leaf = cnt > 0
+            lv, a_l, cnt_l = live[leaf], a[leaf], cnt[leaf]
+            if len(lv):  # leaves: rows a .. a + cnt - 1
+                inside = cols < cnt_l[:, None]
+                rows = torch.where(inside, a_l[:, None] + cols, a_l[:, None])
+                tri = self.tri[rows]
+                pos = [p[lv, k:k + 1] for k in range(3)]
+                if self.motion is not None:
+                    pos = [c + self.motion[rows, k] * tau[lv][:, None]
+                           for k, c in enumerate(pos)]
+                t, valid = _tri_hit([tri[..., k] for k in range(3)],
+                                    [tri[..., k] for k in range(3, 6)],
+                                    [tri[..., k] for k in range(6, 9)], *pos,
+                                    *(v[lv, k:k + 1] for k in range(3)))
+                t = torch.where(valid & inside, t, torch.full_like(t, np.inf))
+                if shadow:
+                    hits = t < tb[lv][:, None]
+                    if skip_emissive:
+                        hits &= tri[..., 14] < 0.5
+                    stop = hits.any(dim=1)
+                    # the kernel stops at the first blocker
+                    k = torch.where(stop, hits.to(torch.int8).argmax(dim=1) + 1,
+                                    cnt_l)
+                    blocked[lv] = stop
+                    node[lv] = torch.where(stop, -2, -1)
+                else:
+                    k = cnt_l
+                    t_c, i_c = t.min(dim=1)  # the lowest row on a tie
+                    row = a_l + i_c
+                    better = (t_c < tb[lv]) | ((t_c == tb[lv]) & (row < best[lv]))
+                    tb[lv] = torch.where(better, t_c, tb[lv])
+                    best[lv] = torch.where(better, row, best[lv])
+                    node[lv] = -1
+                tested = cols < k[:, None]
+                n["tri_tests"][lv] += k
+                self.reads["rows"][rows[tested]] = True
+                if self.moving is not None:
+                    n["tri_motion_tests"][lv] += (self.moving[rows]
+                                                  & tested).sum(dim=1)
+            inner, at, a_i = live[~leaf], at[~leaf], a[~leaf]
+            if len(inner):  # interior: children node + 1 and a, the nearer first
+                left = at + 1
+                n["slab_tests"][inner] += 2
+                self.reads["nodes"][left] = True
+                self.reads["nodes"][a_i] = True
+                tl = self._entry(left, p[inner], iv[inner])
+                tr = self._entry(a_i, p[inner], iv[inner])
+                hl, hr = reach(tl, tb[inner]), reach(tr, tb[inner])
+                right_first = tr < tl
+                both = torch.nonzero(hl & hr).squeeze(1)
+                pushed = inner[both]
+                stack[pushed, sp[pushed]] = torch.where(
+                    right_first, left, a_i)[both]
+                stack_t[pushed, sp[pushed]] = torch.where(
+                    right_first, tl, tr)[both]
+                sp[pushed] += 1
+                node[inner] = torch.where(
+                    hl & hr, torch.where(right_first, a_i, left),
+                    torch.where(hl, left, torch.where(hr, a_i, -1)))
+        if shadow:
+            return {"blocked": blocked, **n}
+        self.reads["won"][best[best >= 0]] = True
+        return {"t": tb, "row": best, **n}
+
+
 class _Geometry:
     """The scene tables split into per-chunk face columns for the brute
-    force sweeps of the plain version."""
+    force sweeps of the plain version: 128 rows at a time, each with its
+    chunk's box, or TREE_GROUP rows at a time in a scene with a tree, whose
+    kernel work ``stats`` counts with ``TreeWalker`` (the brute force never
+    reads the tree)."""
 
     def __init__(self, mc: MegaConsts, tri_tab, chunk_tab, stats):
         self.mc = mc
         self.stats = stats
         self.chunks = []
-        for ci in range(mc.n_chunks if mc.n_tri else 0):
-            lo, hi = ci * CHUNK, min((ci + 1) * CHUNK, mc.n_tri)
+        self.group = group = CHUNK if mc.tree is None else TREE_GROUP
+        self.walker = (TreeWalker(mc, tri_tab, stats.setdefault("reads", {}))
+                       if mc.tree is not None and stats is not None else None)
+        for ci in range(-(-mc.n_tri // group)):
+            lo, hi = ci * group, min((ci + 1) * group, mc.n_tri)
             cols = [tri_tab[lo:hi, k][None, :] for k in range(15)]
             # tests of moving faces among the chunk's first n: moving[n]
             moving = torch.zeros(hi - lo + 1, dtype=torch.int64)
@@ -734,7 +984,8 @@ class _Geometry:
                 cols += [mc.tri_motion[lo:hi, k][None, :] for k in range(3)]
                 moving[1:] = torch.cumsum(
                     (mc.tri_motion[lo:hi] != 0).any(dim=1).cpu(), 0)
-            self.chunks.append((cols, chunk_tab[ci].tolist(),
+            self.chunks.append((cols, chunk_tab[ci].tolist()
+                                if mc.tree is None else None,
                                 moving.to(tri_tab.device)))
         self.spheres = mc.spheres.tolist()
         self.sph_motion = (mc.sph_motion.tolist() if mc.has_motion
@@ -743,6 +994,15 @@ class _Geometry:
     def _count(self, key, n):
         if self.stats is not None:
             self.stats[key] = self.stats.get(key, 0) + int(n)
+
+    def _walk(self, rays, tau, limit=None):
+        """Count the node and face tests of the kernel's tree walk for the
+        rays (R,1) of one query (``limit``: a shadow query)."""
+        w = self.walker.walk(torch.cat(rays[:3], 1), torch.cat(rays[3:], 1),
+                             None if limit is None else limit, tau,
+                             self.mc.has_emissive)
+        for key in ("slab_tests", "tri_tests", "tri_motion_tests"):
+            self._count(key, w[key].sum())
 
     def _tri_rays(self, cols, rays, tau):
         """The rays as (R,1) columns against the faces of ``cols``; with
@@ -769,16 +1029,19 @@ class _Geometry:
         ml = torch.full_like(px, -1.0)
         win = torch.full((r,), -1, dtype=torch.int64, device=px.device)
         rays = [c[:, None] for c in (px, py, pz, vx, vy, vz)]
-        culled = self.mc.n_chunks > 1
+        culled = self.mc.n_chunks > 1 and self.mc.tree is None
         if culled:
             ivx, ivy, ivz = 1.0 / vx, 1.0 / vy, 1.0 / vz
+        if self.walker is not None:
+            self._walk(rays, tau)
         for ci, (cols, box, moving) in enumerate(self.chunks):
-            n_in = (_slab_enter(box, px, py, pz, ivx, ivy, ivz, t_b).sum()
-                    if culled else r)
-            if culled:
-                self._count("slab_tests", r)
-            self._count("tri_tests", n_in * cols[0].shape[1])
-            self._count("tri_motion_tests", n_in * moving[-1])
+            if self.mc.tree is None:
+                n_in = (_slab_enter(box, px, py, pz, ivx, ivy, ivz, t_b).sum()
+                        if culled else r)
+                if culled:
+                    self._count("slab_tests", r)
+                self._count("tri_tests", n_in * cols[0].shape[1])
+                self._count("tri_motion_tests", n_in * moving[-1])
             t, valid = _tri_hit(cols[0:3], cols[3:6], cols[6:9],
                                 *self._tri_rays(cols, rays, tau))
             t = torch.where(valid, t, torch.full_like(t, float("inf")))
@@ -791,7 +1054,7 @@ class _Geometry:
             mf = torch.where(better, cols[12][0, i_c], mf)
             ml = torch.where(better, cols[13][0, i_c], ml)
             if want_win:
-                win = torch.where(better, ci * CHUNK + i_c, win)
+                win = torch.where(better, ci * self.group + i_c, win)
         for si, (s, mo) in enumerate(zip(self.spheres, self.sph_motion)):
             self._count("sphere_tests", r)
             if mo is not None and any(mo):
@@ -821,29 +1084,33 @@ class _Geometry:
         r = px.shape[0]
         blocked = torch.zeros(r, dtype=torch.bool, device=px.device)
         rays = [c[:, None] for c in (px, py, pz, vx, vy, vz)]
-        culled = self.mc.n_chunks > 1
+        tree = self.mc.tree is not None
+        culled = self.mc.n_chunks > 1 and not tree
         if culled:
             ivx, ivy, ivz = 1.0 / vx, 1.0 / vy, 1.0 / vz
+        if self.walker is not None:
+            self._walk(rays, tau, limit)
         for cols, box, moving in self.chunks:
-            n_f = cols[0].shape[1]
-            live = torch.where(blocked, torch.zeros_like(limit), limit)
-            if culled:
-                enter = _slab_enter(box, px, py, pz, ivx, ivy, ivz, live)
-                self._count("slab_tests", (~blocked).sum())
-            else:
-                enter = ~blocked
             t, valid = _tri_hit(cols[0:3], cols[3:6], cols[6:9],
                                 *self._tri_rays(cols, rays, tau))
             if self.mc.has_emissive:
                 valid = valid & (cols[14] < 0.5)
             hits = valid & (t < limit[:, None])
-            # the kernel stops at the first blocking face
-            first = torch.where(hits.any(dim=1),
-                                hits.to(torch.int8).argmax(dim=1) + 1, n_f)
-            tested = enter & ~blocked
-            self._count("tri_tests", torch.where(tested, first, 0).sum())
-            self._count("tri_motion_tests",
-                        torch.where(tested, moving[first], 0).sum())
+            if not tree:
+                if culled:
+                    live = torch.where(blocked, torch.zeros_like(limit), limit)
+                    enter = _slab_enter(box, px, py, pz, ivx, ivy, ivz, live)
+                    self._count("slab_tests", (~blocked).sum())
+                else:
+                    enter = ~blocked
+                # the kernel stops at the first blocking face
+                first = torch.where(hits.any(dim=1),
+                                    hits.to(torch.int8).argmax(dim=1) + 1,
+                                    cols[0].shape[1])
+                tested = enter & ~blocked
+                self._count("tri_tests", torch.where(tested, first, 0).sum())
+                self._count("tri_motion_tests",
+                            torch.where(tested, moving[first], 0).sum())
             blocked = blocked | hits.any(dim=1)
         for s, mo in zip(self.spheres, self.sph_motion):
             self._count("sphere_tests", (~blocked).sum())
@@ -1093,14 +1360,18 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
     tracing the GI child continues (diffuse scenes) or is pushed after the
     refraction leg (where a specular chain continues), and a ray without a
     continuation pops.  Closest hits are brute force over all faces, 128 at
-    a time; in a motion scene every ray of a primary ray's tree sees the
-    scene at the time drawn once for it.  ``draws`` is the draw table
+    a time (TREE_GROUP at a time in a scene with a tree, which the brute
+    force never reads); in a motion scene every ray of a primary ray's tree
+    sees the scene at the time drawn once for it.  ``draws`` is the draw table
     ``(max_iters * n_draws, R)`` of ``ops/rng.py``, needed when
     ``mc.n_draws > 0``; ``pix_uv`` (R,2), each ray's pixel position over
     the image size, is needed when the scene has a replace_background
     texture.  ``stats`` (a dict),
     when given, receives the slab, triangle and sphere tests the culled
-    kernel performs on these rays, how many of the triangle and sphere
+    kernel performs on these rays (in a scene with a tree, the node and
+    face tests of its walk, counted by ``TreeWalker``, and under ``reads``
+    its masks of the node boxes, rows and winners read), how many of the
+    triangle and sphere
     tests are of a face or sphere that moves (``tri_motion_tests``,
     ``sphere_motion_tests``), the numbers of traced nodes, GI rays and
     shadow rays, and the Perlin evaluations, texel taps and env
@@ -1775,11 +2046,14 @@ def _tex_reflectance(tx: _Tex, slot, k3, p, uv):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-# kernel launches per variant; only the launches of the CUDA kernels count
-LAUNCHES = {"mega_whitted": 0, "mega_pt": 0, "mega_ext": 0, "mega_tex": 0}
-# the csrc/<library>.cu that holds each variant
+# the csrc/<library>.cu that holds each variant, and each variant's K1e
+# instantiation over the tree (MegaConsts.variant)
 LIBRARY = {"mega_whitted": "mega_whitted", "mega_pt": "mega_pt",
            "mega_ext": "mega_pt", "mega_tex": "mega_pt"}
+LIBRARY.update({f"{k}_tree": v for k, v in LIBRARY.items()})
+# kernel launches per instantiation; only the launches of the CUDA kernels
+# count
+LAUNCHES = {k: 0 for k in LIBRARY}
 # flags of the K1c variant, beside the K1a/K1b ones (csrc/mega_pt.cu)
 FLAG_ROUGH, FLAG_MOTION = 256, 512
 
@@ -1806,8 +2080,9 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
     ``ops/rng.py`` table) when given, else from Philox keyed by (``seed``,
     ``sample``) — on the CPU through the table that ``philox_table`` makes
     for the same key, so both devices draw the same numbers.  A scene with
-    a background texture needs ``pix_uv`` (R,2).  ``LAUNCHES`` counts the
-    kernel launches."""
+    a background texture needs ``pix_uv`` (R,2).  A scene with a tree
+    (``mc.tree``) launches the K1e instantiation.  ``LAUNCHES`` counts the
+    kernel launches by ``mc.variant``."""
     r = o.shape[0]
     if o.device.type == "cpu":
         if mc.n_draws and draws is None:
@@ -1843,10 +2118,18 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                 raise ValueError("this scene has a background texture: "
                                  "needs pix_uv")
             _check("pix_uv", pix_uv, (r, 2))
+    if mc.tree is not None:
+        tables.append("tree")
+        if mc.tree_depth > TREE_STACK:
+            raise ValueError(f"tree depth {mc.tree_depth} > {TREE_STACK}")
     for t in tables:
         _check(t, getattr(mc, t))
-    if tri_tab.data_ptr() % 16 or chunk_tab.data_ptr() % 16:
-        raise ValueError("tri_tab and chunk_tab must be 16-byte aligned")
+    if mc.tree is not None and mc.tree.shape[1] != NODE_COLS:
+        raise ValueError(f"tree: shape {tuple(mc.tree.shape)}")
+    if any(t.data_ptr() % 16 for t in (tri_tab, chunk_tab, *(
+            [] if mc.tree is None else [mc.tree]))):
+        raise ValueError("tri_tab, chunk_tab and the tree must be 16-byte "
+                         "aligned")
     max_k = MAX_K_WHITTED if name == "mega_whitted" else MAX_K_PT
     if mc.stack_k > max_k:
         raise ValueError(f"stack_k {mc.stack_k} > {max_k}")
@@ -1869,6 +2152,7 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
              | (4 if mc.has_conductor else 0))
     geo = (_ptr(o), _ptr(d), _ptr(out), r,
            _ptr(tri_tab), mc.n_tri, _ptr(chunk_tab), mc.n_chunks,
+           ctypes.c_void_p(None if mc.tree is None else mc.tree.data_ptr()),
            _ptr(mc.spheres), mc.spheres.shape[0],
            _ptr(mc.materials), mc.materials.shape[0],
            _ptr(mc.point_lights), mc.point_lights.shape[0],
@@ -1914,6 +2198,7 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             rc = lib.mega_pt_launch(*pt_args, ext, tex, stream)
     if rc != 0:
         err = getattr(lib, LIBRARY[name] + "_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({err})")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{mc.variant} launch failed: CUDA error {rc} "
+                           f"({err})")
+    LAUNCHES[mc.variant] += 1
     return out

@@ -145,7 +145,8 @@ def _render_image_mega(mc, tri_tab, chunk_tab, cam, n_cells: int, w: int,
     return col
 
 
-# build_mega reads every table back to the host; cache it per (pack, opts,
+# build_mega reads every table back to the host (and, past FLAT_MAX_FACES
+# work items, builds the K1e tree into mc.tree); cache it per (pack, opts,
 # device).  Keyed by id() with a weakref guard: packs are not changed after
 # pack_scene, so identity is the right key.
 _MEGA_CACHE: dict = {}

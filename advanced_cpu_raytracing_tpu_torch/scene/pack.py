@@ -83,7 +83,7 @@ class StaticInfo:
     # any emissive material (LightMesh) present
     has_emissive_mat: bool = False
     # number of world-space brute-force work items packed into wi_* (0 when
-    # the scene exceeds MEGA_MAX_FACES and only the BVH path can run it)
+    # the scene exceeds STREAM_MAX_FACES and no megakernel can run it)
     n_work_items: int = 0
 
     @property
@@ -263,9 +263,8 @@ def _face_props(verts: np.ndarray, tris: np.ndarray):
 BRUTE_FORCE_MAX_ITEMS = 2048
 
 # Work items (world-space triangles) are packed for every scene up to
-# STREAM_MAX_FACES, as in the JAX package; the CUDA megakernel of this port
-# takes at most MEGA_MAX_FACES of them (ops/megakernel.py).
-MEGA_MAX_FACES = 98304
+# STREAM_MAX_FACES, as in the JAX package; the CUDA megakernels take all of
+# them (past ops/megakernel.py::FLAT_MAX_FACES through a tree).
 STREAM_MAX_FACES = 1 << 21
 
 

@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
      csrc/mega_whitted.cu (K1a) and csrc/mega_pt.cu (K1b, and K1c and K1d,
      each static and with motion), with ptxas's register, frame and spill
      lines per kernel (kept beside a cached library); K1a must keep its 72
-     registers, K1b its 77 and K1c its 84 (90 with motion);
+     registers, K1b its 77, K1c its 84 (90 with motion) and K1d its 123
+     (128 with motion), and each has a tree instantiation (K1e);
   3. K1a against its plain torch version on 65,536 primary rays of
      scenes/whitted_conductors.xml (1 spp, no DoF);
   4. the Whitted main path: render_camera on scenes/whitted_conductors.xml
@@ -69,7 +70,36 @@ Phases, each printing one JSON line:
      time per launch, the plain version's time and error on every 8th of
      those rays and their draws, and the bound of the counted FP32 work
      (the plain version's counts times 8), Perlin evaluations, texel taps
-     and env candidates included.
+     and env candidates included;
+ 15. K1e, the tree instantiations, against their plain version: K1a's and
+     K1d's on 65,536 primary rays through the centres of every 4th pixel
+     (where the grid's shared edges make ties) of the 524,288-face terrain
+     of advanced_cpu_raytracing_tpu_torch/scene/synth.py, untextured and
+     textured, as it is (its faces point down: ambient and background
+     only) and with its winding reversed (lit by its point light, the
+     texture showing; the plain version must show the light raising the
+     mean radiance by more than 1 and the texture changing more than 20%
+     of the rays) (no draws: K1a's bound); then, with the tree threshold
+     (FLAT_MAX_FACES) set to 0 so every scene with faces walks a tree, K1b's
+     on the path-traced 2,048-face terrain, K1c's on the BRDF zoo, on the
+     motion + roughness scene and on a moving 512-face terrain (swept leaf
+     boxes), and K1d's on the normal and bump maps and on the env + motion
+     scene, in both draw modes (K1c's bound);
+ 16. the K1e main path: render_scene on the untextured and the textured
+     terrain at 640x480, 16 spp, depth 1 — with the counters set to 0
+     before each, K1a's and K1d's tree instantiations must launch 16 times
+     and nothing else; then render_camera on the textured terrain: one
+     warm-up frame and the median of 3 timed u8 frames;
+ 17. K1e at the main path's shape (the 307,200 rays of one sample), K1a's
+     and K1d's tree instantiations: time per launch, the plain version's
+     time and error on every 16th ray, and the bound: the FP32 work of the
+     tree walk, or the bytes it must read once (the node boxes it visits,
+     the vertices of the rows it tests, the winners' rows of the per-face
+     tables, the rays), both counted by ops/megakernel.py::TreeWalker on
+     every ray; the faces-up terrain's time per launch on the same shape;
+     then each of the four flat main paths' scenes through its tree twin
+     (FLAT_MAX_FACES at 0) beside its flat kernel on one sample's rays:
+     time per launch and agreement.
 Every phase line carries t_s, the seconds since the script started.
 Then the kernels line (each entry with its rays and the plain version's
 stride over them), the card line and, last, the result line.  Any
@@ -98,13 +128,18 @@ PT_SCENE = SCENES / "feat_pt.xml"
 LIGHTS_SCENE = SCENES / "feat_lights_brdf.xml"
 TEXTURES_SCENE = SCENES / "feat_textures.xml"
 REPLACES = "advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py:912"
-# registers of the K1a, K1b and K1c kernels since they were first
-# measured; the later variants' policies must not change their code
+# registers of the K1a-K1d kernels since they were first measured; the
+# later variants' policies (motion, textures, the tree) must not change
+# their code
 KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
-                  "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90}
+                  "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90,
+                  "mega_tex_kernel": 123, "mega_tex_motion_kernel": 128}
 KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_ext_motion_kernel", "mega_tex_kernel",
-                  "mega_tex_motion_kernel")
+                  "mega_tex_motion_kernel", "mega_whitted_tree_kernel",
+                  "mega_pt_tree_kernel", "mega_ext_tree_kernel",
+                  "mega_ext_motion_tree_kernel", "mega_tex_tree_kernel",
+                  "mega_tex_motion_tree_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -261,6 +296,8 @@ def main() -> int:
         path_traced,
     )
     from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
+    from advanced_cpu_raytracing_tpu_torch.scene.synth import terrain_scene
+    from advanced_cpu_raytracing_tpu_torch.scene.types import SceneConfig
     from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
 
     dev = torch.device("cuda")
@@ -308,11 +345,14 @@ def main() -> int:
                 "plain_stride": stride, "plain_rays": -(-rays // stride)}
 
     def scene(path_or_xml, name=None):
+        """A scene file, an XML text (written to ``name``) or a
+        SceneConfig, packed on the card with its tables."""
         if name is not None:  # an XML text: write it beside nothing else
             path = out_dir / name
             path.write_text(path_or_xml)
             path_or_xml = path
-        cfg = load_scene(str(path_or_xml))
+        cfg = (path_or_xml if isinstance(path_or_xml, SceneConfig)
+               else load_scene(str(path_or_xml)))
         pack = pack_scene(cfg, device=dev)
         cam_cfg = cfg.cameras[0]
         opts = renderer.options_for_camera(cfg, cam_cfg)
@@ -384,26 +424,51 @@ def main() -> int:
                     frame_s_all=times, mpaths_per_s=w * h * spp / frame_s / 1e6,
                     u8_mean=float(img.mean()), png=str(png), card=card)
 
-    def table_bytes(mc, tabs):
-        tables = [*tabs[:2], mc.spheres, mc.materials, mc.point_lights,
-                  mc.dir_lights, mc.ml_faces, mc.ml_lights]
+    def table_bytes(mc, tabs, reads=None):
+        """The bytes of the tables the kernel must read, each once.  A tree
+        scene's kernel reads only what its walk reaches (``reads``, the
+        masks TreeWalker leaves in the plain version's stats): the boxes of
+        the nodes visited, the vertex columns (and motion) of the rows
+        tested, and the winners' rows of the per-face tables (the emissive
+        flag a shadow query reads on a hit is left out)."""
+        tables = [mc.spheres, mc.materials, mc.point_lights, mc.dir_lights,
+                  mc.ml_faces, mc.ml_lights]
+        n_bytes = 0
+        tree = mc.tree is not None
+        if tree:
+            rows, won = reads["rows"], int(reads["won"].sum())
+            # per winner: the normal, the material and the mesh-light id
+            n_bytes += (int(reads["nodes"].sum()) * mk.NODE_COLS
+                        + int(rows.sum()) * 9 + won * 5) * 4
+        else:
+            tables += list(tabs)
         if mc.kernel in ("mega_ext", "mega_tex"):
             tables += [mc.spot_lights, mc.area_lights, mc.mat_ext]
             # a motion table that moves nothing is not read
-            tables += ([mc.tri_motion] if mc.faces_move else []) + (
-                [mc.sph_motion] if mc.spheres_move else [])
+            if mc.faces_move and tree:
+                moving = (mc.tri_motion != 0).any(dim=1)
+                n_bytes += int((rows[:moving.shape[0]] & moving).sum()) * 3 * 4
+            elif mc.faces_move:
+                tables.append(mc.tri_motion)
+            tables += [mc.sph_motion] if mc.spheres_move else []
         if mc.kernel == "mega_tex":
             # the texel pool and the texture tables, each read once
-            tables += [mc.texels, mc.tex_face, mc.tex_sph, mc.tex_int,
-                       mc.tex_flt, mc.perm]
-        return sum(t.numel() * 4 for t in tables)
+            tables += [mc.texels, mc.tex_sph, mc.tex_int, mc.tex_flt, mc.perm]
+            if tree:
+                n_bytes += won * mc.tex_face.shape[1] * 4
+            else:
+                tables.append(mc.tex_face)
+        return n_bytes + sum(t.numel() * 4 for t in tables)
 
     def at_main_shape(mc, tri_tab, chunk_tab, cam_cfg, cam, kernel, what,
-                      stride=1):
+                      stride=1, count_chunk=None):
         """The kernel on one sample's rays (Philox): ms per launch, the
         plain version's time and error on the same rays and draws (every
         ``stride``-th ray), and the bound of the counted work (the plain
-        version's counts times ``stride``)."""
+        version's counts times ``stride``; with ``count_chunk``, counted on
+        every ray in runs of its own of that many rays, so that the tree
+        walker's counting stays out of plain_ms and the rows it reads are
+        those of every ray)."""
         o, d = sample_rays(cam_cfg, cam, cam_cfg.num_samples)
         got = mk.mega_trace(mc, tri_tab, chunk_tab, o, d, seed=0, sample=0)
         kernel_ms = cuda_ms(lambda: mk.mega_trace(mc, tri_tab, chunk_tab, o, d,
@@ -415,23 +480,44 @@ def main() -> int:
         draws = (philox_table(0, 0, n_rays, mc.max_iters, mc.n_draws,
                               device=dev)[:, ::stride].contiguous()
                  if mc.n_draws else None)
+        o_all, d_all = o, d
         o, d, got = (t[::stride].contiguous() for t in (o, d, got))
         ref = mk.mega_trace_ref(mc, tri_tab, chunk_tab, o, d, draws=draws,
-                                stats=stats)
+                                stats=None if count_chunk else stats)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         del draws
-        if kernel == "mega_whitted":
+        count_stride = stride
+        if count_chunk:
+            table = (philox_table(0, 0, n_rays, mc.max_iters, mc.n_draws,
+                                  device=dev) if mc.n_draws else None)
+            for lo in range(0, n_rays, count_chunk):
+                part = slice(lo, lo + count_chunk)
+                mk.mega_trace_ref(
+                    mc, tri_tab, chunk_tab, o_all[part].contiguous(),
+                    d_all[part].contiguous(), stats=stats,
+                    draws=None if table is None
+                    else table[:, part].contiguous())
+            del table
+            count_stride = 1
+        reads = stats.pop("reads", None)
+        if not mc.n_draws:
             err = check_close(got, ref, what)
         else:
             err = check_close_pt(got, ref, what, EXT_MEAN_REL if kernel in (
                 "mega_ext", "mega_tex") else PT_MEAN_REL)
-        bd = bound({k: v * stride for k, v in stats.items()},
-                   n_rays * 9 * 4 + table_bytes(mc, (tri_tab, chunk_tab)))
+        bd = bound({k: v * count_stride for k, v in stats.items()},
+                   n_rays * 9 * 4 + table_bytes(mc, (tri_tab, chunk_tab), reads))
+        if reads is not None:
+            stats.update(nodes_read=int(reads["nodes"].sum()),
+                         rows_read=int(reads["rows"].sum()),
+                         rows_won=int(reads["won"].sum()))
+        plain_stride = -(-n_rays // o.shape[0])
         emit("kernel_at_main_shape", kernel=kernel, rays=n_rays,
-             plain_stride=stride, kernel_ms=kernel_ms, plain_ms=plain_ms, **bd,
-             **err, **stats, card=card)
-        return kernel_ms, plain_ms, bd, err, n_rays, stride
+             plain_stride=plain_stride, count_stride=count_stride,
+             kernel_ms=kernel_ms, plain_ms=plain_ms, **bd, **err, **stats,
+             card=card)
+        return kernel_ms, plain_ms, bd, err, n_rays, plain_stride
 
     kernels = []
 
@@ -680,6 +766,190 @@ def main() -> int:
         "K1d, 640,000 rays of one sample", stride=8)
     kernels.append(kernel_entry("mega_tex", mp["launches"], kernel_ms, plain_ms,
                                 bd, err, n_rays, stride))
+
+    # ---- K1e: large geometry through the tree ----
+    def check_modes(label, kernel, src, rays, sampled_tol, name=None, seed=0,
+                    centres=False):
+        """The tree instantiation of ``kernel`` against the plain version
+        on ``rays`` primary rays of a scene (with ``centres``, through the
+        centres of evenly spaced pixels, where a regular grid's shared edges
+        make ties), in both draw modes where it draws (K1c's bound), else
+        once (K1a's)."""
+        _, _, v_cam_cfg, (vmc, vtri, vchunk), vcam = scene(src, name)
+        if vmc.variant != kernel + "_tree":
+            raise AssertionError(f"{label}: routed to {vmc.variant}")
+        if centres:
+            w = v_cam_cfg.width
+            idx = torch.arange(rays, device=dev) * (w * v_cam_cfg.height // rays)
+            o, d = (t.contiguous() for t in generate_rays(
+                vcam, (idx % w).float() + 0.5, (idx // w).float() + 0.5))
+        else:
+            o, d = primary_rays(v_cam_cfg, vcam, rays, seed=seed)
+        rows = vmc.max_iters * vmc.n_draws
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(8)
+        modes = (("table", torch.rand((rows, o.shape[0]), generator=gen,
+                                      device=dev)), ("philox", None))
+        for mode, draws in (modes if rows else (("none", None),)):
+            got = mk.mega_trace(vmc, vtri, vchunk, o, d, draws=draws, seed=17,
+                                sample=2)
+            torch.cuda.synchronize()
+            if draws is None and rows:
+                draws = philox_table(17, 2, o.shape[0], vmc.max_iters,
+                                     vmc.n_draws, device=dev)
+            t0 = time.perf_counter()
+            ref = mk.mega_trace_ref(vmc, vtri, vchunk, o, d, draws=draws)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if rows:
+                err = check_close_pt(got, ref, f"K1e, {label}, {mode}",
+                                     sampled_tol)
+                tol = dict(atol=PT_ATOL, rtol=PT_RTOL, frac_tol=PT_FRAC,
+                           mean_rel_tol=sampled_tol)
+            else:
+                err = check_close(got, ref, f"K1e, {label}")
+                tol = dict(mean_tol=MEAN_TOL, q999_tol=Q999_TOL)
+            emit("kernel_vs_plain", kernel=vmc.variant, scene=label, draws=mode,
+                 rays=o.shape[0], faces=vmc.n_tri, tree_nodes=vmc.tree.shape[0],
+                 tree_depth=vmc.tree_depth, depth=vmc.max_depth,
+                 n_draws=vmc.n_draws, plain_s=plain_s, **err, **tol)
+        del draws
+        return ref
+
+    def faces_up(cfg):
+        """The scene with its meshes' winding reversed."""
+        for mesh in cfg.meshes:
+            mesh.faces = np.ascontiguousarray(mesh.faces[:, ::-1])
+            if mesh.uv_indices is not None:
+                mesh.uv_indices = np.ascontiguousarray(mesh.uv_indices[:, ::-1])
+        return cfg
+
+    # 15. the tree instantiations against their plain version; the JAX
+    # package's terrain faces down (its light adds nothing and its texture
+    # changes no pixel), so the terrain is checked with its winding
+    # reversed too, where the light and the texture show
+    terrains = {textured: terrain_scene(n=513, textured=textured)
+                for textured in (False, True)}
+    lit = {textured: faces_up(terrain_scene(n=513, textured=textured))
+           for textured in (False, True)}
+    refs = {}
+    for up, scenes in ((False, terrains), (True, lit)):
+        for textured, kernel in ((False, "mega_whitted"), (True, "mega_tex")):
+            refs[up, textured] = check_modes(
+                f"terrain n=513{', faces up' if up else ''}"
+                f"{', textured' if textured else ''}", kernel,
+                scenes[textured], 65536, EXT_MEAN_REL, centres=True)
+    light_gain = float(refs[True, False].mean() - refs[False, False].mean())
+    tex_changed = float(((refs[True, True] - refs[True, False]).abs().amax(dim=1)
+                         > 0.5).float().mean())
+    emit("terrain_shading", light_gain=light_gain,
+         texture_changed_frac=tex_changed)
+    if not (light_gain > 1.0 and tex_changed > 0.2):
+        raise AssertionError(f"faces-up terrain: the light adds {light_gain} "
+                             f"on average and the texture changes "
+                             f"{tex_changed} of the rays")
+    del refs
+    moving = terrain_scene(n=17, width=64, height=48)
+    moving.meshes[0].motion_blur = np.array([0.4, 0.0, 0.2])
+    traced = terrain_scene(n=33, width=64, height=48)
+    traced.cameras[0].renderer_params.path_tracing = True
+    traced.cameras[0].renderer_params.next_event_estimation = True
+    traced.cameras[0].renderer_params.importance_sampling = True
+    k1c = k1c_scenes(SCENES)
+    flat_max = mk.FLAT_MAX_FACES
+    mk.FLAT_MAX_FACES = 0  # every scene with faces walks a tree
+    try:
+        for label, kernel, src, name in (
+                ("terrain n=33, path tracing", "mega_pt", traced, None),
+                ("brdf_zoo", "mega_ext", k1c["brdf_zoo"], "brdf_zoo.xml"),
+                ("motion_rough", "mega_ext", k1c["motion_rough"],
+                 "motion_rough.xml"),
+                ("terrain n=17, moving", "mega_ext", moving, None),
+                ("maps", "mega_tex", tex_dir / "maps.xml", None),
+                ("env_motion_rough", "mega_tex", tex_dir / "env_motion_rough.xml",
+                 None)):
+            check_modes(label, kernel, src, 65536, EXT_MEAN_REL, name, seed=5)
+    finally:
+        mk.FLAT_MAX_FACES = flat_max
+
+    # 16. the K1e main path: render_scene on both terrains, then frames
+    main_launches = {}
+    for textured, kernel in ((False, "mega_whitted_tree"),
+                             (True, "mega_tex_tree")):
+        cfg = terrains[textured]
+        cfg.cameras[0].num_samples = 16
+        for k in mk.LAUNCHES:
+            mk.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (cam_cfg, hdr), = renderer.render_scene(cfg, seed=0, device=dev)
+        frame_s = time.perf_counter() - t0
+        launches = dict(mk.LAUNCHES)
+        want = {k: (16 if k == kernel else 0) for k in mk.LAUNCHES}
+        if launches != want:
+            raise AssertionError(f"K1e render_scene: launches {launches}, "
+                                 f"expected {want}")
+        ldr = renderer.ldr_from_radiance(hdr)
+        if not (hdr.shape == (480, 640, 3) and np.isfinite(hdr).all()
+                and hdr.min() >= 0.0 and 5.0 < float(ldr.mean()) < 250.0):
+            raise AssertionError(f"K1e {kernel} frame: {hdr.shape}, finite "
+                                 f"{np.isfinite(hdr).all()}, u8 mean "
+                                 f"{ldr.mean()}")
+        write_png(str(out_dir / f"{kernel}_terrain.png"), ldr)
+        main_launches[kernel] = launches[kernel]
+        emit("render_scene", kernel=kernel, scene="terrain n=513",
+             faces=524288, spp=16, launches=launches[kernel],
+             frame_s_with_setup=frame_s, u8_mean=float(ldr.mean()), card=card)
+    cfg, pack, cam_cfg, (mc, tri_tab, chunk_tab), cam = scene(terrains[True])
+    mp = main_path(pack, cfg, cam_cfg, "mega_tex_tree", "K1e main path")
+    emit("main_path", kernel="mega_tex_tree", scene="terrain n=513, textured",
+         **mp)
+    main_launches["mega_tex_tree"] = mp["launches"]
+
+    # 17. K1e at the main path's shape: one sample's 307,200 rays; the
+    # plain version on every 16th, the tree walk counted on every ray; then
+    # the faces-up terrain's launch on the same shape
+    for textured, kernel in ((False, "mega_whitted_tree"),
+                             (True, "mega_tex_tree")):
+        _, _, cam_cfg, (mc, tri_tab, chunk_tab), cam = scene(terrains[textured])
+        kernel_ms, plain_ms, bd, err, n_rays, stride = at_main_shape(
+            mc, tri_tab, chunk_tab, cam_cfg, cam, kernel,
+            f"K1e {kernel}, 307,200 rays of one sample", stride=16,
+            count_chunk=76800)
+        kernels.append(kernel_entry(kernel, main_launches[kernel], kernel_ms,
+                                    plain_ms, bd, err, n_rays, stride))
+        lit[textured].cameras[0].num_samples = cam_cfg.num_samples
+        _, _, l_cam_cfg, (lmc, ltri, lchunk), lcam = scene(lit[textured])
+        o, d = sample_rays(l_cam_cfg, lcam, l_cam_cfg.num_samples)
+        mk.mega_trace(lmc, ltri, lchunk, o, d, seed=0, sample=0)
+        emit("kernel_faces_up", kernel=lmc.variant, rays=o.shape[0],
+             kernel_ms=cuda_ms(lambda: mk.mega_trace(
+                 lmc, ltri, lchunk, o, d, seed=0, sample=0), 5),
+             faces_down_ms=kernel_ms, card=card)
+
+    # the flat main paths' scenes through their tree twins (FLAT_MAX_FACES
+    # at 0) beside their flat kernels, on one sample's rays
+    for path in (WHITTED_SCENE, PT_SCENE, LIGHTS_SCENE, TEXTURES_SCENE):
+        _, _, f_cam_cfg, flat_tabs, f_cam = scene(path)
+        flat_max = mk.FLAT_MAX_FACES
+        mk.FLAT_MAX_FACES = 0
+        try:
+            tree_tabs = scene(path)[3]
+        finally:
+            mk.FLAT_MAX_FACES = flat_max
+        o, d = sample_rays(f_cam_cfg, f_cam, f_cam_cfg.num_samples)
+        res = {}
+        for label, (m, tri, chunk) in (("flat", flat_tabs), ("tree", tree_tabs)):
+            res[label] = mk.mega_trace(m, tri, chunk, o, d, seed=0, sample=0)
+            res[label + "_ms"] = cuda_ms(lambda: mk.mega_trace(
+                m, tri, chunk, o, d, seed=0, sample=0), 5)
+        emit("tree_on_flat_scene", scene=path.name,
+             flat_kernel=flat_tabs[0].variant, tree_kernel=tree_tabs[0].variant,
+             rays=o.shape[0], flat_ms=res["flat_ms"], tree_ms=res["tree_ms"],
+             exact_frac_vs_flat=exact_frac(res["tree"], res["flat"]),
+             max_abs_diff=float((res["tree"] - res["flat"]).abs().max()),
+             card=card)
+        del res
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

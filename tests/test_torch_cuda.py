@@ -23,6 +23,7 @@ from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
     path_traced,
 )
 from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
+from advanced_cpu_raytracing_tpu_torch.scene.synth import terrain_scene
 from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
 from test_torch_common import (
     COARSE_TORUS,
@@ -291,6 +292,54 @@ def test_tex_render_camera_launches_once_per_sample(cuda, tmp_path):
     assert after["mega_tex"] == before["mega_tex"] + 4
     assert all(after[k] == before[k] for k in ("mega_whitted", "mega_pt",
                                                 "mega_ext"))
+    want = render_camera(pack_scene(cfg, device="cpu"), cfg, cfg.cameras[0],
+                         seed=7, spp=4, device="cpu", jitter=jitter)
+    du8 = np.abs(ldr_from_radiance(got).astype(int)
+                 - ldr_from_radiance(want).astype(int))
+    assert np.isfinite(got).all() and (du8.max(axis=-1) > 1).mean() <= 0.01
+
+
+@pytest.mark.parametrize("textured", [False, True], ids=["plain", "textured"])
+def test_tree_kernel_matches_plain_version(cuda, monkeypatch, textured):
+    """K1e: the 8,192-face terrain past a lowered threshold walks the tree;
+    at pixel centres (ties on the grid's shared edges) the tree
+    instantiation agrees with the plain version's brute force."""
+    monkeypatch.setattr(mk, "FLAT_MAX_FACES", 4096)
+    cfg = terrain_scene(n=65, width=64, height=48, textured=textured)
+    pack = pack_scene(cfg, device=cuda)
+    mc, tab, ctab = mk.build_mega(pack, options_for_camera(cfg, cfg.cameras[0]),
+                                  device=cuda)
+    key = "mega_tex_tree" if textured else "mega_whitted_tree"
+    assert mc.variant == key
+    cam = build_camera(cfg.cameras[0], device=cuda)
+    idx = torch.arange(64 * 48, device=cuda)
+    o, d = (t.contiguous() for t in generate_rays(
+        cam, (idx % 64).float() + 0.5, (idx // 64).float() + 0.5))
+    before = dict(mk.LAUNCHES)
+    got = mk.mega_trace(mc, tab, ctab, o, d)
+    torch.cuda.synchronize()
+    after = dict(mk.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == key) for k in after}
+    ref = mk.mega_trace_ref(mc, tab, ctab, o, d)
+    diff = (got - ref).abs()
+    assert torch.isfinite(got).all()
+    assert float(diff.mean()) < 0.01
+    assert float(torch.quantile(diff.flatten(), 0.999)) < 0.5
+
+
+def test_tree_render_camera_launches_once_per_sample(cuda, monkeypatch):
+    """K1e through render_camera: the tree instantiation launches once per
+    sample and nothing else; the frame agrees with the CPU frame."""
+    monkeypatch.setattr(mk, "FLAT_MAX_FACES", 0)
+    cfg = terrain_scene(n=33, width=48, height=32, textured=True)
+    jitter = torch.rand((4, 48 * 32, 2), generator=torch.Generator().manual_seed(3))
+    before = dict(mk.LAUNCHES)
+    got = render_camera(pack_scene(cfg, device=cuda), cfg, cfg.cameras[0],
+                        seed=7, spp=4, device=cuda, jitter=jitter)
+    after = dict(mk.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 4 * int(k == "mega_tex_tree") for k in after}
     want = render_camera(pack_scene(cfg, device="cpu"), cfg, cfg.cameras[0],
                          seed=7, spp=4, device="cpu", jitter=jitter)
     du8 = np.abs(ldr_from_radiance(got).astype(int)

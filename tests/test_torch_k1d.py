@@ -402,13 +402,17 @@ def test_mega_missing_names_each_remaining_gate(tmp_path, gate):
 
 
 def test_mega_missing_names_streamed_geometry():
-    """Past 98,304 faces the JAX kernel streams its geometry (K1e): still
-    outside the envelope, textured or not."""
+    """Past 98,304 faces, where the JAX kernel streams its geometry, the
+    kernels walk a tree (K1e): inside the envelope, textured or not.  Past
+    the pack's 2,097,152 faces the scene has no work items: outside it."""
     cfg = load_scene(str(REPO / "scenes" / "feat_textures.xml"))
     pack = pack_scene(cfg, device="cpu")
     opts = options_for_camera(cfg, cfg.cameras[0])
     assert mk.mega_missing(pack.static, opts, pack) == []
-    big = dataclasses.replace(pack.static, n_work_items=mk.MAX_FACES + 1)
-    assert mk.mega_missing(big, opts, pack) == ["more than 98,304 faces"]
+    big = dataclasses.replace(pack.static, n_work_items=mk.FLAT_MAX_FACES + 1)
+    assert mk.mega_missing(big, opts, pack) == []
+    huge = dataclasses.replace(pack.static, n_work_items=0)
+    assert huge.n_faces > 0
+    assert mk.mega_missing(huge, opts, pack) == ["more than 2,097,152 faces"]
     with pytest.raises(TypeError, match="needs its pack"):
         mk.mega_missing(pack.static, opts)
