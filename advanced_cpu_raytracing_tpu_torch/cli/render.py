@@ -52,6 +52,8 @@ def main(argv=None) -> int:
     for cam_cfg in cfg.cameras:
         print(f"Resolution: {cam_cfg.width}x{cam_cfg.height}, "
               f"samples: {cam_cfg.num_samples}")
+        if cam_cfg.renderer_params.path_tracing:
+            print(f"Path tracing is enabled for: {cam_cfg.image_name}")
         img = render_camera(pack, cfg, cam_cfg, seed=args.seed, spp=args.spp,
                             device=args.device)
         base = os.path.join(args.out_dir, cam_cfg.image_name)

@@ -118,6 +118,22 @@ __device__ __forceinline__ void norm3(float& x, float& y, float& z) {
   z *= inv;
 }
 
+// Philox4x32-10 (Random123): counter c, key (k0, k1); ops/rng.py holds
+// its torch twin
+__device__ __forceinline__ uint4 philox(uint4 c, unsigned k0, unsigned k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
 // pow with the base clamped > 0 and C-style pow(0, 0) = 1
 __device__ __forceinline__ float powmax(float base, float e) {
   const bool pos = base > 0.0f;
@@ -241,23 +257,38 @@ __device__ __forceinline__ bool sphere_hit(const float* s, float px, float py,
   return valid;
 }
 
+// One axis of a slab test: the distances at which the ray enters and
+// leaves [lo, hi] along it.  A ray parallel to the axis (iv = +-inf) that
+// lies on one of the two planes makes 0 * inf = NaN there; that plane then
+// counts as not limiting the ray, so the chunk sweep and the
+// walk keep every box the ray touches.
+__device__ __forceinline__ void slab_axis(float lo, float hi, float p,
+                                          float iv, float& t_in,
+                                          float& t_out) {
+  float t1 = (lo - p) * iv, t2 = (hi - p) * iv;
+  const float inf = copysignf(__int_as_float(0x7f800000), iv);
+  if (t1 != t1) t1 = -inf;
+  if (t2 != t2) t2 = inf;
+  t_in = fminf(t1, t2);
+  t_out = fmaxf(t1, t2);
+}
+
 // Chunk AABB slab test (BoundingBox, shape.hpp:78-100) against the ray's
-// current reject distance.
+// current reject distance.  A ray in a face plane of the box keeps it
+// (slab_axis); the TPU kernel's chunk_sweep drops such a box.
 __device__ __forceinline__ bool slab(const float* box, float px, float py,
                                      float pz, float ivx, float ivy,
                                      float ivz, float t_b) {
   const float4 lo = ld4(box);      // min xyz, max x
   const float4 hi = ld4(box + 4);  // max yz, pad
-  float t1 = (lo.x - px) * ivx, t2 = (lo.w - px) * ivx;
-  float tmin = fminf(t1, t2), tmax = fmaxf(t1, t2);
-  t1 = (lo.y - py) * ivy;
-  t2 = (hi.x - py) * ivy;
-  tmin = fmaxf(tmin, fminf(t1, t2));
-  tmax = fminf(tmax, fmaxf(t1, t2));
-  t1 = (lo.z - pz) * ivz;
-  t2 = (hi.y - pz) * ivz;
-  tmin = fmaxf(tmin, fminf(t1, t2));
-  tmax = fminf(tmax, fmaxf(t1, t2));
+  float tmin, tmax, t_in, t_out;
+  slab_axis(lo.x, lo.w, px, ivx, tmin, tmax);
+  slab_axis(lo.y, hi.x, py, ivy, t_in, t_out);
+  tmin = fmaxf(tmin, t_in);
+  tmax = fminf(tmax, t_out);
+  slab_axis(lo.z, hi.y, pz, ivz, t_in, t_out);
+  tmin = fmaxf(tmin, t_in);
+  tmax = fminf(tmax, t_out);
   return tmax > 0.0f && tmax >= tmin && tmin < t_b;
 }
 
@@ -269,22 +300,6 @@ struct FlatChunks {
 struct ChunkTree {
   static constexpr bool kTree = true;
 };
-
-// One axis of a node's slab test: the distances at which the ray enters and
-// leaves [lo, hi] along it.  A ray parallel to the axis (iv = +-inf) that
-// lies on one of the two planes makes 0 * inf = NaN there; that plane then
-// counts as not limiting the ray, so the walk keeps every box the ray
-// touches (the chunk sweep's `slab` would drop it).
-__device__ __forceinline__ void slab_axis(float lo, float hi, float p,
-                                          float iv, float& t_in,
-                                          float& t_out) {
-  float t1 = (lo - p) * iv, t2 = (hi - p) * iv;
-  const float inf = copysignf(__int_as_float(0x7f800000), iv);
-  if (t1 != t1) t1 = -inf;
-  if (t2 != t2) t2 = inf;
-  t_in = fminf(t1, t2);
-  t_out = fmaxf(t1, t2);
-}
 
 // The slab test of a node's box (lo: min xyz, max x; hi: max yz): the
 // ray's entry distance, or +inf where the ray misses the box.

@@ -124,21 +124,6 @@ struct ExtParams {
   const float* smo;  // per-sphere object-space motion (n_sph, 3), or null
 };
 
-// Philox4x32-10 (Random123): counter c, key (k0, k1)
-__device__ __forceinline__ uint4 philox(uint4 c, unsigned k0, unsigned k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
 // Draw `slot` of node iteration `it` of ray i (the JAX kernel's rnd)
 __device__ __forceinline__ float rnd(const PtParams& Q, int i, int it,
                                      int slot) {

@@ -1,0 +1,67 @@
+"""Gradient-based scene-parameter optimization (inverse rendering): Adam
+over the differentiable render toward a target image (the JAX package's
+``diff/optimize.py``, with ``torch.optim.Adam`` in place of optax; both
+add eps to sqrt(v-hat)).
+
+The loss of every step goes through the fused route, ``make_diff_render``
+(kernel K2a on the card; its plain version with ``device="cpu"``).  The
+JAX package falls back to ``jax.grad`` through its wavefront for scenes
+outside its fused kernel; the port has no wavefront yet, so such a scene,
+or a camera with depth of field, raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from advanced_cpu_raytracing_tpu_torch.diff.params import inject_params
+from advanced_cpu_raytracing_tpu_torch.ops.megabwd import (
+    bwd_missing,
+    make_diff_render,
+)
+from advanced_cpu_raytracing_tpu_torch.render.camera import generate_rays
+from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
+
+
+def optimize(pack, cam, px, py, opts, target, fields, steps: int = 50,
+             lr=5e-2, seed: int = 0, device=None):
+    """Returns (optimized pack, loss history).
+
+    ``cam`` is the camera on ``device`` (default ``cuda``); ``px``, ``py``
+    (R,) the pixel coordinates of the rays (no jitter, no lens); ``target``
+    (R,3) the radiance to match in mean squared error; ``fields`` the pack
+    fields to optimize (``make_diff_render``'s parameters); ``lr`` the
+    rate of every field, or field -> rate (as the JAX package's
+    tools/inverse_render.py gives the vertices a smaller step).  Every
+    step draws the dielectric's branch uniforms from Philox keyed by
+    (``seed``, 0): the same draws each step, as in the JAX fused route,
+    whose key stays ``PRNGKey(0)``, so the loss is one deterministic
+    function of the parameters."""
+    dev = resolve_device(device)
+    missing = bwd_missing(pack.static, opts, pack)
+    if getattr(cam, "use_dof", False):
+        missing.append("a depth-of-field camera")
+    if missing:
+        raise NotImplementedError(
+            "optimize: scene outside the differentiable kernel K2a ("
+            + ", ".join(missing) + "); the JAX package's fallback through "
+            "its wavefront is not ported")
+    render = make_diff_render(pack, opts, device=dev)
+    params = {f: getattr(pack, f).detach().to(dev, torch.float32).clone()
+              .requires_grad_(True) for f in fields}
+    f32 = torch.float32
+    o, d = generate_rays(cam, torch.as_tensor(px, dtype=f32, device=dev),
+                         torch.as_tensor(py, dtype=f32, device=dev))
+    target = torch.as_tensor(target, dtype=f32, device=dev)
+    rates = lr if isinstance(lr, dict) else dict.fromkeys(fields, lr)
+    adam = torch.optim.Adam([{"params": [v], "lr": rates[k]}
+                             for k, v in params.items()])
+    history = []
+    for _ in range(steps):
+        adam.zero_grad(set_to_none=True)
+        loss = torch.mean((render(params, o, d, seed=seed) - target) ** 2)
+        loss.backward()
+        adam.step()
+        history.append(float(loss.detach()))
+    return inject_params(pack, {k: v.detach() for k, v in params.items()}), \
+        history

@@ -70,6 +70,18 @@ _SIGNATURES = {
                  ctypes.POINTER(TexParams), _P]),
         "mega_pt_error_string": (ctypes.c_char_p, [_I]),
     },
+    "mega_bwd": {
+        # rays, gbar (null: the primal), out, n; tri, chunks, the tree (or
+        # null); spheres, materials, lights, bg, consts; draws, depth,
+        # max_depth, flags, seed, step; the cotangents (tri, mat, pl, dl,
+        # bg, o, d); stream
+        "mega_bwd_launch": (
+            _I, [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P,
+                 _I, _P, _I, _P, ctypes.POINTER(ctypes.c_float), _P, _I, _I,
+                 _I, ctypes.c_uint32, ctypes.c_uint32, _P, _P, _P, _P, _P, _P,
+                 _P, _P]),
+        "mega_bwd_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 

@@ -789,20 +789,29 @@ def _sphere_hit(s, px, py, pz, vx, vy, vz, mo=None, tau=None):
     return t, valid, nwx, nwy, nwz, prx, pry, prz
 
 
+def _slab_axis(lo, hi, p, iv):
+    """``slab_axis`` of csrc/mega_common.cuh: the distances at which rays
+    enter and leave [lo, hi] along one axis.  A ray parallel to the axis
+    that lies on one of the planes makes 0 * inf = NaN there; that plane
+    then does not limit the ray."""
+    t1 = (lo - p) * iv
+    t2 = (hi - p) * iv
+    inf = torch.copysign(torch.full_like(iv, float("inf")), iv)
+    t1 = torch.where(torch.isnan(t1), -inf, t1)
+    t2 = torch.where(torch.isnan(t2), inf, t2)
+    return torch.minimum(t1, t2), torch.maximum(t1, t2)
+
+
 def _slab_enter(box, px, py, pz, ivx, ivy, ivz, t_b):
-    """Chunk AABB slab test (shape.hpp:78-100) — the kernel's cull.  The
-    plain version does not skip on it; it only counts the kernel's work."""
-    t1 = (box[0] - px) * ivx
-    t2 = (box[3] - px) * ivx
-    tmin, tmax = torch.minimum(t1, t2), torch.maximum(t1, t2)
-    t1 = (box[1] - py) * ivy
-    t2 = (box[4] - py) * ivy
-    tmin = torch.maximum(tmin, torch.minimum(t1, t2))
-    tmax = torch.minimum(tmax, torch.maximum(t1, t2))
-    t1 = (box[2] - pz) * ivz
-    t2 = (box[5] - pz) * ivz
-    tmin = torch.maximum(tmin, torch.minimum(t1, t2))
-    tmax = torch.minimum(tmax, torch.maximum(t1, t2))
+    """Chunk AABB slab test (shape.hpp:78-100) — the kernel's cull, which
+    keeps a box whose face plane the ray runs in (JAX's ``chunk_sweep``
+    drops it).  The plain version does not skip on it; it only counts the
+    kernel's work."""
+    tmin, tmax = _slab_axis(box[0], box[3], px, ivx)
+    t_in, t_out = _slab_axis(box[1], box[4], py, ivy)
+    tmin, tmax = torch.maximum(tmin, t_in), torch.minimum(tmax, t_out)
+    t_in, t_out = _slab_axis(box[2], box[5], pz, ivz)
+    tmin, tmax = torch.maximum(tmin, t_in), torch.minimum(tmax, t_out)
     return (tmax > 0) & (tmax >= tmin) & (tmin < t_b)
 
 
@@ -840,13 +849,8 @@ class TreeWalker:
         entry distance, +inf on a miss; a NaN (a ray in a face plane of the
         box) does not limit the ray."""
         box = self.box[node]
-        t1 = (box[:, 0:3] - p) * iv
-        t2 = (box[:, 3:6] - p) * iv
-        inf = torch.copysign(torch.full_like(iv, float("inf")), iv)
-        t1 = torch.where(torch.isnan(t1), -inf, t1)
-        t2 = torch.where(torch.isnan(t2), inf, t2)
-        tmin = torch.minimum(t1, t2).amax(dim=1)
-        tmax = torch.maximum(t1, t2).amin(dim=1)
+        t_in, t_out = _slab_axis(box[:, 0:3], box[:, 3:6], p, iv)
+        tmin, tmax = t_in.amax(dim=1), t_out.amin(dim=1)
         return torch.where((tmax > 0) & (tmax >= tmin), tmin,
                            torch.full_like(tmin, float("inf")))
 

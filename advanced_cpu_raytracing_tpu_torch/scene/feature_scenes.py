@@ -14,11 +14,17 @@ copied here as XML text with writers for their image assets, plus
 absorbing dielectric.  ``chip_smoke.py`` and the port's tests both take
 them from ``k1c_scenes`` and ``k1d_scenes``; ``write_feature_textures``
 makes the committed assets of ``scenes/feat_textures.xml``.
+
+``torus_mesh`` makes the torus of ``scenes/whitted_conductors_mesh.ply``
+(and the coarse one of the CPU tests), and ``gauge_scene_xml`` writes the
+scene of the differentiable path (slice C1): that room with a directional
+anchor light.
 """
 
 from __future__ import annotations
 
 import re
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -824,3 +830,104 @@ def write_feature_textures(out_dir) -> None:
             write_hdr(str(d / name), img)
         else:
             write_png(str(d / name), img)
+
+
+# ---------------------------------------------------------------------------
+# the slice scene's torus, and the scene of the differentiable path
+# ---------------------------------------------------------------------------
+
+# full-size torus of the committed mesh, and the coarse one of the CPU tests
+FULL_TORUS = dict(n_major=128, n_minor=128)
+COARSE_TORUS = dict(n_major=24, n_minor=16)
+
+
+def torus_mesh(n_major: int, n_minor: int, major: float = 3.5,
+               minor: float = 1.2, center=(4.0, 1.5, -5.0),
+               tilt_x_deg: float = 70.0, tilt_y_deg: float = 25.0):
+    """A torus in world coordinates: (verts (V,3) f32, faces (F,3) i32),
+    two triangles per (major, minor) cell, counter-clockwise seen from
+    outside."""
+    u = np.arange(n_major) * (2.0 * np.pi / n_major)
+    v = np.arange(n_minor) * (2.0 * np.pi / n_minor)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    ring = major + minor * np.cos(vv)
+    pts = np.stack([ring * np.cos(uu), minor * np.sin(vv),
+                    ring * np.sin(uu)], axis=-1).reshape(-1, 3)
+    ax, ay = np.deg2rad(tilt_x_deg), np.deg2rad(tilt_y_deg)
+    rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)],
+                   [0, np.sin(ax), np.cos(ax)]])
+    ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0],
+                   [-np.sin(ay), 0, np.cos(ay)]])
+    pts = pts @ (ry @ rx).T + np.asarray(center)
+    i, j = np.meshgrid(np.arange(n_major), np.arange(n_minor), indexing="ij")
+    a = i * n_minor + j
+    b = ((i + 1) % n_major) * n_minor + j
+    c = ((i + 1) % n_major) * n_minor + (j + 1) % n_minor
+    e = i * n_minor + (j + 1) % n_minor
+    faces = np.concatenate([np.stack([a, e, c], -1).reshape(-1, 3),
+                            np.stack([a, c, b], -1).reshape(-1, 3)])
+    return pts.astype(np.float32), faces.astype(np.int32)
+
+
+def ply_bytes(verts: np.ndarray, faces: np.ndarray) -> bytes:
+    """Binary little-endian PLY of float32 vertices and triangle faces."""
+    head = ("ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {len(verts)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            f"element face {len(faces)}\n"
+            "property list uchar int vertex_indices\nend_header\n").encode()
+    rows = np.zeros(len(faces), dtype=[("n", "u1"), ("i", "<i4", 3)])
+    rows["n"] = 3
+    rows["i"] = faces
+    return head + verts.astype("<f4").tobytes() + rows.tobytes()
+
+
+# The anchor light of the gauge scene.  JAX's tools/inverse_render.py
+# (gauge_broken_scene) adds a directional light of known radiance to its
+# scene so that diffuse shading no longer constrains only the product kd *
+# intensity.  The room of whitted_conductors.xml is closed above, so the
+# light comes in through its open front (+z), and its radiance is of the
+# order of the point lights' irradiance there (40000 / ~250).
+GAUGE_ANCHOR = """<DirectionalLight id="1">
+      <Direction>0.35 -0.3 -1</Direction>
+      <Radiance>150 150 150</Radiance>
+    </DirectionalLight>
+  """
+GAUGE_MIRROR = """<Material id="5" type="mirror">
+      <AmbientReflectance>0 0 0</AmbientReflectance>
+      <DiffuseReflectance>0.05 0.05 0.05</DiffuseReflectance>
+      <SpecularReflectance>0.2 0.2 0.2</SpecularReflectance>
+      <MirrorReflectance>0.8 0.8 0.8</MirrorReflectance>
+      <PhongExponent>100</PhongExponent></Material>"""
+
+
+def gauge_scene_xml(out_dir, scenes_dir, coarse: bool = False,
+                    glass: bool = True) -> str:
+    """``scenes_dir/whitted_conductors.xml`` plus a directional anchor
+    light (``GAUGE_ANCHOR``), the scene of the differentiable path, written
+    with its torus mesh to ``out_dir``; returns the XML path.  ``coarse``
+    swaps in the coarse torus (``COARSE_TORUS``: 768 faces, 778 work
+    items); ``glass=False`` makes the dielectric material 5 a mirror, so
+    the scene draws nothing."""
+    scenes_dir, out_dir = Path(scenes_dir), Path(out_dir)
+    xml = (scenes_dir / "whitted_conductors.xml").read_text()
+    if "DirectionalLight" in xml:
+        raise ValueError("whitted_conductors.xml has a directional light")
+    xml = xml.replace("</Lights>", GAUGE_ANCHOR + "</Lights>")
+    if not glass:
+        xml, n = re.subn(r'<Material id="5" type="dielectric">.*?</Material>',
+                         GAUGE_MIRROR, xml, flags=re.S)
+        if n != 1:
+            raise ValueError("whitted_conductors.xml: no dielectric material 5")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ply = out_dir / ("gauge_coarse_mesh.ply" if coarse else "gauge_mesh.ply")
+    xml = xml.replace('plyFile="whitted_conductors_mesh.ply"',
+                      f'plyFile="{ply.name}"')
+    if coarse:
+        ply.write_bytes(ply_bytes(*torus_mesh(**COARSE_TORUS)))
+    else:
+        shutil.copyfile(scenes_dir / "whitted_conductors_mesh.ply", ply)
+    out = out_dir / ("gauge" + ("_coarse" if coarse else "")
+                     + ("" if glass else "_mirror") + ".xml")
+    out.write_text(xml)
+    return str(out)

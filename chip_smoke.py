@@ -4,14 +4,17 @@
 
 Phases, each printing one JSON line:
   1. probe: the card's name and power limit, torch's CUDA version, nvcc;
-  2. build the megakernel sources, one nvcc each, started together:
-     csrc/mega_whitted.cu (K1a) and csrc/mega_pt.cu (K1b, and K1c and K1d,
-     each static and with motion), with ptxas's register, frame and spill
+  2. build the kernel sources, one nvcc each, started together:
+     csrc/mega_whitted.cu (K1a), csrc/mega_pt.cu (K1b, and K1c and K1d,
+     each static and with motion) and csrc/mega_bwd.cu (K2a, its primal and
+     its fwd+bwd instantiation), with ptxas's register, frame and spill
      lines per kernel (kept beside a cached library); K1a must keep its 72
      registers, K1b its 77, K1c its 84 (90 with motion) and K1d its 123
      (128 with motion), and each has a tree instantiation (K1e);
   3. K1a against its plain torch version on 65,536 primary rays of
-     scenes/whitted_conductors.xml (1 spp, no DoF);
+     scenes/whitted_conductors.xml (1 spp, no DoF), and on a ray along -z
+     in the plane y = -10 of the first chunk's box (the room's floor), which
+     the chunk cull must keep to reach the back wall;
   4. the Whitted main path: render_camera on scenes/whitted_conductors.xml
      at 800x800, 16 spp, depth 6, u8 clamp on the device — with the launch
      counters set to 0 before it, K1a must launch 16 times and the others
@@ -39,7 +42,8 @@ Phases, each printing one JSON line:
      directional, the BRDF zoo, the demo's area light, motion + roughness,
      scenes/feat_spotareaml.xml as Whitted and as path tracing with a rough
      glass sphere) and on scenes/feat_lights_brdf.xml as Whitted and as
-     path tracing (NEE + importance sampling, by substitution);
+     path tracing (NEE + importance sampling, by substitution; on every
+     2nd of the rays);
  10. the K1c main path: render_camera on scenes/feat_lights_brdf.xml at
      800x800, 16 spp, depth 4, DoF, u8 clamp on the device — with the
      counters set to 0 before it, K1c must launch 16 times and K1a and K1b
@@ -99,7 +103,36 @@ Phases, each printing one JSON line:
      every ray; the faces-up terrain's time per launch on the same shape;
      then each of the four flat main paths' scenes through its tree twin
      (FLAT_MAX_FACES at 0) beside its flat kernel on one sample's rays:
-     time per launch and agreement.
+     time per launch and agreement;
+ 18. K2a (csrc/mega_bwd.cu, the differentiable render's Whitted chain)
+     against its plain version (ops/megabwd.py, autograd) on 16,384
+     primary rays at full depth of the gauge scene (scenes/
+     whitted_conductors.xml with a directional light,
+     scene/feature_scenes.py::gauge_scene_xml), of the slice scene with the
+     coarse torus, of the demo scene and of the demo scene with its mirror
+     sphere made emissive (in the pack), each with the branch uniforms from
+     a torch.Generator table and from Philox, over the chunks and (with
+     FLAT_MAX_FACES at 0) over the tree: the primal's and the fwd+bwd's
+     radiance held to K1a's bound, every cotangent (materials, lights,
+     background, vertices, rays) within rtol 1e-3 and atol 1e-4 max|ref|;
+ 19. the training main path: diff/optimize.py::optimize on the gauge scene
+     at 800x800 (one fixed jitter: 640,000 rays), depth 6, fields
+     mat_diffuse, pl_intensity and verts (rates 2e-2, 400 and 2e-2 / 30),
+     5 Adam steps from the true parameters perturbed by a fixed seed toward
+     a target rendered by the primal at the true ones, the same draws every
+     step — with every counter at 0 before it, the
+     primal must launch 6 times, the fwd+bwd 5 times and no K1 kernel; the
+     last loss below the first; then optimize's step in a loop of its own,
+     one warm-up and the median of 5 timed steps, and rays per second;
+ 20. K2a at the main path's shape (those 640,000 rays): time per launch of
+     the primal and of the fwd+bwd, and of the fwd+bwd without its scatter;
+     the plain version's time and agreement on every 16th ray; the tree
+     twins (FLAT_MAX_FACES at 0) on every ray, timed and held to the flat
+     kernels; the bound: the closest-hit and shadow tests counted over the
+     chunks (the plain version's counts on every 16th ray) and over the
+     tree (TreeWalker's on every ray, with the boxes, rows and winners
+     read), the cheaper of the two, plus the step and its adjoint per
+     traced segment and lit light evaluation.
 Every phase line carries t_s, the seconds since the script started.
 Then the kernels line (each entry with its rays and the plain version's
 stride over them), the card line and, last, the result line.  Any
@@ -109,6 +142,7 @@ CUDA card it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -128,6 +162,7 @@ PT_SCENE = SCENES / "feat_pt.xml"
 LIGHTS_SCENE = SCENES / "feat_lights_brdf.xml"
 TEXTURES_SCENE = SCENES / "feat_textures.xml"
 REPLACES = "advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py:912"
+REPLACES_K2 = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:428"
 # registers of the K1a-K1d kernels since they were first measured; the
 # later variants' policies (motion, textures, the tree) must not change
 # their code
@@ -139,7 +174,9 @@ KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_tex_motion_kernel", "mega_whitted_tree_kernel",
                   "mega_pt_tree_kernel", "mega_ext_tree_kernel",
                   "mega_ext_motion_tree_kernel", "mega_tex_tree_kernel",
-                  "mega_tex_motion_tree_kernel")
+                  "mega_tex_motion_tree_kernel", "mega_bwd_primal_kernel",
+                  "mega_bwd_kernel", "mega_bwd_primal_tree_kernel",
+                  "mega_bwd_tree_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -173,6 +210,18 @@ MOTION_FLOPS = 6
 # coordinates, weights and RGB blend over its 4 taps: 44 / 4); an env
 # candidate (3 draws to [-1, 1]: 6, the ball test 5, the hemisphere test 5)
 PERLIN_FLOPS, TAP_FLOPS, ENV_CAND_FLOPS = 347, 11, 16
+# K2a, counted in csrc/mega_bwd.cu (rounded): per traced segment the step's
+# forward (hit point, Beer, the background / emission / ambient terms, the
+# child's reflection or refraction with its norm3) and its adjoint (the
+# Cramer or sphere solve recomputed and reversed, the child's norm3 and
+# Fresnel adjoints); per lit light evaluation the light's direction and
+# Blinn-Phong (powmax's log and exp counted once each) and their adjoint
+STEP_FLOPS, ADJ_STEP_FLOPS = 60, 150
+LIGHT_FLOPS, ADJ_LIGHT_FLOPS = 65, 110
+# K2a against its plain version: the cotangents are sums whose atomic order
+# changes from run to run, and the hand-derived adjoint rounds otherwise
+# than autograd
+GRAD_RTOL, GRAD_ATOL_SCALE = 1e-3, 1e-4
 
 
 T0 = time.perf_counter()
@@ -280,7 +329,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
+    from advanced_cpu_raytracing_tpu_torch.diff.params import inject_params
     from advanced_cpu_raytracing_tpu_torch.ops import _build
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
     from advanced_cpu_raytracing_tpu_torch.ops import megakernel as mk
     from advanced_cpu_raytracing_tpu_torch.ops.rng import philox_table
     from advanced_cpu_raytracing_tpu_torch.post.writers import write_png
@@ -290,10 +342,15 @@ def main() -> int:
         generate_rays,
     )
     from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+        AREA_DEMO_XML,
+        COARSE_TORUS,
         K1D_SAMPLED,
+        gauge_scene_xml,
         k1c_scenes,
         k1d_scenes,
         path_traced,
+        ply_bytes,
+        torus_mesh,
     )
     from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
     from advanced_cpu_raytracing_tpu_torch.scene.synth import terrain_scene
@@ -313,9 +370,18 @@ def main() -> int:
          torch_cuda=torch.version.cuda, nvcc=nvcc.stdout.strip().splitlines()[-1],
          device_count=torch.cuda.device_count())
 
+    def reset_counts():
+        for table in (mk.LAUNCHES, mb.LAUNCHES):
+            for k in table:
+                table[k] = 0
+
+    def counts() -> dict:
+        """Every kernel's launches since ``reset_counts``, K1's and K2a's."""
+        return {**mk.LAUNCHES, **mb.LAUNCHES}
+
     # 2. build every source in parallel
     t0 = time.perf_counter()
-    libs = sorted(set(mk.LIBRARY.values()))
+    libs = sorted(set(mk.LIBRARY.values()) | {mb.LIBRARY})
     _build.build_all(libs)
     regs = {}
     for name in libs:
@@ -332,13 +398,13 @@ def main() -> int:
                                  f"registers")
 
     def kernel_entry(name, launches, kernel_ms, plain_ms, bd, err, rays,
-                     stride):
+                     stride, library=None, replaces=REPLACES):
         """One kernel's entry of the kernels line; plain_ms is the plain
         version's time on every ``stride``-th of the ``rays`` rays."""
         return {"name": name, "route": "cuda",
                 "source": f"advanced_cpu_raytracing_tpu_torch/csrc/"
-                          f"{mk.LIBRARY[name]}.cu",
-                "replaces": REPLACES, "launches": launches,
+                          f"{library or mk.LIBRARY[name]}.cu",
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": err["max_abs_err"], "ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
                 "bound_by": bd["bound_by"], "library_ms": None, "rays": rays,
@@ -387,12 +453,11 @@ def main() -> int:
         """One checked u8 frame with the counters at 0 before it, then a
         warm-up and the median of 3 timed frames."""
         spp = cam_cfg.num_samples
-        for k in mk.LAUNCHES:
-            mk.LAUNCHES[k] = 0
+        reset_counts()
         img = renderer.render_camera(pack, cfg, cam_cfg, seed=0, ldr=True,
                                      device=dev)
-        launches = dict(mk.LAUNCHES)
-        want = {k: (spp if k == kernel else 0) for k in mk.LAUNCHES}
+        launches = counts()
+        want = {k: (spp if k == kernel else 0) for k in launches}
         if launches != want:
             raise AssertionError(f"{what}: launches {launches}, expected {want}")
         w, h = cam_cfg.width, cam_cfg.height
@@ -524,14 +589,25 @@ def main() -> int:
     # ---- K1a: the Whitted path ----
     cfg, pack, cam_cfg, (mc, tri_tab, chunk_tab), cam = scene(WHITTED_SCENE)
 
-    # 3. kernel vs plain on 65,536 primary rays (1 spp, no DoF)
+    # 3. kernel vs plain on 65,536 primary rays (1 spp, no DoF), and on a
+    # ray along -z in the plane y = -10 of chunk 0's box, the room's floor:
+    # (lo - p) * inf = NaN there, and the cull must keep the box to reach
+    # the back wall's bottom edge at t = 35 (the JAX chunk_sweep drops it)
     o, d = primary_rays(cam_cfg, cam, 65536)
+    if float(chunk_tab[0, 1]) != -10.0:
+        raise AssertionError(f"chunk 0's box: {chunk_tab[0].tolist()}")
+    o = torch.cat([o, torch.tensor([[3.3, -10.0, 25.0]], device=dev)])
+    d = torch.cat([d, torch.tensor([[0.0, 0.0, -1.0]], device=dev)])
     got = mk.mega_trace(mc, tri_tab, chunk_tab, o, d)
     torch.cuda.synchronize()
     ref = mk.mega_trace_ref(mc, tri_tab, chunk_tab, o, d)
     err = check_close(got, ref, "K1a, 65,536 primary rays")
+    plane = {"kernel": got[-1].tolist(), "plain": ref[-1].tolist()}
+    if not (got[-1] == ref[-1]).all() or float(ref[-1].sum()) <= 0.0:
+        raise AssertionError(f"K1a, the ray in chunk 0's face plane: {plane}")
     emit("kernel_vs_plain", kernel="mega_whitted", scene=WHITTED_SCENE.name,
-         rays=65536, **err, mean_tol=MEAN_TOL, q999_tol=Q999_TOL)
+         rays=o.shape[0], **err, in_plane_ray=plane, mean_tol=MEAN_TOL,
+         q999_tol=Q999_TOL)
 
     # 4. the Whitted main path
     mp = main_path(pack, cfg, cam_cfg, "mega_whitted", "Whitted main path")
@@ -612,20 +688,23 @@ def main() -> int:
 
     # ---- K1c: spot and area lights, BRDFs, roughness, motion ----
     # 9. kernel vs plain on 65,536 primary rays, both draw modes
-    variants = [(name, xml, f"{name}.xml")
+    # the path-traced feat_lights_brdf.xml, the script's longest check,
+    # on every 2nd of the 65,536 rays
+    variants = [(name, xml, f"{name}.xml", 1)
                 for name, xml in k1c_scenes(SCENES).items()]
     variants += [
-        ("feat_lights_brdf.xml", LIGHTS_SCENE, None),
+        ("feat_lights_brdf.xml", LIGHTS_SCENE, None, 1),
         ("feat_lights_brdf.xml, path tracing",
-         path_traced(LIGHTS_SCENE.read_text()), "feat_lights_brdf_pt.xml")]
+         path_traced(LIGHTS_SCENE.read_text()), "feat_lights_brdf_pt.xml", 2)]
     # the path-tracing variant is written to out_dir, beside its mesh
     (out_dir / "whitted_conductors_mesh.ply").symlink_to(
         SCENES / "whitted_conductors_mesh.ply")
-    for label, src, name in variants:
+    for label, src, name, stride in variants:
         _, _, v_cam_cfg, (vmc, vtri, vchunk), vcam = scene(src, name)
         if vmc.kernel != "mega_ext":
             raise AssertionError(f"{label}: routed to {vmc.kernel}")
-        o, d = primary_rays(v_cam_cfg, vcam, 65536, seed=2)
+        o, d = (t[::stride].contiguous()
+                for t in primary_rays(v_cam_cfg, vcam, 65536, seed=2))
         rows = vmc.max_iters * vmc.n_draws
         gen = torch.Generator(device=dev)
         gen.manual_seed(6)
@@ -643,7 +722,8 @@ def main() -> int:
             err = check_close_pt(got, ref, f"K1c, {label}, {mode}",
                                  EXT_MEAN_REL)
             emit("kernel_vs_plain", kernel="mega_ext", scene=label, draws=mode,
-                 rays=o.shape[0], max_iters=vmc.max_iters, stack_k=vmc.stack_k,
+                 rays=o.shape[0], stride=stride, max_iters=vmc.max_iters,
+                 stack_k=vmc.stack_k,
                  n_draws=vmc.n_draws, **err, atol=PT_ATOL, rtol=PT_RTOL,
                  frac_tol=PT_FRAC, mean_rel_tol=EXT_MEAN_REL)
         del draws
@@ -878,14 +958,13 @@ def main() -> int:
                              (True, "mega_tex_tree")):
         cfg = terrains[textured]
         cfg.cameras[0].num_samples = 16
-        for k in mk.LAUNCHES:
-            mk.LAUNCHES[k] = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (cam_cfg, hdr), = renderer.render_scene(cfg, seed=0, device=dev)
         frame_s = time.perf_counter() - t0
-        launches = dict(mk.LAUNCHES)
-        want = {k: (16 if k == kernel else 0) for k in mk.LAUNCHES}
+        launches = counts()
+        want = {k: (16 if k == kernel else 0) for k in launches}
         if launches != want:
             raise AssertionError(f"K1e render_scene: launches {launches}, "
                                  f"expected {want}")
@@ -950,6 +1029,316 @@ def main() -> int:
              max_abs_diff=float((res["tree"] - res["flat"]).abs().max()),
              card=card)
         del res
+
+    # ---- K2a: the differentiable render (slice C1) ----
+    def check_grads(got, ref, what) -> dict:
+        """Every cotangent of the kernel against autograd's: finite, and
+        within rtol GRAD_RTOL and atol GRAD_ATOL_SCALE * max|ref|."""
+        out = {}
+        for k in ref._fields:
+            a, b = getattr(ref, k), getattr(got, k)
+            if not bool(torch.isfinite(b).all()):
+                raise AssertionError(f"{what}: non-finite d_{k}")
+            if a.numel() == 0:
+                continue
+            scale = float(a.abs().max())
+            err = (b - a).abs()
+            bad = int((err > GRAD_RTOL * a.abs()
+                       + GRAD_ATOL_SCALE * scale).sum())
+            out[k] = {"max_abs_err": float(err.max()), "ref_max": scale,
+                      "n": a.numel(), "outside": bad}
+            if bad:
+                raise AssertionError(f"{what}: d_{k} disagrees with autograd: "
+                                     f"{out[k]}")
+        return out
+
+    def diff_render(path, emissive=False):
+        """The differentiable render of a scene file on the card, its
+        camera, and its parameter tables at the pack's values; with
+        ``emissive``, material 1 made emissive of radiance (3, 2, 1) (an
+        XML scene has emissive materials only with a mesh light, outside
+        K2a)."""
+        cfg = load_scene(str(path))
+        pack = pack_scene(cfg, device=dev)
+        if emissive:
+            mat_type, rad = pack.mat_type.clone(), pack.mat_radiance.clone()
+            mat_type[1] = 4  # MaterialType.EMISSIVE
+            rad[1] = torch.tensor([3.0, 2.0, 1.0], device=dev)
+            pack = dataclasses.replace(
+                pack, mat_type=mat_type, mat_radiance=rad,
+                static=dataclasses.replace(pack.static, has_emissive_mat=True,
+                                           has_mirror=False))
+        opts = renderer.options_for_camera(cfg, cfg.cameras[0])
+        f = mb.make_diff_render(pack, opts, device=dev)
+        tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
+        return cfg, pack, opts, f, tabs, build_camera(cfg.cameras[0], device=dev)
+
+    k2a_dir = out_dir / "k2a"
+    gauge_path = gauge_scene_xml(k2a_dir, SCENES)
+    slice_path = k2a_dir / "slice_coarse.xml"
+    slice_path.write_text(WHITTED_SCENE.read_text())
+    (k2a_dir / "whitted_conductors_mesh.ply").write_bytes(
+        ply_bytes(*torus_mesh(**COARSE_TORUS)))
+    demo_path = k2a_dir / "demo.xml"
+    demo_path.write_text(re.sub(r"<AreaLight.*?</AreaLight>", "",
+                                AREA_DEMO_XML, flags=re.S))
+
+    # 18. K2a against its plain version: 16,384 primary rays at full depth,
+    # both draw modes, over the chunks and over the tree
+    n18 = 16384
+    flat_max = mk.FLAT_MAX_FACES
+    try:
+        for geometry in ("chunks", "tree"):
+            if geometry == "tree":
+                mk.FLAT_MAX_FACES = 0
+            for label, path in (("gauge", gauge_path),
+                                ("slice, coarse torus", slice_path),
+                                ("demo", demo_path),
+                                ("demo, emissive sphere", demo_path)):
+                cfg, _, _, f, tabs, cam = diff_render(
+                    path, emissive=label.endswith("emissive sphere"))
+                bc = f.bc
+                if bc.variant != "mega_bwd" + ("_tree" if geometry == "tree"
+                                               else ""):
+                    raise AssertionError(f"K2a {label}: routed to {bc.variant}")
+                depth = mb.bc_depth(bc)
+                o, d = primary_rays(cfg.cameras[0], cam, n18, seed=3)
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(12)
+                gbar = torch.randn((n18, 3), generator=gen, device=dev)
+                for mode in ("table", "philox"):
+                    draws = (torch.rand((depth, n18), generator=gen, device=dev)
+                             if mode == "table" else None)
+                    prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=19,
+                                             step=3)
+                    got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=19,
+                                               step=3, gbar=gbar)
+                    torch.cuda.synchronize()
+                    if draws is None:
+                        draws = mb.ud_table(19, 3, n18, depth, device=dev)
+                    t0 = time.perf_counter()
+                    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws,
+                                                      gbar)
+                    torch.cuda.synchronize()
+                    plain_s = time.perf_counter() - t0
+                    what = f"K2a {bc.variant}, {label}, {mode}"
+                    err = check_close(prim, ref, what + ", primal")
+                    err_fb = check_close(got, ref, what + ", fwd+bwd")
+                    emit("kernel_vs_plain", kernel=bc.variant, scene=label,
+                         draws=mode, rays=n18, depth=depth, faces=bc.n_tri,
+                         plain_s=plain_s, primal=err,
+                         fwd_bwd_exact_frac=err_fb["exact_frac"],
+                         fwd_bwd_max_abs_err=err_fb["max_abs_err"],
+                         grads=check_grads(g, gref, what), mean_tol=MEAN_TOL,
+                         q999_tol=Q999_TOL, grad_rtol=GRAD_RTOL,
+                         grad_atol_scale=GRAD_ATOL_SCALE)
+                del draws, gref, g
+    finally:
+        mk.FLAT_MAX_FACES = flat_max
+
+    # 19. the training main path: 5 Adam steps through K2a at 800x800
+    fields = ("mat_diffuse", "pl_intensity", "verts")
+    cfg, pack, opts, _, _, cam = diff_render(gauge_path)
+    cam_cfg = cfg.cameras[0]
+    w, h = cam_cfg.width, cam_cfg.height
+    idx = torch.arange(w * h, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    jit = torch.rand((w * h, 2), generator=gen, device=dev)
+    px = (idx % w).float() + jit[:, 0]
+    py = (idx // w).float() + jit[:, 1]
+    rng = np.random.default_rng(6)
+    start = {
+        "mat_diffuse": pack.mat_diffuse * torch.as_tensor(rng.uniform(
+            0.7, 1.1, tuple(pack.mat_diffuse.shape)).astype(np.float32),
+            device=dev),
+        "pl_intensity": pack.pl_intensity * 1.2,
+        "verts": pack.verts + torch.as_tensor(rng.normal(
+            0.0, 0.01, tuple(pack.verts.shape)).astype(np.float32), device=dev)}
+    o, d = (t.contiguous() for t in generate_rays(cam, px, py))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f = mb.make_diff_render(pack, opts, device=dev)
+    with torch.no_grad():
+        target = f({}, o, d)
+    # the vertices' rate 30x below kd's, as the JAX package's
+    # tools/inverse_render.py sets it; the intensities' scaled to their size
+    rates = {"mat_diffuse": 2e-2, "pl_intensity": 400.0, "verts": 2e-2 / 30}
+    _, history = optimize(inject_params(pack, start), cam, px, py, opts, target,
+                          fields, steps=5, lr=rates, seed=0, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = counts()
+    want = {k: {"mega_bwd_primal": 6, "mega_bwd": 5}.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"training main path: launches {launches}, "
+                             f"expected {want}")
+    if not (all(math.isfinite(x) for x in history) and history[-1] < history[0]):
+        raise AssertionError(f"training main path: loss history {history}")
+    # the step's time: optimize's step (the render's value and gradient,
+    # Adam, the loss read back) in a loop of its own, one warm-up then 5
+    f_step = mb.make_diff_render(inject_params(pack, start), opts, device=dev)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in start.items()}
+    adam = torch.optim.Adam([{"params": [params[k]], "lr": rates[k]}
+                             for k in fields])
+    step_s = []
+    for i in range(6):
+        t1 = time.perf_counter()
+        adam.zero_grad(set_to_none=True)
+        loss = torch.mean((f_step(params, o, d) - target) ** 2)
+        loss.backward()
+        adam.step()
+        float(loss.detach())
+        if i:
+            step_s.append(time.perf_counter() - t1)
+    del f_step, params, adam, loss
+    step_med = sorted(step_s)[len(step_s) // 2]
+    emit("main_path", kernel="mega_bwd", scene="gauge (whitted_conductors.xml "
+         "+ a directional light)", width=w, height=h, rays=w * h,
+         depth=opts.max_depth, fields=list(fields), lr=rates, steps=5,
+         loss_history=history, step_s=step_s, step_s_median=step_med,
+         mrays_per_s=w * h / step_med / 1e6, total_s_with_setup=total_s,
+         launches={k: v for k, v in launches.items() if v}, card=card)
+    main_bwd_launches = dict(launches)
+
+    # 20. K2a at the main path's shape: 640,000 rays at the true parameters
+    bc = f.bc
+    tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
+    n20 = o.shape[0]
+    gbar = torch.randn((n20, 3), generator=gen, device=dev)
+    prim_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d), 5)
+    fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar), 5)
+    no_scatter_ms = cuda_ms(lambda: mb.mega_bwd_trace(
+        bc, tabs, o, d, gbar=gbar, scatter=False), 5)
+    # the plain version on every 16th ray, the kernel on the same rays and
+    # draws
+    stride = 16
+    depth = mb.bc_depth(bc)
+    os_, ds_, gs_ = (t[::stride].contiguous() for t in (o, d, gbar))
+    draws = mb.ud_table(0, 0, n20, depth, device=dev)[:, ::stride].contiguous()
+    prim = mb.mega_bwd_trace(bc, tabs, os_, ds_, draws)
+    got, g = mb.mega_bwd_trace(bc, tabs, os_, ds_, draws, gbar=gs_)
+    torch.cuda.synchronize()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    ref0 = mb.mega_bwd_trace_ref(bc, tabs, os_, ds_, draws, stats=stats)
+    torch.cuda.synchronize()
+    plain_prim_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, os_, ds_, draws, gs_)
+    torch.cuda.synchronize()
+    plain_fb_ms = (time.perf_counter() - t0) * 1e3
+    what = "K2a at the main path's shape, every 16th ray"
+    err_p = check_close(prim, ref0, what + ", primal")
+    err_fb = check_close(got, ref, what + ", fwd+bwd")
+    gerr = check_grads(g, gref, what)
+    # the same rays through the tree twins (FLAT_MAX_FACES at 0), against
+    # the flat kernels on every ray
+    mk.FLAT_MAX_FACES = 0
+    try:
+        f_tree = mb.make_diff_render(pack, opts, device=dev)
+    finally:
+        mk.FLAT_MAX_FACES = flat_max
+    bct = f_tree.bc
+    tabs_t = mb.BwdTables(*(t.detach().contiguous()
+                            for t in f_tree.tables({})))
+    flat_p = mb.mega_bwd_trace(bc, tabs, o, d)
+    _, flat_g = mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar)
+    tree_p = mb.mega_bwd_trace(bct, tabs_t, o, d)
+    tree_fb, tree_g = mb.mega_bwd_trace(bct, tabs_t, o, d, gbar=gbar)
+    tree_prim_ms = cuda_ms(lambda: mb.mega_bwd_trace(bct, tabs_t, o, d), 5)
+    tree_fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(bct, tabs_t, o, d,
+                                                   gbar=gbar), 5)
+    what = "K2a's tree twins at the main path's shape, against the flat"
+    tree_err = {"primal": check_close(tree_p, flat_p, what + ", primal"),
+                "fwd_bwd": check_close(tree_fb, flat_p, what + ", fwd+bwd"),
+                "grads": check_grads(tree_g, flat_g, what)}
+    del flat_p, flat_g, tree_p, tree_fb, tree_g
+    # the tree's work on every ray: the plain version's primal over the
+    # tree, in runs of 160,000 rays sharing its stats (TreeWalker's counts
+    # and the boxes, rows and winners read)
+    tree_stats: dict = {}
+    table = mb.ud_table(0, 0, n20, depth, device=dev)
+    for lo in range(0, n20, 160000):
+        part = slice(lo, lo + 160000)
+        mb.mega_bwd_trace_ref(bct, tabs_t, o[part].contiguous(),
+                              d[part].contiguous(),
+                              table[:, part].contiguous(), stats=tree_stats)
+    del table
+    reads = tree_stats.pop("reads")
+    tree_stats.update(nodes_read=int(reads["nodes"].sum()),
+                      rows_read=int(reads["rows"].sum()),
+                      rows_won=int(reads["won"].sum()))
+
+    def k2a_bounds(counted, n_bytes_primal, n_bytes_fwd_bwd):
+        """The primal's and the fwd+bwd's bounds: the counted sweeps' tests
+        once each, the step per traced segment and lit light evaluation,
+        and in the fwd+bwd their adjoints."""
+        fwd = counted["traces"] * STEP_FLOPS + counted["lit_light_evals"] \
+            * LIGHT_FLOPS
+        adj = counted["traces"] * ADJ_STEP_FLOPS + counted["lit_light_evals"] \
+            * ADJ_LIGHT_FLOPS
+        out = []
+        for n_bytes, extra in ((n_bytes_primal, fwd),
+                               (n_bytes_fwd_bwd, fwd + adj)):
+            bd = bound(counted, n_bytes)
+            bd["flops"] += extra
+            bd["ops_ms"] = bd["flops"] / PEAK_FP32_FLOPS * 1e3
+            bd["bound_ms"] = max(bd["ops_ms"], bd["bytes_ms"])
+            bd["bound_by"] = ("operations" if bd["ops_ms"] >= bd["bytes_ms"]
+                              else "bytes")
+            out.append(bd)
+        return out
+
+    # bytes: the rays, the tables read once (over the tree: the boxes
+    # visited, the rows tested, the winners' rows), and in the fwd+bwd the
+    # radiance's cotangent in, the parameters' and rays' cotangents out
+    counted = {k: v * stride for k, v in stats.items()}
+    tables = sum(t.numel() * 4 for t in (
+        bc.tri_rest, tabs.tri_w, bc.chunk_tab, bc.mc.spheres, bc.mc.materials,
+        bc.mc.point_lights, bc.mc.dir_lights))
+    grads_bytes = sum(t.numel() * 4 for t in tabs)
+    flat_bd = k2a_bounds(counted, n20 * 9 * 4 + tables,
+                         n20 * 18 * 4 + tables + grads_bytes)
+    tree_tables = table_bytes(bct.mc, None, reads)
+    tree_grads = (sum(t.numel() * 4 for t in tabs_t[:4])
+                  + tree_stats["rows_won"] * 9 * 4)
+    tree_bd = k2a_bounds(tree_stats, n20 * 9 * 4 + tree_tables,
+                         n20 * 18 * 4 + tree_tables + tree_grads)
+    # the function's least work: the cheaper of the two ways to find the
+    # closest hits
+    bd_p, bd_fb = (dict(min(fb, tb, key=lambda x: x["bound_ms"]),
+                        counted_over="chunks" if fb["bound_ms"]
+                        <= tb["bound_ms"] else "tree")
+                   for fb, tb in zip(flat_bd, tree_bd))
+    grad_err = max(v["max_abs_err"] for v in gerr.values())
+    emit("kernel_at_main_shape", kernel="mega_bwd", rays=n20,
+         plain_stride=stride, primal_ms=prim_ms, fwd_bwd_ms=fb_ms,
+         fwd_bwd_no_scatter_ms=no_scatter_ms,
+         scatter_ms=fb_ms - no_scatter_ms, plain_primal_ms=plain_prim_ms,
+         plain_fwd_bwd_ms=plain_fb_ms, primal_bound=bd_p, fwd_bwd_bound=bd_fb,
+         primal=err_p, fwd_bwd_exact_frac=err_fb["exact_frac"], grads=gerr,
+         counts=counted, card=card)
+    emit("kernel_at_main_shape", kernel="mega_bwd_tree", rays=n20,
+         primal_ms=tree_prim_ms, fwd_bwd_ms=tree_fb_ms,
+         flat_primal_ms=prim_ms, flat_fwd_bwd_ms=fb_ms, vs_flat=tree_err,
+         counts=tree_stats, count_stride=1, primal_bound=tree_bd[0],
+         fwd_bwd_bound=tree_bd[1], flat_primal_bound=flat_bd[0],
+         flat_fwd_bwd_bound=flat_bd[1], card=card)
+    kernels.append({**kernel_entry(
+        "mega_bwd_primal", main_bwd_launches["mega_bwd_primal"], prim_ms,
+        plain_prim_ms, bd_p, err_p, n20, stride, library=mb.LIBRARY,
+        replaces=REPLACES_K2), "bound_counted_over": bd_p["counted_over"],
+        "tree_twin_ms": tree_prim_ms})
+    kernels.append({**kernel_entry(
+        "mega_bwd", main_bwd_launches["mega_bwd"], fb_ms, plain_fb_ms, bd_fb,
+        {"max_abs_err": max(err_fb["max_abs_err"], grad_err)}, n20, stride,
+        library=mb.LIBRARY, replaces=REPLACES_K2),
+        "scatter_ms": fb_ms - no_scatter_ms,
+        "bound_counted_over": bd_fb["counted_over"],
+        "tree_twin_ms": tree_fb_ms})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -18,56 +18,16 @@ import re
 import numpy as np
 
 from advanced_cpu_raytracing_tpu_torch.scene import feature_scenes
+from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (  # noqa: F401
+    COARSE_TORUS,
+    FULL_TORUS,
+    ply_bytes,
+    torus_mesh,
+)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SLICE_XML = REPO / "scenes" / "whitted_conductors.xml"
 SLICE_PLY = REPO / "scenes" / "whitted_conductors_mesh.ply"
-
-# full-size torus of the committed mesh, and the coarse one of the CPU tests
-FULL_TORUS = dict(n_major=128, n_minor=128)
-COARSE_TORUS = dict(n_major=24, n_minor=16)
-
-
-def torus_mesh(n_major: int, n_minor: int, major: float = 3.5,
-               minor: float = 1.2, center=(4.0, 1.5, -5.0),
-               tilt_x_deg: float = 70.0, tilt_y_deg: float = 25.0):
-    """A torus in world coordinates: (verts (V,3) f32, faces (F,3) i32),
-    two triangles per (major, minor) cell, counter-clockwise seen from
-    outside."""
-    u = np.arange(n_major) * (2.0 * np.pi / n_major)
-    v = np.arange(n_minor) * (2.0 * np.pi / n_minor)
-    uu, vv = np.meshgrid(u, v, indexing="ij")
-    ring = major + minor * np.cos(vv)
-    pts = np.stack([ring * np.cos(uu), minor * np.sin(vv),
-                    ring * np.sin(uu)], axis=-1).reshape(-1, 3)
-    ax, ay = np.deg2rad(tilt_x_deg), np.deg2rad(tilt_y_deg)
-    rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)],
-                   [0, np.sin(ax), np.cos(ax)]])
-    ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0],
-                   [-np.sin(ay), 0, np.cos(ay)]])
-    pts = pts @ (ry @ rx).T + np.asarray(center)
-    i, j = np.meshgrid(np.arange(n_major), np.arange(n_minor), indexing="ij")
-    a = i * n_minor + j
-    b = ((i + 1) % n_major) * n_minor + j
-    c = ((i + 1) % n_major) * n_minor + (j + 1) % n_minor
-    e = i * n_minor + (j + 1) % n_minor
-    faces = np.concatenate([np.stack([a, e, c], -1).reshape(-1, 3),
-                            np.stack([a, c, b], -1).reshape(-1, 3)])
-    return pts.astype(np.float32), faces.astype(np.int32)
-
-
-def ply_bytes(verts: np.ndarray, faces: np.ndarray) -> bytes:
-    """Binary little-endian PLY of float32 vertices and triangle faces."""
-    head = ("ply\nformat binary_little_endian 1.0\n"
-            f"element vertex {len(verts)}\n"
-            "property float x\nproperty float y\nproperty float z\n"
-            f"element face {len(faces)}\n"
-            "property list uchar int vertex_indices\nend_header\n").encode()
-    rows = np.zeros(len(faces), dtype=[("n", "u1"), ("i", "<i4", 3)])
-    rows["n"] = 3
-    rows["i"] = faces
-    return head + verts.astype("<f4").tobytes() + rows.tobytes()
-
 
 def coarse_slice_scene(tmp_path, width: int | None = None,
                        height: int | None = None) -> str:

@@ -345,3 +345,93 @@ def test_tree_render_camera_launches_once_per_sample(cuda, monkeypatch):
     du8 = np.abs(ldr_from_radiance(got).astype(int)
                  - ldr_from_radiance(want).astype(int))
     assert np.isfinite(got).all() and (du8.max(axis=-1) > 1).mean() <= 0.01
+
+
+def _diff_scene(tmp_path, dev, glass=True):
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+    from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+        gauge_scene_xml,
+    )
+
+    cfg = load_scene(gauge_scene_xml(tmp_path, REPO / "scenes", coarse=True,
+                                     glass=glass))
+    pack = pack_scene(cfg, device=dev)
+    opts = options_for_camera(cfg, cfg.cameras[0])
+    f = mb.make_diff_render(pack, opts, device=dev)
+    cam = build_camera(cfg.cameras[0], device=dev)
+    rng = np.random.default_rng(4)
+    px = torch.as_tensor(rng.uniform(0, 800, 2048).astype(np.float32), device=dev)
+    py = torch.as_tensor(rng.uniform(0, 800, 2048).astype(np.float32), device=dev)
+    o, d = generate_rays(cam, px, py)
+    return cfg, pack, opts, f, cam, o.contiguous(), d.contiguous(), px, py
+
+
+@pytest.mark.parametrize("mode", ["table", "philox"])
+@pytest.mark.parametrize("tree", [False, True], ids=["chunks", "tree"])
+def test_bwd_kernel_matches_plain_version(cuda, tmp_path, monkeypatch, mode,
+                                          tree):
+    """K2a's primal and fwd+bwd against the plain version and autograd on
+    the coarse gauge scene (depth 6, a dielectric): radiance to K1a's
+    bound, every cotangent within rtol 1e-3, atol 1e-4 max|ref| (atomic
+    sums, and a hand-derived adjoint)."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    if tree:
+        monkeypatch.setattr(mk, "FLAT_MAX_FACES", 0)
+    _, _, _, f, _, o, d, _, _ = _diff_scene(tmp_path, cuda)
+    bc = f.bc
+    assert bc.variant == ("mega_bwd_tree" if tree else "mega_bwd")
+    tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    gbar = torch.randn(o.shape, generator=gen, device=cuda)
+    depth = mb.bc_depth(bc)
+    draws = (torch.rand((depth, o.shape[0]), generator=gen, device=cuda)
+             if mode == "table" else None)
+    before = dict(mb.LAUNCHES)
+    prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1)
+    got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1, gbar=gbar)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES[bc.variant] == before[bc.variant] + 1
+    primal = bc.variant.replace("mega_bwd", "mega_bwd_primal")
+    assert mb.LAUNCHES[primal] == before[primal] + 1
+    if draws is None:
+        draws = mb.ud_table(3, 1, o.shape[0], depth, device=cuda)
+    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws, gbar)
+    for out in (prim, got):
+        diff = (out - ref).abs().cpu().numpy()
+        assert np.mean(diff) < 0.01 and np.quantile(diff, 0.999) < 0.5
+    for k in gref._fields:
+        a, b = getattr(gref, k), getattr(g, k)
+        assert bool(torch.isfinite(b).all()), k
+        if a.numel():
+            torch.testing.assert_close(b, a, rtol=1e-3,
+                                       atol=1e-4 * float(a.abs().max()))
+
+
+def test_optimize_goes_through_the_bwd_kernel(cuda, tmp_path):
+    """Three Adam steps on the card: one primal and one fwd+bwd launch per
+    step, no K1 launch, a falling loss, and the loss history of the plain
+    version on the CPU within rtol 1e-3."""
+    from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
+    from advanced_cpu_raytracing_tpu_torch.diff.params import inject_params
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    cfg, pack, opts, f, cam, o, d, px, py = _diff_scene(tmp_path, cuda,
+                                                        glass=False)
+    with torch.no_grad():
+        target = f({}, o, d)
+    start = {"mat_diffuse": pack.mat_diffuse * 0.8}
+    before = dict(mb.LAUNCHES), dict(mk.LAUNCHES)
+    _, hist = optimize(inject_params(pack, start), cam, px, py, opts, target,
+                       ("mat_diffuse",), steps=3, device=cuda)
+    assert mb.LAUNCHES["mega_bwd_primal"] == before[0]["mega_bwd_primal"] + 3
+    assert mb.LAUNCHES["mega_bwd"] == before[0]["mega_bwd"] + 3
+    assert dict(mk.LAUNCHES) == before[1]
+    assert hist[-1] < hist[0]
+    cpu_pack = pack_scene(cfg, device="cpu")
+    _, hist_cpu = optimize(inject_params(cpu_pack, {
+        "mat_diffuse": cpu_pack.mat_diffuse * 0.8}),
+        build_camera(cfg.cameras[0], device="cpu"), px.cpu(), py.cpu(), opts,
+        target.cpu(), ("mat_diffuse",), steps=3, device="cpu")
+    np.testing.assert_allclose(hist, hist_cpu, rtol=1e-3)

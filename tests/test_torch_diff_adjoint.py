@@ -1,0 +1,256 @@
+"""The hand-derived adjoints of kernel K2a (csrc/mega_bwd.cu), written here
+in torch as the kernel computes them, against torch autograd of the plain
+version's forward formulas (ops/megabwd.py) on random inputs.  The places
+where a derivation goes wrong quietly: norm3's clamp, powmax, the Cramer t
+and its det == 0 guard, the conductor's Fresnel ratio, refraction's
+square root on refract lanes only, the sphere's root and normal.  In
+float64, so that a wrong term shows and rounding does not: rtol 1e-9."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+from advanced_cpu_raytracing_tpu_torch.ops import megakernel as mk
+
+F64 = torch.float64
+
+
+def rand(rng, *shape, lo=-1.0, hi=1.0):
+    return torch.tensor(rng.uniform(lo, hi, shape), dtype=F64)
+
+
+def grads_of(fn, inputs, gout):
+    leaves = [x.clone().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, (list, tuple)) else [out]
+    return torch.autograd.grad(out, leaves, gout, allow_unused=True)
+
+
+def close(a, b):
+    torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+
+
+# ---- the kernel's adjoints, transcribed ----
+
+def norm3_vjp(x, gy):
+    """``norm3_vjp``: gx = inv (gy - y (y . gy)) where |x|^2 > 1e-20."""
+    s = (x * x).sum(0)
+    inv = 1.0 / torch.sqrt(torch.clamp(s, min=1e-20))
+    y = x * inv
+    yg = (y * gy).sum(0)
+    return torch.where(s > 1e-20, inv * (gy - y * yg), inv * gy)
+
+
+def powmax_vjp(base, e, g):
+    """``shade_unit_vjp``'s powmax: e val / base and val log(base) where
+    base > 0, nothing elsewhere."""
+    pos = base > 0
+    safe = torch.where(pos, base, 1.0)
+    val = torch.exp(e * torch.log(safe))
+    return (torch.where(pos, g * e * val / safe, 0.0),
+            torch.where(pos, g * val * torch.log(safe), 0.0))
+
+
+def cramer_vjp(v, o, d, gt):
+    """The kernel's Cramer adjoint: t = num / det, num = e1 . (e2 x b),
+    det = e1 . (e2 x d), by the cross products."""
+    e1, e2, b = v[0:3] - v[3:6], v[0:3] - v[6:9], v[0:3] - o
+    det = (e1 * torch.linalg.cross(e2, d, dim=0)).sum(0)
+    num = (e1 * torch.linalg.cross(e2, b, dim=0)).sum(0)
+    t = num / det
+    g_num, g_det = gt / det, -gt * t / det
+    c = torch.linalg.cross
+    ge1 = g_num * c(e2, b, dim=0) + g_det * c(e2, d, dim=0)
+    ge2 = g_num * c(b, e1, dim=0) + g_det * c(d, e1, dim=0)
+    gb = g_num * c(e1, e2, dim=0)
+    gv = torch.cat([ge1 + ge2 + gb, -ge1, -ge2])
+    return gv, -gb, g_det * c(e1, e2, dim=0)
+
+
+def conductor_dratio(n2, k2, c):
+    n2k2 = n2 * n2 + k2 * k2
+    two = 2.0 * n2 * c
+    cos2 = c * c
+    bs, be = n2k2 + two + cos2, n2k2 * cos2 + two + 1.0
+    ds, de = torch.clamp(bs, min=1e-20), torch.clamp(be, min=1e-20)
+    rs, rp = (n2k2 - two + cos2) / ds, (n2k2 * cos2 - two + 1.0) / de
+    drs = (2.0 * c - 2.0 * n2 - torch.where(bs > 1e-20, rs * (2.0 * n2 + 2.0 * c),
+                                            0.0)) / ds
+    drp = (2.0 * n2k2 * c - 2.0 * n2 - torch.where(
+        be > 1e-20, rp * (2.0 * n2k2 * c + 2.0 * n2), 0.0)) / de
+    return 0.5 * (drs + drp)
+
+
+def refract_vjp(d, nm, ratio, gdir):
+    """The refract leg's adjoint into d and nm (the kernel's dielectric
+    branch, REFRACT): tn = norm3((d + nm cos_i) r - nm cos_p)."""
+    cos_i = -(d * nm).sum(0)
+    crit = ratio * ratio * (1.0 - cos_i * cos_i)
+    x = 1.0 - crit
+    cos_p = torch.sqrt(torch.clamp(x, min=1e-20))
+    cv = (d + nm * cos_i) * ratio - nm * cos_p
+    gc = norm3_vjp(cv, gdir)
+    gnm = gc * ratio * cos_i - gc * cos_p
+    gd = gc * ratio
+    g_cos_i = (gc * ratio * nm).sum(0)
+    g_cos_p = -(gc * nm).sum(0)
+    g_crit = torch.where(x > 1e-20, -g_cos_p * 0.5 / cos_p, 0.0)
+    g_cos_i = g_cos_i + g_crit * (ratio * ratio) * (-2.0 * cos_i)
+    return gd - g_cos_i * nm, gnm - g_cos_i * d
+
+
+# ---- the checks ----
+
+def test_norm3_adjoint():
+    rng = np.random.default_rng(0)
+    x = rand(rng, 3, 500, lo=-3, hi=3)
+    x[:, :5] = 1e-12  # below the clamp: the gradient of a constant inverse
+    gy = rand(rng, 3, 500)
+    want = grads_of(lambda v: torch.stack(mk._norm3(*v)), [x], gy)[0]
+    close(norm3_vjp(x, gy), want)
+
+
+def test_powmax_adjoint():
+    rng = np.random.default_rng(1)
+    base = rand(rng, 400, lo=-0.5, hi=1.0)
+    base[:10] = 0.0
+    e = rand(rng, 400, lo=0.0, hi=80.0)
+    e[:3] = 0.0
+    g = rand(rng, 400)
+    want = grads_of(mb._powmax, [base, e], g)
+    got = powmax_vjp(base, e, g)
+    close(got[0], want[0])
+    close(got[1], want[1])
+
+
+def test_cramer_t_adjoint():
+    rng = np.random.default_rng(2)
+    v, o, d = rand(rng, 9, 300, lo=-5, hi=5), rand(rng, 3, 300), rand(rng, 3, 300)
+    gt = rand(rng, 300)
+    want = grads_of(lambda vv, oo, dd: mb._cramer_t(list(vv), list(oo), list(dd)),
+                    [v, o, d], gt)
+    got = cramer_vjp(v, o, d, gt)
+    for a, b in zip(got, want):
+        close(a, b)
+
+
+def test_cramer_t_guard_keeps_a_degenerate_face_finite():
+    """det == 0 (a ray in the face's plane): the plain version's guard
+    divides by 1, so autograd passes no NaN; the kernel never reverses such
+    a face, since a hit needs det != 0."""
+    v = torch.tensor([0, 0, 0, 1, 0, 0, 0, 1, 0], dtype=F64)
+    o = torch.tensor([0.2, 0.2, 0.0], dtype=F64)
+    d = torch.tensor([1.0, 0.0, 0.0], dtype=F64)
+    grads = grads_of(lambda vv, oo, dd: mb._cramer_t(list(vv), list(oo),
+                                                     list(dd)),
+                     [v, o, d], torch.ones((), dtype=F64))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("n2, k2", [(0.37, 2.82), (0.27, 3.41), (1.5, 0.0)])
+def test_conductor_ratio_derivative(n2, k2):
+    rng = np.random.default_rng(3)
+    c = rand(rng, 300, lo=-1.0, hi=1.0)
+    n2t, k2t = torch.full_like(c, n2), torch.full_like(c, k2)
+    want = grads_of(lambda cc: mb._conductor_ratio(n2t, k2t, cc), [c],
+                    torch.ones_like(c))[0]
+    close(conductor_dratio(n2t, k2t, c), want)
+
+
+@pytest.mark.parametrize("ratio", [1.0 / 1.5, 1.5])
+def test_refraction_adjoint(ratio):
+    """Refract lanes only (crit < 1: TIR lanes reflect), so cos_p's square
+    root is differentiable where the kernel differentiates it."""
+    rng = np.random.default_rng(4)
+    nm = torch.stack(mk._norm3(*rand(rng, 3, 600)))
+    d = torch.stack(mk._norm3(*rand(rng, 3, 600)))
+    d = torch.where(((d * nm).sum(0) < 0)[None], d, -d)  # entering nm's side
+    cos_i = -(d * nm).sum(0)
+    keep = ratio * ratio * (1.0 - cos_i * cos_i) < 0.999
+    d, nm = d[:, keep], nm[:, keep]
+    gdir = rand(rng, 3, d.shape[1])
+
+    def leg(dd, nn):
+        ci = -(dd * nn).sum(0)
+        crit = ratio * ratio * (1.0 - ci * ci)
+        cp = torch.sqrt(torch.clamp(1.0 - crit, min=1e-20))
+        return torch.stack(mk._norm3(*((dd + nn * ci) * ratio - nn * cp)))
+
+    want = grads_of(leg, [d, nm], gdir)
+    got = refract_vjp(d, nm, ratio, gdir)
+    close(got[0], want[0])
+    close(got[1], want[1])
+
+
+def _discriminant(s, o, d):
+    m = s[:, 0:12].reshape(-1, 3, 4)
+    ol = torch.einsum("nij,jn->in", m[:, :, :3], o) + m[:, :, 3].T
+    dl = torch.einsum("nij,jn->in", m[:, :, :3], d)
+    oc = ol - s[:, 21:24].T
+    a, b = (dl * dl).sum(0), 2.0 * (dl * oc).sum(0)
+    return b * b - 4.0 * a * ((oc * oc).sum(0) - s[:, 24] ** 2)
+
+
+def test_sphere_root_and_normal_adjoint():
+    """The sphere's t and unit normal through the ray: the kernel's chain
+    (normal, pr, the root's sign, sqrt of the discriminant, a, b, cc, the
+    object-space ray) against autograd of ``_sphere_t`` and
+    ``_sphere_normal``."""
+    rng = np.random.default_rng(5)
+    n = 400
+    s = torch.zeros((n, mk.SPH_COLS), dtype=F64)
+    m = rand(rng, n, 3, 3, lo=-0.4, hi=0.4) + torch.eye(3, dtype=F64)
+    s[:, 0:12] = torch.cat([m, rand(rng, n, 3, 1)], 2).reshape(n, 12)
+    s[:, 12:21] = torch.linalg.inv(m).transpose(1, 2).reshape(n, 9)
+    s[:, 21:24] = rand(rng, n, 3)
+    s[:, 24] = 1.0
+    o = torch.tensor(rng.normal(0, 0.2, (3, n)), dtype=F64) + torch.tensor(
+        [[0.0], [0.0], [6.0]], dtype=F64)
+    d = torch.stack(mk._norm3(*(torch.tensor([[0.0], [0.0], [-1.0]], dtype=F64)
+                                + rand(rng, 3, n, lo=-0.05, hi=0.05))))
+    hit = torch.isfinite(mb._sphere_t(s, list(o), list(d))) & (
+        _discriminant(s, o, d) > 0)
+    s, o, d = s[hit], o[:, hit], d[:, hit]
+    n = s.shape[0]
+    assert n > 100
+    gt, gn = rand(rng, n), rand(rng, 3, n)
+
+    def fwd(oo, dd):
+        t = mb._sphere_t(s, list(oo), list(dd))
+        return [t, torch.stack(mb._sphere_normal(s, list(oo), list(dd), t))]
+
+    want = grads_of(fwd, [o, d], [gt, gn])
+    # the kernel's reverse of sphere_step
+    M = s[:, 0:12].reshape(n, 3, 4)
+    ol = torch.einsum("nij,jn->in", M[:, :, :3], o) + M[:, :, 3].T
+    dl = torch.einsum("nij,jn->in", M[:, :, :3], d)
+    oc = ol - s[:, 21:24].T
+    a, b = (dl * dl).sum(0), 2.0 * (dl * oc).sum(0)
+    cc = (oc * oc).sum(0) - s[:, 24] ** 2
+    delta = b * b - 4.0 * a * cc
+    sq, den = torch.sqrt(delta), 2.0 * a
+    t1, t2 = (-b + sq) / den, (-b - sq) / den
+    t = torch.where(torch.minimum(t1, t2) > 0, torch.minimum(t1, t2),
+                    torch.maximum(t1, t2))
+    sgn = torch.where(t == t1, 1.0, -1.0)
+    pr = ol + t * dl - s[:, 21:24].T
+    nrm = s[:, 12:21].reshape(n, 3, 3)
+    mv = torch.einsum("nij,jn->in", nrm, pr)
+    gmv = norm3_vjp(mv, gn)
+    gpr = torch.einsum("nij,in->jn", nrm, gmv)
+    g_ts = gt + (gpr * dl).sum(0)
+    gol, gdl = gpr.clone(), gpr * t
+    g_b0, g_sq, g_den = -g_ts / den, sgn * g_ts / den, -g_ts * t / den
+    g_delta = g_sq * 0.5 / sq
+    g_b = g_b0 + 2.0 * b * g_delta
+    g_a = 2.0 * g_den - 4.0 * cc * g_delta
+    g_cc = -4.0 * a * g_delta
+    gdl = gdl + 2.0 * dl * g_a + 2.0 * oc * g_b
+    gol = gol + 2.0 * dl * g_b + 2.0 * oc * g_cc
+    go = torch.einsum("nij,in->jn", M[:, :, :3], gol)
+    gd = torch.einsum("nij,in->jn", M[:, :, :3], gdl)
+    close(go, want[0])
+    close(gd, want[1])

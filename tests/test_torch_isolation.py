@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing every module of it loads
 neither JAX nor the JAX package, needs neither triton nor a CUDA card, and
-its entry points refuse to fall back to the CPU when no card is there."""
+its entry points (the renderer, and the differentiable render's
+``optimize``, ``make_diff_render`` and ``mega_bwd_trace``) refuse to fall
+back to the CPU when no card is there."""
 
 from __future__ import annotations
 
@@ -28,13 +30,28 @@ bad = sorted(k for k in sys.modules
              or k.startswith("advanced_cpu_raytracing_tpu."))
 assert not bad, bad
 
-from advanced_cpu_raytracing_tpu_torch.render.renderer import render_camera
+from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
+from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+from advanced_cpu_raytracing_tpu_torch.render.camera import build_camera
+from advanced_cpu_raytracing_tpu_torch.render.renderer import (
+    options_for_camera,
+    render_camera,
+)
 from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
 from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
 cfg = load_scene(sys.argv[1])
+cpu_pack = pack_scene(cfg, device="cpu")
+opts = options_for_camera(cfg, cfg.cameras[0])
+cam = build_camera(cfg.cameras[0], device="cpu")
 for call in (lambda: pack_scene(cfg),
-             lambda: render_camera(pack_scene(cfg, device="cpu"), cfg,
-                                   cfg.cameras[0])):
+             lambda: render_camera(cpu_pack, cfg, cfg.cameras[0]),
+             lambda: optimize(cpu_pack, cam, [0.5], [0.5], opts, [[0, 0, 0]],
+                              ("mat_diffuse",), steps=1),
+             lambda: mb.make_diff_render(cpu_pack, opts),
+             # the wrapper takes the plain version only for CPU tensors, and
+             # its scene tables default to the card
+             lambda: mb.mega_bwd_trace(mb.build_bwd_consts(cpu_pack, opts),
+                                       None, None, None)):
     try:
         call()
     except RuntimeError as e:

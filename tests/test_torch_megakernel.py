@@ -223,3 +223,33 @@ def test_plain_version_divides_once():
     assert not torch.equal(7.0 / x, want)
     eps = float(np.float32(1e-3))
     assert torch.equal(mk._div(x, 1e-3), (x.double() / eps).float())
+
+
+def test_chunk_cull_keeps_a_box_whose_face_plane_the_ray_runs_in(tmp_path):
+    """A ray along -z in the plane y = -10 of chunk 0's box (the room's
+    floor) reaches the back wall's bottom edge at t = 35.  The culled sweep
+    must test chunk 0: ``_slab_enter`` (the plain version's count of the
+    kernels' ``slab``, csrc/mega_common.cuh) takes a NaN plane as not
+    limiting the ray, as the tree's ``slab_entry`` does, where the JAX
+    package's ``chunk_sweep`` (megakernel.py:1454-1480) drops the box."""
+    cfg = load_scene(coarse_slice_scene(tmp_path))
+    pack = pack_scene(cfg, device="cpu")
+    mc, tab, ctab = mk.build_mega(pack, options_for_camera(cfg, cfg.cameras[0]),
+                                  device="cpu")
+    box = ctab[0].tolist()
+    assert box[1] == -10.0
+    o = torch.tensor([[3.3, -10.0, 25.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0]])
+    iv = 1.0 / d
+    assert bool(mk._slab_enter(box, o[:, 0], o[:, 1], o[:, 2], *iv.T,
+                               torch.tensor([mk.BIG])))
+    # a box the ray runs beside, not in: still culled
+    far = [box[0], box[1] - 5.0, box[2], box[3], box[1] - 1.0, box[5]]
+    assert not bool(mk._slab_enter(far, o[:, 0], o[:, 1], o[:, 2], *iv.T,
+                                   torch.tensor([mk.BIG])))
+    stats = {}
+    t, *_, hit, win = mk._Geometry(mc, tab, ctab, stats).trace(
+        *o.T, *d.T, want_win=True)
+    assert bool(hit) and float(t) == 35.0 and int(win) >= 0
+    # the count includes every face of chunk 0, the box the ray runs in
+    assert stats["tri_tests"] >= mk.CHUNK

@@ -232,14 +232,18 @@ def test_render_camera_pt_is_keyed_by_seed(tmp_path):
 
 @pytest.mark.parametrize("name", ["feat_pt.xml", "feat_pt_rr.xml",
                                   "feat_pt_spec.xml"])
-def test_cli_renders_pt_scenes(tmp_path, name):
-    """The CLI renders the committed PT scenes unchanged (here at 12x12)."""
+def test_cli_renders_pt_scenes(tmp_path, name, capsys):
+    """The CLI renders the committed PT scenes unchanged (here at 12x12),
+    and says so for each path-traced camera, as the JAX CLI does
+    (advanced_cpu_raytracing_tpu/cli/render.py:52-53)."""
     from PIL import Image
 
     path = pt_scene(tmp_path, res=12, name=name)
     assert cli_main([path, "--out-dir", str(tmp_path), "--spp", "1",
                      "--seed", "2", "--device", "cpu"]) == 0
     cfg = load_scene(path)
+    assert (f"Path tracing is enabled for: {cfg.cameras[0].image_name}"
+            in capsys.readouterr().out.splitlines())
     img = np.asarray(Image.open(tmp_path / cfg.cameras[0].image_name))
     want = render_camera(pack_scene(cfg, device="cpu"), cfg, cfg.cameras[0],
                          seed=2, spp=1, ldr=True, device="cpu")
