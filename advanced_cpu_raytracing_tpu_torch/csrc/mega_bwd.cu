@@ -1,49 +1,71 @@
-// mega_bwd.cu — kernel K2a for NVIDIA Hopper (sm_90a): the differentiable
-// render's Whitted chain, forward and reverse in one launch.
+// mega_bwd.cu — kernels K2a and K2b for NVIDIA Hopper (sm_90a): the
+// differentiable render's chain, forward and reverse in one launch.
 //
-// Replaces the Whitted part of the TPU kernel
-// advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py::_kernel (line 428,
-// launched by _bwd_call through pl.pallas_call at line 1727, reduced by
-// _reduce_streams at 1739): per ray, a linear chain of depth = max_depth + 1
-// segments.  Each traces the scene (mw::trace of mega_common.cuh, carrying
-// the winner's row), fixes the segment's topology — which primitive wins,
-// shadow visibility, emissive and lit, the mirror / conductor gate, the
-// dielectric's entering sign, total internal reflection and its
-// reflect-or-refract choice from the branch uniform — and takes one step:
-// the hit's t (Cramer's rule through the winner's vertices, or the sphere's
-// quadratic through the ray), Beer's attenuation on segments k > 0, the
-// primary miss's background, the emissive term, ambient, point and
-// directional Blinn-Phong light, and the one child ray (megabwd.py:783-1188,
-// the Whitted lines).  Its plain version is
+// Replaces the TPU kernel advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py::
+// _kernel (line 428, launched by _bwd_call through pl.pallas_call at line
+// 1727, reduced by _reduce_streams at 1739) but for its differentiable
+// textures: per ray, a linear chain of depth segments (max_depth + 1, and
+// RR_DEPTH_FLOOR more under Russian roulette).  Each traces the scene
+// (mw::trace of mega_common.cuh, carrying the winner's row), fixes the
+// segment's topology — which primitive wins, shadow visibility, emissive and
+// lit, the mirror / conductor gate, the dielectric's entering sign, total
+// internal reflection and its reflect-or-refract choice from the branch
+// uniform — and takes one step: the hit's t (Cramer's rule through the
+// winner's vertices, or the sphere's quadratic through the ray), Beer's
+// attenuation on segments k > 0, the primary miss's background, the
+// emissive term, ambient, point and directional Blinn-Phong light, and the
+// one child ray (megabwd.py:783-1188).  K2a (kPt = false) is the Whitted
+// chain with point and directional lights.  K2b (kPt = true, megabwd.py:
+// 947-1112, 1379-1483) adds spot lights (cosine-space cones, the intensity a
+// leaf), area lights (a stop-grad point on the square, the two-sided
+// irradiance area |cos| / d^2 differentiable through the hit), mesh lights (a
+// stop-grad face pick and warp, the sampled point differentiable through
+// that face's world corners by row) and path tracing: the GI ray from the
+// replayed (r1, r2) about the step's normal, traced once per segment — its
+// hit settles next-event estimation's suppression of the mesh light it hit
+// and is the next segment's hit where the GI child is taken — Russian
+// roulette (a replayed kill on the post-Beer weight, the differentiable
+// reweight 1 / clip(max w, 1e-4, 1)) and the replayed fair coin between a GI
+// and a specular child, whose taken weight doubles.  The plain version is
 // ops/megabwd.py::diff_trace_ref, differentiated by torch autograd.
 //
-// Design.  One thread per ray, 128 per block, as K1.  Two instantiations
-// of one template: the primal (kBwd = false: the radiance only, the JAX
-// with_bwd=False) and the fwd+bwd (kBwd = true), each over the 128-face
-// chunks or the tree (FlatChunks / ChunkTree, picked as K1 picks them), so
-// K2a has no face cap.  The forward keeps each segment's stop-grad facts in
-// a per-thread record (origin, direction, weight, Beer constant, the
-// dielectric's ratio, winner row / sphere / material, topology and
-// visibility bits; MAX_SEG records in local memory).  The reverse sweep
-// runs from the last segment to the first: it recomputes the step's
-// forward values from the record and the call's tables and applies each
-// step's adjoint, derived by hand (the TPU kernel gets it from jax.vjp at
-// trace time, which has no CUDA counterpart).  The cotangents are scattered
-// with atomics in place of the TPU's one-hot MXU epilogue: the winner
-// vertices' (9 per segment) straight to global memory by row; the
-// materials', lights' and background's into shared memory per block first,
-// then one global atomic per block and value (a few addresses take every
-// ray's adds).  The ray cotangents d_o, d_d are written per ray.
+// Design.  One thread per ray, 128 per block, as K1.  Per kernel four
+// instantiations of one template: the primal (kBwd = false: the radiance
+// only, the JAX with_bwd=False) and the fwd+bwd (kBwd = true), each over the
+// 128-face chunks or the tree (FlatChunks / ChunkTree, picked as K1 picks
+// them), so neither has a face cap.  The forward keeps each segment's
+// stop-grad facts in a per-thread record (origin, direction, weight, Beer
+// constant, the dielectric's ratio, winner row / sphere / material, topology
+// and visibility bits, and in K2b the sampled mesh-light faces and the GI,
+// coin and suppression bits; MAX_SEG records in local memory).  The reverse
+// sweep runs from the last segment to the first: it recomputes the step's
+// forward values from the record, the call's tables and the draws (read or
+// drawn again, not stored) and applies each step's adjoint, derived by hand
+// (the TPU kernel gets it from jax.vjp at trace time, which has no CUDA
+// counterpart).  The cotangents are scattered with atomics in place of the
+// TPU's one-hot MXU epilogue: the winner vertices' and the sampled
+// mesh-light faces' (9 per segment each) straight to global memory by row;
+// the materials', lights' and background's into shared memory per block
+// first, then one global atomic per block and value (a few addresses take
+// every ray's adds).  The ray cotangents d_o, d_d are written per ray.
 //
-// Bound.  FP32 arithmetic on the CUDA cores: the closest-hit and shadow
+// Draws.  A table (the JAX wavefront_rng planes: ops/megabwd.py::BwdDraws)
+// when one is given, else Philox4x32-10 keyed (seed, step), counter (ray,
+// segment, c, 0): c = 0 the branch uniform, c = 1 the GI pair, the kill
+// draw and the coin, c = 2 + a area light a's offsets, c = 2 + n_area + m
+// mesh light m's pick and barycentrics (ops/megabwd.py::bwd_draws).
+//
+// Bound.  FP32 arithmetic on the CUDA cores: the closest-hit, GI and shadow
 // queries' triangle, slab and sphere tests (once per launch: the reverse
 // sweep traces nothing), counted over the chunks and over the tree,
-// whichever needs fewer, plus the step and its adjoint per
-// segment and light; bytes are the rays in and out and the tables (or the
-// tree's boxes and rows) read once.  Built with
-// -fmad=false, IEEE division and sqrtf, the forward computes the plain
-// version's expressions in their order; the adjoint is an independent
-// derivation, so it rounds otherwise than autograd.
+// whichever needs fewer, plus the step and its adjoint per segment, light
+// and GI sample; bytes are the rays in and out and the tables (or the
+// tree's boxes and rows) read once.  Built with -fmad=false, IEEE division
+// and sqrtf, the forward computes the plain version's expressions in their
+// order; the adjoint is an independent derivation, so it rounds otherwise
+// than autograd.
+
+#include <type_traits>
 
 #include "mega_common.cuh"
 
@@ -51,19 +73,51 @@ namespace mb {
 
 using namespace mw;
 
-constexpr int MAX_SEG = 11;  // segments: MAX_DEPTH (10) + 1
-constexpr int FLAG_EMISSIVE = 8, FLAG_NO_SCATTER = 16;
+constexpr int MAX_SEG_WHITTED = 11;  // K2a's segments: MAX_DEPTH (10) + 1
+constexpr int MAX_SEG = 19;  // K2b's: + RR_DEPTH_FLOOR (8) under Russian roulette
+constexpr int MAX_ML = 4;    // mesh lights (ops/megakernel.py::MAX_MESH_LIGHTS)
+constexpr int FLAG_EMISSIVE = 8, FLAG_NO_SCATTER = 16, FLAG_PT = 32,
+              FLAG_IMPORTANCE = 64, FLAG_NEE = 128, FLAG_RR = 256,
+              FLAG_PT_SPEC = 512;
+constexpr int SPOT_COLS = 12;  // pos 3, dir 3, intensity 3, cos(cov/2),
+                               // cos(fall/2), falloff denominator
+constexpr int AREA_COLS = 17;  // pos 3, normal 3, radiance 3, extent, area,
+                               // u 3, v 3
+constexpr int ML_LIGHT_COLS = 5;  // radiance 3, first face, face count
+constexpr int ML_ROW_COLS = 2;    // per mesh-light face: its row, its weight
+constexpr float GI_EPS = 1e-4f;   // the GI ray's offset (raytracer.cpp:174)
 constexpr int MAT_GRAD_COLS = 16;  // amb 0:3 kd 3:6 ks 6:9 mir 9:12 phong 12
                                    // radiance 13:16
 constexpr float TWO_PI = 6.283185307179586f;
-// a segment's shadow visibility, one bit per point or directional light:
-// the launcher refuses more lights (ops/megabwd.py::MAX_LIGHTS)
+// a segment's shadow visibility, one bit per point, directional, spot, area
+// or mesh light: the launcher refuses more lights (ops/megabwd.py::MAX_LIGHTS)
 constexpr int VIS_BITS = 32;
 
 // topology bits of a segment record
 constexpr unsigned HIT = 1u, LIT = 2u, MISS_PRIMARY = 4u, EMISSIVE = 8u,
                    MIRROR = 16u, COND = 32u, REFLECT = 64u, REFRACT = 128u,
                    EXITING = 256u, CHAIN = 512u;
+// K2b's: the child is the GI bounce; both a GI and a specular child existed
+// (the coin's taken weight doubles); NEE skips mesh light m (SKIP_ML << m)
+constexpr unsigned GI = 1024u, BOTH = 2048u, SKIP_ML = 4096u;
+
+// K2b's tables, passed by pointer to mega_bwd_launch (null for K2a);
+// ops/_build.py::BwdExtParams mirrors the layout
+struct BwdExt {
+  const float* sl;  // spot lights (n_spot, SPOT_COLS)
+  int n_spot;
+  const float* al;  // area lights (n_area, AREA_COLS)
+  int n_area;
+  const float* mll;  // mesh lights (n_ml, ML_LIGHT_COLS)
+  int n_ml;
+  const float* mlr;  // mesh-light faces (ML_ROW_COLS each)
+  const float* uab;  // draw tables (BwdDraws), or null: Philox
+  const float* uml;
+  const float* ugi;
+  float* d_sl;  // (n_spot, 3) cotangents
+  float* d_al;  // (n_area, 3)
+  float* d_ml;  // (n_ml, 3)
+};
 
 struct BwdParams {
   Params g;          // the call's tables: tri (W,16), mat (M,22), pl, dl
@@ -79,6 +133,7 @@ struct BwdParams {
   float* d_d;        // (n, 3)
   int n, depth;
   unsigned seed, step;
+  BwdExt x;  // K2b only
 };
 
 // one segment's stop-grad facts (the TPU kernel's per-segment `st`)
@@ -87,6 +142,11 @@ struct Seg {
   float ratio;  // the dielectric's n1 / n2
   int row, sph, mat;
   unsigned bits, vis;
+};
+
+// K2b's: + the sampled face of each mesh light (an index into mlr)
+struct SegPt : Seg {
+  int ml_face[MAX_ML];
 };
 
 // the branch uniform of segment k of ray i: the table's, else Philox keyed
@@ -356,10 +416,257 @@ __device__ __forceinline__ bool light_visible(const Params& P, int l,
                                      wi[2], limit);
 }
 
-template <bool kBwd, class G>
+// the block's shared sums: materials, point and directional lights, bg
+// (K2b: then the spot, area and mesh lights)
+__device__ __forceinline__ int shared_floats(const Params& P) {
+  return P.n_mat * MAT_GRAD_COLS + 3 * (P.n_point + P.n_dir) + 3;
+}
+
+// ---- K2b: the draws, the spot, area and mesh lights, the GI direction ----
+
+__device__ __forceinline__ float word_uniform(unsigned x) {
+  return static_cast<float>(x >> 9) * (1.0f / 8388608.0f);
+}
+
+// Philox block c of segment k of ray i: counter (ray, segment, c, 0)
+__device__ __forceinline__ uint4 draw_block(const BwdParams& Q, int i, int k,
+                                            unsigned c) {
+  return philox(make_uint4(static_cast<unsigned>(i), static_cast<unsigned>(k),
+                           c, 0u),
+                Q.seed, Q.step);
+}
+
+__device__ __forceinline__ float plane(const float* tab, int row,
+                                       const BwdParams& Q, int i) {
+  return __ldg(tab + static_cast<size_t>(row) * Q.n + i);
+}
+
+// segment k's GI pair (phi, theta), Russian-roulette kill draw and coin
+__device__ __forceinline__ float4 gi_draws(const BwdParams& Q, int i, int k) {
+  if (Q.x.ugi != nullptr) {
+    const bool rr = (Q.g.flags & FLAG_RR) != 0;
+    const int d = Q.depth;
+    return make_float4(
+        plane(Q.x.ugi, 2 * k, Q, i), plane(Q.x.ugi, 2 * k + 1, Q, i),
+        rr ? plane(Q.x.ugi, 2 * d + k, Q, i) : 0.0f,
+        (Q.g.flags & FLAG_PT_SPEC) ? plane(Q.x.ugi, 2 * d + (rr ? d : 0) + k, Q, i)
+                                   : 0.0f);
+  }
+  const uint4 w = draw_block(Q, i, k, 1u);
+  return make_float4(word_uniform(w.x), word_uniform(w.y), word_uniform(w.z),
+                     word_uniform(w.w));
+}
+
+// area light a's offsets on its square, in [-0.5, 0.5)
+__device__ __forceinline__ void area_draws(const BwdParams& Q, int i, int k,
+                                           int a, float& o1, float& o2) {
+  if (Q.x.uab != nullptr) {
+    const int b = (k * Q.x.n_area + a) * 2;
+    o1 = plane(Q.x.uab, b, Q, i);
+    o2 = plane(Q.x.uab, b + 1, Q, i);
+    return;
+  }
+  const uint4 w = draw_block(Q, i, k, 2u + static_cast<unsigned>(a));
+  o1 = word_uniform(w.x) - 0.5f;
+  o2 = word_uniform(w.y) - 0.5f;
+}
+
+// mesh light m's face (an index into mlr: the table's pick, or
+// min(floor(u count), count - 1)) and barycentric uniforms
+__device__ __forceinline__ int ml_draws(const BwdParams& Q, int i, int k,
+                                        int m, float& b1, float& b2) {
+  const float* L = Q.x.mll + m * ML_LIGHT_COLS;
+  const int first = static_cast<int>(L[3]), count = static_cast<int>(L[4]);
+  int f;
+  if (Q.x.uml != nullptr) {
+    const int b = (k * Q.x.n_ml + m) * 3;
+    f = static_cast<int>(plane(Q.x.uml, b, Q, i));
+    b1 = plane(Q.x.uml, b + 1, Q, i);
+    b2 = plane(Q.x.uml, b + 2, Q, i);
+  } else {
+    const uint4 w =
+        draw_block(Q, i, k, 2u + static_cast<unsigned>(Q.x.n_area + m));
+    f = min(static_cast<int>(word_uniform(w.x) * static_cast<float>(count)),
+            count - 1);
+    b1 = word_uniform(w.y);
+    b2 = word_uniform(w.z);
+  }
+  return first + f;
+}
+
+// Spot, area or mesh light j (spots first) seen from p: tl = target - p,
+// d2 = max(tl . tl, 1e-20), wi = tl / sqrt(d2), the irradiance factor e of
+// the light term ((w I) e) Shade(wi), and the intensity row I.  Spot: e =
+// falloff / d2; area: a point on the square, e = area |n . wi| / d2; mesh: a
+// sqrt-warped barycentric point on the face ``face`` (-1: draw it), e =
+// faceArea / surfaceArea 2 pi (raytracer.cpp:720-803).
+struct ExtL {
+  float tl[3], wi[3], d2, inv, e, b1, b2;
+  const float* I;
+  const float* row;  // the spot or area row, or the mesh face's mlr row
+  int kind;          // 0 spot, 1 area, 2 mesh
+  int face;
+};
+
+__device__ __forceinline__ void ext_at(const BwdParams& Q, int i, int k,
+                                       int j, int face, const float* p,
+                                       ExtL& X) {
+  const BwdExt& E = Q.x;
+  float target[3];
+  if (j < E.n_spot) {
+    X.kind = 0;
+    X.row = E.sl + j * SPOT_COLS;
+    X.I = X.row + 6;
+    for (int c = 0; c < 3; ++c) target[c] = X.row[c];
+  } else if (j < E.n_spot + E.n_area) {
+    const int a = j - E.n_spot;
+    X.kind = 1;
+    X.row = E.al + a * AREA_COLS;
+    X.I = X.row + 6;
+    float o1, o2;
+    area_draws(Q, i, k, a, o1, o2);
+    const float ext = X.row[9];
+    for (int c = 0; c < 3; ++c)
+      target[c] = X.row[c] + X.row[11 + c] * (ext * o1) +
+                  X.row[14 + c] * (ext * o2);
+  } else {
+    const int m = j - E.n_spot - E.n_area;
+    X.kind = 2;
+    X.I = E.mll + m * ML_LIGHT_COLS;
+    const int f = ml_draws(Q, i, k, m, X.b1, X.b2);
+    X.face = face >= 0 ? face : f;
+    X.row = E.mlr + X.face * ML_ROW_COLS;
+    const float* v = Q.g.tri + static_cast<int>(X.row[0]) * TRI_COLS;
+    const float sq = sqrtf(X.b1);
+    for (int c = 0; c < 3; ++c) {
+      const float q = v[3 + c] * (1.0f - X.b2) + v[6 + c] * X.b2;
+      target[c] = v[c] * (1.0f - sq) + q * sq;
+    }
+  }
+  for (int c = 0; c < 3; ++c) X.tl[c] = target[c] - p[c];
+  X.d2 = fmaxf(X.tl[0] * X.tl[0] + X.tl[1] * X.tl[1] + X.tl[2] * X.tl[2],
+               1e-20f);
+  X.inv = 1.0f / sqrtf(X.d2);
+  for (int c = 0; c < 3; ++c) X.wi[c] = X.tl[c] * X.inv;
+  if (X.kind == 0) {
+    const float* L = X.row;
+    const float cos_a = fminf(
+        fmaxf(-(L[3] * X.wi[0] + L[4] * X.wi[1] + L[5] * X.wi[2]), -1.0f),
+        1.0f);
+    const float irr = 1.0f / X.d2;
+    X.e = irr * spot_falloff(L, cos_a);
+  } else if (X.kind == 1) {
+    const float* A = X.row;
+    X.e = A[10] * fabsf(A[3] * X.wi[0] + A[4] * X.wi[1] + A[5] * X.wi[2]) /
+          X.d2;
+  } else {
+    X.e = X.row[1] * TWO_PI;
+  }
+}
+
+// The adjoint of X.e for its cotangent ge: into wi (gwi) and d2 (g_d2).
+// Spot: d e/d d2 = -e/d2, and between the cones d e/d cos a = 4 frac^3 /
+// (d2 den) through cos a = clip(-(dir . wi)); area: d e/d d2 = -e/d2, d e/d
+// wi = area sign(n . wi) n / d2; mesh: a constant.
+__device__ __forceinline__ void ext_e_vjp(const ExtL& X, float ge, float* gwi,
+                                          float& g_d2) {
+  if (X.kind == 0) {
+    const float* L = X.row;
+    const float raw = -(L[3] * X.wi[0] + L[4] * X.wi[1] + L[5] * X.wi[2]);
+    const float cos_a = fminf(fmaxf(raw, -1.0f), 1.0f);
+    const float irr = 1.0f / X.d2;
+    g_d2 -= ge * spot_falloff(L, cos_a) * irr / X.d2;
+    const float x = (cos_a - L[9]) / L[11];
+    if (!(cos_a >= 1.0f || cos_a < L[9]) && cos_a < L[10] && x >= 0.0f &&
+        raw >= -1.0f && raw <= 1.0f) {
+      const float g_cos = ge * irr * 4.0f * x * x * x / L[11];
+      for (int c = 0; c < 3; ++c) gwi[c] -= g_cos * L[3 + c];
+    }
+  } else if (X.kind == 1) {
+    const float* A = X.row;
+    const float c = A[3] * X.wi[0] + A[4] * X.wi[1] + A[5] * X.wi[2];
+    g_d2 -= ge * X.e / X.d2;
+    const float sg = c > 0.0f ? 1.0f : (c < 0.0f ? -1.0f : 0.0f);
+    const float g_c = ge / X.d2 * A[10] * sg;
+    for (int j = 0; j < 3; ++j) gwi[j] += g_c * A[3 + j];
+  }
+}
+
+// tl = target - p, d2 = max(tl . tl, 1e-20), wi = tl / sqrt(d2): the
+// cotangent of tl from those of wi and d2
+__device__ __forceinline__ void towards_vjp(const float* tl, float inv,
+                                            float d2, const float* gwi,
+                                            float g_d2, float* gtl) {
+  const float g_inv = dot3(gwi, tl);
+  g_d2 += g_inv * (-0.5f * inv / d2);
+  const float s2 = tl[0] * tl[0] + tl[1] * tl[1] + tl[2] * tl[2];
+  for (int c = 0; c < 3; ++c)
+    gtl[c] = gwi[c] * inv + (s2 > 1e-20f ? 2.0f * tl[c] * g_d2 : 0.0f);
+}
+
+// The adjoint of gi_direction (mega_common.cuh) in the normal n for the
+// cotangent gg of the direction, into gn: through the final norm3, then
+// v = unit(n x u), u = unit(r' x n) and r', n with one component set to 1
+// (which one is stop-grad).  c = a x b gives a b x gc and b gc x a.
+__device__ __forceinline__ void gi_direction_vjp(const float* n, float r1,
+                                                 float r2, bool importance,
+                                                 const float* gg, float* gn) {
+  const float phi = 6.283185307179586f * r1;
+  float sin_t, cos_t;
+  if (importance) {
+    sin_t = sqrtf(r2);
+    cos_t = sqrtf(fmaxf(1.0f - r2, 0.0f));
+  } else {
+    cos_t = r2;
+    sin_t = sqrtf(fmaxf(1.0f - r2 * r2, 0.0f));
+  }
+  const float ax = fabsf(n[0]), ay = fabsf(n[1]), az = fabsf(n[2]);
+  const bool use_x = ax < ay && ax < az;
+  const bool use_y = !(ax < ay) && ay < az;
+  const bool use_z = !(use_x || use_y);
+  const float rp[3] = {use_x ? 1.0f : n[0], use_y ? 1.0f : n[1],
+                       use_z ? 1.0f : n[2]};
+  float ur[3], u[3], vr[3], v[3];
+  cross3(rp, n, ur);
+  for (int c = 0; c < 3; ++c) u[c] = ur[c];
+  norm3(u[0], u[1], u[2]);
+  cross3(n, u, vr);
+  for (int c = 0; c < 3; ++c) v[c] = vr[c];
+  norm3(v[0], v[1], v[2]);
+  const float sc = sin_t * cosf(phi), ss = sin_t * sinf(phi);
+  float x[3];
+  for (int c = 0; c < 3; ++c) x[c] = u[c] * sc + n[c] * cos_t + v[c] * ss;
+  float gx[3], gu[3], gv[3], gvr[3], gur[3], grp[3], t[3];
+  norm3_vjp(x, gg, gx);
+  for (int c = 0; c < 3; ++c) {
+    gu[c] = gx[c] * sc;
+    gv[c] = gx[c] * ss;
+    gn[c] += gx[c] * cos_t;
+  }
+  norm3_vjp(vr, gv, gvr);
+  cross3(u, gvr, t);
+  for (int c = 0; c < 3; ++c) gn[c] += t[c];
+  cross3(gvr, n, t);
+  for (int c = 0; c < 3; ++c) gu[c] += t[c];
+  norm3_vjp(ur, gu, gur);
+  cross3(n, gur, grp);
+  cross3(gur, rp, t);
+  for (int c = 0; c < 3; ++c) gn[c] += t[c];
+  if (!use_x) gn[0] += grp[0];
+  if (!use_y) gn[1] += grp[1];
+  if (!use_z) gn[2] += grp[2];
+}
+
+// the RR reweight's probability clip(max w, 1e-4, 1) of the post-Beer weight
+__device__ __forceinline__ float rr_prob(const float* w) {
+  return fminf(fmaxf(fmaxf(w[0], fmaxf(w[1], w[2])), 1e-4f), 1.0f);
+}
+
+template <bool kBwd, class G, bool kPt = false>
 __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
                          const float* __restrict__ d, float* __restrict__ out,
                          int i, float* sm) {
+  using SegT = typename std::conditional<kPt, SegPt, Seg>::type;
   const Params& P = Q.g;
   const bool diel = (P.flags & FLAG_DIELECTRIC) != 0;
   const bool has_em = (P.flags & FLAG_EMISSIVE) != 0;
@@ -368,9 +675,16 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
   const bool has_amb = P.amb[0] != 0.0f || P.amb[1] != 0.0f || P.amb[2] != 0.0f;
   const float eps = P.eps;
   const int n_light = P.n_point + P.n_dir;
-  Seg rec[kBwd ? MAX_SEG : 1];
+  // K2b: path tracing's switches (PT without NEE samples no direct light,
+  // ambient included), the spot, area and mesh lights after the others
+  const bool pt = kPt && (P.flags & FLAG_PT) != 0;
+  const bool sample_direct = !pt || (P.flags & FLAG_NEE) != 0;
+  const bool importance = (P.flags & FLAG_IMPORTANCE) != 0;
+  const bool rr = (P.flags & FLAG_RR) != 0;
+  const int n_ext = kPt ? Q.x.n_spot + Q.x.n_area + Q.x.n_ml : 0;
+  SegT rec[kBwd ? (kPt ? MAX_SEG : MAX_SEG_WHITTED) : 1];
   int n_seg = 0;
-  Seg s;
+  SegT s;
   for (int c = 0; c < 3; ++c) {
     s.o[c] = o[3 * i + c];
     s.d[c] = d[3 * i + c];
@@ -379,11 +693,21 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
   }
   float med = 1.0f;
   float L[3] = {0.0f, 0.0f, 0.0f};
+  Hit gh;  // K2b: the GI ray's hit, the next segment's where it is taken
+  int gwin[2] = {-1, -1};
+  bool reuse = false;
   for (int k = 0; k < Q.depth; ++k) {
     // ---- trace and topology (stop-grad) ----
     int win[2];
-    const Hit h = trace<false, NoMotion, true, G>(
-        P, s.o[0], s.o[1], s.o[2], s.d[0], s.d[1], s.d[2], NoMotion(), win);
+    Hit h;
+    if (kPt && reuse) {
+      h = gh;
+      win[0] = gwin[0];
+      win[1] = gwin[1];
+    } else {
+      h = trace<false, NoMotion, true, G>(P, s.o[0], s.o[1], s.o[2], s.d[0],
+                                          s.d[1], s.d[2], NoMotion(), win);
+    }
     s.row = win[0];
     s.sph = win[1];
     s.mat = h.hit ? h.mat : 0;
@@ -393,13 +717,36 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
     const int type = static_cast<int>(m[0]);
     unsigned bits = h.hit ? HIT : 0u;
     if (h.hit && has_em && type == MAT_EMISSIVE) bits |= EMISSIVE;
-    const bool lit = h.hit && !(bits & EMISSIVE) && !(diel && med > 1.00001f);
+    bool lit = h.hit && !(bits & EMISSIVE) && !(diel && med > 1.00001f);
+    if constexpr (kPt) lit = lit && sample_direct;
     if (lit) bits |= LIT;
     if (k == 0 && !h.hit) bits |= MISS_PRIMARY;
     s.bits = bits;
     Geo g;
     step_geometry<false>(Q, s, k, h.t, g);
     const float* n = g.n;
+    // ---- K2b: the GI ray, traced before the light terms (NEE skips the
+    // mesh light it hit); Russian roulette past max_depth on the post-Beer
+    // weight (integrator.py:259-297) ----
+    bool gi_would = false;
+    float4 gdraw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float gd[3] = {0.0f, 0.0f, 0.0f}, gio[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (kPt) {
+      if (pt && k < Q.depth - 1) {
+        gdraw = gi_draws(Q, i, k);
+        bool gi_alive = h.hit && !(bits & EMISSIVE);
+        if (rr && k >= P.max_depth && gdraw.z > rr_prob(g.wb)) gi_alive = false;
+        if (gi_alive) {
+          gi_direction(n[0], n[1], n[2], gdraw.x, gdraw.y, importance, gd[0],
+                       gd[1], gd[2]);
+          for (int c = 0; c < 3; ++c) gio[c] = g.p[c] + n[c] * GI_EPS;
+          gh = trace<true, NoMotion, true, G>(P, gio[0], gio[1], gio[2], gd[0],
+                                              gd[1], gd[2], NoMotion(), gwin);
+          gi_would = gh.hit;
+          if (gh.hit && gh.ml >= 0) s.bits |= SKIP_ML << gh.ml;
+        }
+      }
+    }
     // ---- the segment's radiance ----
     float seg[3] = {0.0f, 0.0f, 0.0f};
     for (int c = 0; c < 3; ++c) {
@@ -422,12 +769,27 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
           seg[c] = seg[c] + (point ? g.wb[c] * row[3 + c] / d2
                                    : g.wb[c] * row[3 + c]) * S.v[c];
       }
+      if constexpr (kPt) {
+        for (int j = 0; j < n_ext; ++j) {
+          const int mi = j - Q.x.n_spot - Q.x.n_area;
+          if (mi >= 0 && (s.bits & (SKIP_ML << mi))) continue;
+          ExtL X;
+          ext_at(Q, i, k, j, -1, g.p, X);
+          if (mi >= 0) s.ml_face[mi] = X.face;
+          if (!light_visible<G>(P, 0, so, X.wi, X.d2, true)) continue;
+          s.vis |= 1u << (n_light + j);
+          Shade S;
+          shade_unit(X.wi, n, g.wo, m, S);
+          for (int c = 0; c < 3; ++c)
+            seg[c] = seg[c] + g.wb[c] * X.I[c] * X.e * S.v[c];
+        }
+      }
     }
     for (int c = 0; c < 3; ++c) L[c] = L[c] + seg[c];
     // ---- the child ----
     bool chain = false;
     float o2[3], d2v[3], w2[3], ab2[3] = {0.0f, 0.0f, 0.0f}, med2 = 1.0f;
-    if (k < Q.depth - 1 && any_spec && h.hit) {
+    if (k < (kPt ? P.max_depth : Q.depth - 1) && any_spec && h.hit) {
       if (type == MAT_MIRROR || type == MAT_CONDUCTOR) {
         const float ndotwo = dot3(n, g.wo);
         float ratio = 1.0f;
@@ -499,6 +861,33 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
         for (int c = 0; c < 3; ++c) w2[c] = g.wb[c];
       }
     }
+    if constexpr (kPt) {
+      // the GI child where the GI ray hit; with a specular child too, the
+      // replayed coin picks one and its weight doubles (stochastic_spec_gi)
+      if (gi_would) {
+        const bool chain_spec = chain;
+        chain = true;
+        if (!chain_spec || gdraw.w < 0.5f) {
+          s.bits |= GI;
+          Shade S;
+          shade_unit(gd, n, g.wo, m, S);
+          float fac = TWO_PI;
+          if (rr && k >= P.max_depth) fac = TWO_PI * (1.0f / rr_prob(g.wb));
+          for (int c = 0; c < 3; ++c) {
+            o2[c] = gio[c];
+            d2v[c] = gd[c];
+            w2[c] = g.wb[c] * S.v[c] * fac;
+            ab2[c] = 0.0f;
+          }
+          med2 = med;
+        }
+        if (chain_spec) {
+          s.bits |= BOTH;
+          for (int c = 0; c < 3; ++c) w2[c] = w2[c] * 2.0f;
+        }
+      }
+      reuse = (s.bits & GI) != 0;
+    }
     if (chain) s.bits |= CHAIN;
     if (kBwd) rec[n_seg] = s;
     ++n_seg;
@@ -524,7 +913,7 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
                gw2[3] = {0.0f, 0.0f, 0.0f};
   for (int c = 0; c < 3; ++c) gL[c] = Q.gbar[3 * i + c];
   for (int k = n_seg - 1; k >= 0; --k) {
-    const Seg& s = rec[k];
+    const SegT& s = rec[k];
     const float* m = P.mat + s.mat * MAT_COLS;
     Geo g;
     step_geometry<true>(Q, s, k, 0.0f, g);
@@ -536,7 +925,46 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
           go[3] = {0.0f, 0.0f, 0.0f}, gwo[3] = {0.0f, 0.0f, 0.0f};
     float gt = 0.0f;
     // the child
-    if (s.bits & CHAIN) {
+    bool gi_child = false;
+    if constexpr (kPt) {
+      if (s.bits & BOTH)
+        for (int c = 0; c < 3; ++c) gw2[c] = gw2[c] * 2.0f;
+      gi_child = (s.bits & GI) != 0;
+    }
+    if (gi_child) {
+      // o2 = p + n GI_EPS, d2 = gi_direction(n), w2 = wb Shade(d2) fac,
+      // fac = 2 pi (/ clip(max wb, 1e-4, 1) past max_depth under RR)
+      const float4 gdraw = gi_draws(Q, i, k);
+      float gdir[3];
+      gi_direction(n[0], n[1], n[2], gdraw.x, gdraw.y, importance, gdir[0],
+                   gdir[1], gdir[2]);
+      Shade S;
+      shade_unit(gdir, n, g.wo, m, S);
+      const bool tail = rr && k >= P.max_depth;
+      const float mx = fmaxf(g.wb[0], fmaxf(g.wb[1], g.wb[2]));
+      const float rs = tail ? 1.0f / rr_prob(g.wb) : 1.0f;
+      const float fac = tail ? TWO_PI * rs : TWO_PI;
+      float gv[3], ggd[3] = {0.0f, 0.0f, 0.0f}, gfac = 0.0f;
+      for (int c = 0; c < 3; ++c) {
+        gv[c] = gw2[c] * g.wb[c] * fac;
+        gwb[c] += gw2[c] * S.v[c] * fac;
+        gfac += gw2[c] * g.wb[c] * S.v[c];
+      }
+      shade_unit_vjp(gdir, n, m, S, gv, gm, ggd, gn, gwo);
+      for (int c = 0; c < 3; ++c) {
+        ggd[c] += gd2[c];
+        gp[c] += go2[c];
+        gn[c] += go2[c] * GI_EPS;
+      }
+      gi_direction_vjp(n, gdraw.x, gdraw.y, importance, ggd, gn);
+      if (tail && mx >= 1e-4f && mx <= 1.0f) {
+        // the clip passes; max splits its cotangent among tied channels
+        const float g_mx = -gfac * TWO_PI * rs * rs;
+        const int ties = (g.wb[0] == mx) + (g.wb[1] == mx) + (g.wb[2] == mx);
+        for (int c = 0; c < 3; ++c)
+          if (g.wb[c] == mx) gwb[c] += g_mx / static_cast<float>(ties);
+      }
+    } else if (s.bits & CHAIN) {
       if (s.bits & (MIRROR | COND)) {
         const float ndotwo = dot3(n, g.wo);
         float a[3];
@@ -676,6 +1104,44 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
         }
       }
     }
+    if constexpr (kPt) {
+      float* sm_x = sm + shared_floats(P);  // spot, area, mesh: 3 each
+      for (int j = 0; lit && j < n_ext; ++j) {
+        if (!((s.vis >> (n_light + j)) & 1u)) continue;
+        const int mi = j - Q.x.n_spot - Q.x.n_area;
+        ExtL X;
+        ext_at(Q, i, k, j, mi >= 0 ? s.ml_face[mi] : -1, g.p, X);
+        Shade S;
+        shade_unit(X.wi, n, g.wo, m, S);
+        float gv[3], gwi[3] = {0.0f, 0.0f, 0.0f}, ge = 0.0f, g_d2 = 0.0f;
+        for (int c = 0; c < 3; ++c) {
+          const float q = g.wb[c] * X.I[c];
+          const float gq = gL[c] * S.v[c];
+          gv[c] = gL[c] * (q * X.e);
+          ge += gq * q;
+          gwb[c] += gq * X.e * X.I[c];
+          if (scatter) atomicAdd(sm_x + 3 * j + c, gq * X.e * g.wb[c]);
+        }
+        shade_unit_vjp(X.wi, n, m, S, gv, gm, gwi, gn, gwo);
+        ext_e_vjp(X, ge, gwi, g_d2);
+        float gtl[3];
+        towards_vjp(X.tl, X.inv, X.d2, gwi, g_d2, gtl);
+        for (int c = 0; c < 3; ++c) gp[c] -= gtl[c];
+        if (X.kind == 2 && scatter) {
+          // the sampled point through the face's corners, by row
+          const int row = static_cast<int>(X.row[0]);
+          const float sq = sqrtf(X.b1);
+          float gv9[9];
+          for (int c = 0; c < 3; ++c) {
+            gv9[c] = gtl[c] * (1.0f - sq);
+            gv9[3 + c] = gtl[c] * sq * (1.0f - X.b2);
+            gv9[6 + c] = gtl[c] * sq * X.b2;
+          }
+          for (int jj = 0; jj < 9; ++jj)
+            if (gv9[jj] != 0.0f) atomicAdd(Q.d_tri + row * 9 + jj, gv9[jj]);
+        }
+      }
+    }
     // wo = -d; Beer; p = o + t d
     float gw[3];
     for (int c = 0; c < 3; ++c) {
@@ -768,12 +1234,7 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
   }
 }
 
-// the block's shared sums: materials, point and directional lights, bg
-__device__ __forceinline__ int shared_floats(const Params& P) {
-  return P.n_mat * MAT_GRAD_COLS + 3 * (P.n_point + P.n_dir) + 3;
-}
-
-template <bool kBwd, class G>
+template <bool kBwd, class G, bool kPt = false>
 __device__ __forceinline__ void run(const BwdParams& Q,
                                     const float* __restrict__ o,
                                     const float* __restrict__ d,
@@ -781,10 +1242,11 @@ __device__ __forceinline__ void run(const BwdParams& Q,
   extern __shared__ float sm[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (kBwd) {
-    const int ns = shared_floats(Q.g);
+    const int base = shared_floats(Q.g);
+    const int ns = kPt ? base + 3 * (Q.x.n_spot + Q.x.n_area + Q.x.n_ml) : base;
     for (int j = threadIdx.x; j < ns; j += blockDim.x) sm[j] = 0.0f;
     __syncthreads();
-    if (i < Q.n) diff_ray<true, G>(Q, o, d, out, i, sm);
+    if (i < Q.n) diff_ray<true, G, kPt>(Q, o, d, out, i, sm);
     __syncthreads();
     // one global atomic per block and value
     const Params& P = Q.g;
@@ -793,6 +1255,17 @@ __device__ __forceinline__ void run(const BwdParams& Q,
     for (int j = threadIdx.x; j < ns; j += blockDim.x) {
       const float v = sm[j];
       if (v == 0.0f) continue;
+      if constexpr (kPt) {
+        if (j >= base) {
+          const int jj = j - base, n_sl = 3 * Q.x.n_spot,
+                    n_al = 3 * Q.x.n_area;
+          atomicAdd(jj < n_sl          ? Q.x.d_sl + jj
+                    : jj < n_sl + n_al ? Q.x.d_al + (jj - n_sl)
+                                       : Q.x.d_ml + (jj - n_sl - n_al),
+                    v);
+          continue;
+        }
+      }
       float* dst = j < n_mat               ? Q.d_mat + j
                    : j < n_mat + n_pl      ? Q.d_pl + (j - n_mat)
                    : j < n_mat + n_pl + n_dl ? Q.d_dl + (j - n_mat - n_pl)
@@ -800,7 +1273,7 @@ __device__ __forceinline__ void run(const BwdParams& Q,
       atomicAdd(dst, v);
     }
   } else {
-    if (i < Q.n) diff_ray<false, G>(Q, o, d, out, i, nullptr);
+    if (i < Q.n) diff_ray<false, G, kPt>(Q, o, d, out, i, nullptr);
   }
 }
 
@@ -834,13 +1307,44 @@ mega_bwd_tree_kernel(BwdParams Q, const float* __restrict__ o,
   run<true, ChunkTree>(Q, o, d, out);
 }
 
+// K2b's fwd+bwd asks ptxas for no blocks per SM: 1 to 4 blocks of 128
+// threads ran within 2% of each other on the three path-traced scenes on an
+// H100 (152 registers and no spills at 1; 128 and 92 B of spills at 4;
+// PERF.md)
+__global__ void __launch_bounds__(THREADS)
+mega_bwd_primal_pt_kernel(BwdParams Q, const float* __restrict__ o,
+                          const float* __restrict__ d,
+                          float* __restrict__ out) {
+  run<false, FlatChunks, true>(Q, o, d, out);
+}
+
+__global__ void __launch_bounds__(THREADS)
+mega_bwd_pt_kernel(BwdParams Q, const float* __restrict__ o,
+                   const float* __restrict__ d, float* __restrict__ out) {
+  run<true, FlatChunks, true>(Q, o, d, out);
+}
+
+__global__ void __launch_bounds__(THREADS)
+mega_bwd_primal_pt_tree_kernel(BwdParams Q, const float* __restrict__ o,
+                               const float* __restrict__ d,
+                               float* __restrict__ out) {
+  run<false, ChunkTree, true>(Q, o, d, out);
+}
+
+__global__ void __launch_bounds__(THREADS)
+mega_bwd_pt_tree_kernel(BwdParams Q, const float* __restrict__ o,
+                        const float* __restrict__ d, float* __restrict__ out) {
+  run<true, ChunkTree, true>(Q, o, d, out);
+}
+
 }  // namespace mb
 
 // ---- C interface (loaded with ctypes) ----
 
 // gbar null: the primal instantiation (the cotangent pointers unused), else
-// the fwd+bwd one; nodes: the tree, or null (the chunk sweep).  consts =
-// eps, ambient 3.  The cotangent buffers must be zeroed by the caller.
+// the fwd+bwd one; nodes: the tree, or null (the chunk sweep); ext: K2b's
+// tables, or null for K2a.  consts = eps, ambient 3.  The cotangent buffers
+// must be zeroed by the caller.
 extern "C" int mega_bwd_launch(
     const float* o, const float* d, const float* gbar, float* out, int n,
     const float* tri, int n_tri, const float* chunk, int n_chunks,
@@ -849,9 +1353,12 @@ extern "C" int mega_bwd_launch(
     const float* bg, const float* consts, const float* ud, int depth,
     int max_depth, int flags, unsigned seed, unsigned step, float* d_tri,
     float* d_mat, float* d_pl, float* d_dl, float* d_bg, float* d_o,
-    float* d_d, void* stream) {
-  if (n <= 0 || depth < 1 || depth > mb::MAX_SEG ||
-      n_point + n_dir > mb::VIS_BITS)
+    float* d_d, const mb::BwdExt* ext, void* stream) {
+  const int n_ext = ext ? ext->n_spot + ext->n_area + ext->n_ml : 0;
+  if (n <= 0 || depth < 1 ||
+      depth > (ext ? mb::MAX_SEG : mb::MAX_SEG_WHITTED) ||
+      n_point + n_dir + n_ext > mb::VIS_BITS ||
+      (ext && ext->n_ml > mb::MAX_ML))
     return static_cast<int>(cudaErrorInvalidValue);
   const float c7[7] = {consts[0], consts[1], consts[2], consts[3],
                        0.0f,      0.0f,      0.0f};
@@ -873,20 +1380,22 @@ extern "C" int mega_bwd_launch(
   Q.depth = depth;
   Q.seed = seed;
   Q.step = step;
+  Q.x = ext ? *ext : mb::BwdExt{};
   const int blocks = (n + mw::THREADS - 1) / mw::THREADS;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool tree = nodes != nullptr;
   if (gbar == nullptr) {
-    if (tree)
-      mb::mega_bwd_primal_tree_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, o, d,
-                                                                      out);
-    else
-      mb::mega_bwd_primal_kernel<<<blocks, mw::THREADS, 0, st>>>(Q, o, d, out);
+    auto kern = ext ? (tree ? mb::mega_bwd_primal_pt_tree_kernel
+                            : mb::mega_bwd_primal_pt_kernel)
+                    : (tree ? mb::mega_bwd_primal_tree_kernel
+                            : mb::mega_bwd_primal_kernel);
+    kern<<<blocks, mw::THREADS, 0, st>>>(Q, o, d, out);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = sizeof(float) * static_cast<size_t>(
-      n_mat * mb::MAT_GRAD_COLS + 3 * (n_point + n_dir) + 3);
-  auto kern = tree ? mb::mega_bwd_tree_kernel : mb::mega_bwd_kernel;
+      n_mat * mb::MAT_GRAD_COLS + 3 * (n_point + n_dir) + 3 + 3 * n_ext);
+  auto kern = ext ? (tree ? mb::mega_bwd_pt_tree_kernel : mb::mega_bwd_pt_kernel)
+                  : (tree ? mb::mega_bwd_tree_kernel : mb::mega_bwd_kernel);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

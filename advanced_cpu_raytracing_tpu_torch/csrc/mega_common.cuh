@@ -141,6 +141,67 @@ __device__ __forceinline__ float powmax(float base, float e) {
   return pos ? val : (e == 0.0f ? 1.0f : 0.0f);
 }
 
+// Axis-swap orthonormal basis (GetOrthonormalBasis, helperMath.cpp:59-85):
+// u = unit(r' x n), v = unit(n x u), r' = n with its smallest component set
+// to 1 (x only where strictly smallest, else y where below z, else z)
+__device__ __forceinline__ void onb(float nx, float ny, float nz, float& ux,
+                                    float& uy, float& uz, float& vx,
+                                    float& vy, float& vz) {
+  const float ax = fabsf(nx), ay = fabsf(ny), az = fabsf(nz);
+  const bool use_x = ax < ay && ax < az;
+  const bool use_y = !(ax < ay) && ay < az;
+  const bool use_z = !(use_x || use_y);
+  const float rpx = use_x ? 1.0f : nx;
+  const float rpy = use_y ? 1.0f : ny;
+  const float rpz = use_z ? 1.0f : nz;
+  ux = rpy * nz - rpz * ny;
+  uy = rpz * nx - rpx * nz;
+  uz = rpx * ny - rpy * nx;
+  norm3(ux, uy, uz);
+  vx = ny * uz - nz * uy;
+  vy = nz * ux - nx * uz;
+  vz = nx * uy - ny * ux;
+  norm3(vx, vy, vz);
+}
+
+// The GI direction of the uniforms (r1, r2) about the unit normal n
+// (ComputeGlobalIllumination, raytracer.cpp:143-173): phi = 2 pi r1, and
+// theta = asin(sqrt(r2)) with importance sampling, else acos(r2); the
+// plain versions' ops/megakernel.py::_gi_direction computes the same
+__device__ __forceinline__ void gi_direction(float nx, float ny, float nz,
+                                             float r1, float r2,
+                                             bool importance, float& gdx,
+                                             float& gdy, float& gdz) {
+  const float phi = 6.283185307179586f * r1;
+  float sin_t, cos_t;
+  if (importance) {  // theta = asin(sqrt(r2))
+    sin_t = sqrtf(r2);
+    cos_t = sqrtf(fmaxf(1.0f - r2, 0.0f));
+  } else {  // theta = acos(r2)
+    cos_t = r2;
+    sin_t = sqrtf(fmaxf(1.0f - r2 * r2, 0.0f));
+  }
+  float ux, uy, uz, vx, vy, vz;
+  onb(nx, ny, nz, ux, uy, uz, vx, vy, vz);
+  const float sc = sin_t * cosf(phi), ss = sin_t * sinf(phi);
+  gdx = ux * sc + nx * cos_t + vx * ss;
+  gdy = uy * sc + ny * cos_t + vy * ss;
+  gdz = uz * sc + nz * cos_t + vz * ss;
+  norm3(gdx, gdy, gdz);
+}
+
+// A spot light's falloff at cos a, the cone tests in cosine space
+// (spotLight.h:33-57): 0 outside the coverage cone and on its axis, ((cos a
+// - cos(cov/2)) / (cos(fall/2) - cos(cov/2)))^4 between the cones, 1 inside
+// the falloff cone; L is the light's row (cos(cov/2) 9, cos(fall/2) 10, the
+// denominator 11)
+__device__ __forceinline__ float spot_falloff(const float* L, float cos_a) {
+  const float frac = fmaxf((cos_a - L[9]) / L[11], 0.0f);
+  float scale = cos_a < L[10] ? frac * frac * frac * frac : 1.0f;
+  if (cos_a >= 1.0f || cos_a < L[9]) scale = 0.0f;
+  return scale;
+}
+
 // A static scene.
 struct NoMotion {
   static constexpr bool kOn = false;

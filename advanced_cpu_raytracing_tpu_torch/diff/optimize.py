@@ -4,7 +4,8 @@ over the differentiable render toward a target image (the JAX package's
 add eps to sqrt(v-hat)).
 
 The loss of every step goes through the fused route, ``make_diff_render``
-(kernel K2a on the card; its plain version with ``device="cpu"``).  The
+(kernel K2a, or K2b for path tracing and spot, area and mesh lights, on the
+card; their plain version with ``device="cpu"``).  The
 JAX package falls back to ``jax.grad`` through its wavefront for scenes
 outside its fused kernel; the port has no wavefront yet, so such a scene,
 or a camera with depth of field, raises ``NotImplementedError``.
@@ -24,7 +25,7 @@ from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
 
 
 def optimize(pack, cam, px, py, opts, target, fields, steps: int = 50,
-             lr=5e-2, seed: int = 0, device=None):
+             lr=5e-2, seed: int = 0, device=None, draws=None):
     """Returns (optimized pack, loss history).
 
     ``cam`` is the camera on ``device`` (default ``cuda``); ``px``, ``py``
@@ -33,17 +34,19 @@ def optimize(pack, cam, px, py, opts, target, fields, steps: int = 50,
     fields to optimize (``make_diff_render``'s parameters); ``lr`` the
     rate of every field, or field -> rate (as the JAX package's
     tools/inverse_render.py gives the vertices a smaller step).  Every
-    step draws the dielectric's branch uniforms from Philox keyed by
-    (``seed``, 0): the same draws each step, as in the JAX fused route,
-    whose key stays ``PRNGKey(0)``, so the loss is one deterministic
-    function of the parameters."""
+    step takes its draws (the dielectric's branch uniforms, the light
+    samples, the GI directions, the Russian-roulette and coin draws) from
+    Philox keyed by (``seed``, 0): the same draws each step, as in the JAX
+    fused route, whose key stays ``PRNGKey(0)``, so the loss is one
+    deterministic function of the parameters; ``draws`` (a ``BwdDraws``
+    table, ``ops/megabwd.py``), when given, replaces them at every step."""
     dev = resolve_device(device)
     missing = bwd_missing(pack.static, opts, pack)
     if getattr(cam, "use_dof", False):
         missing.append("a depth-of-field camera")
     if missing:
         raise NotImplementedError(
-            "optimize: scene outside the differentiable kernel K2a ("
+            "optimize: scene outside the differentiable kernels K2a and K2b ("
             + ", ".join(missing) + "); the JAX package's fallback through "
             "its wavefront is not ported")
     render = make_diff_render(pack, opts, device=dev)
@@ -59,7 +62,8 @@ def optimize(pack, cam, px, py, opts, target, fields, steps: int = 50,
     history = []
     for _ in range(steps):
         adam.zero_grad(set_to_none=True)
-        loss = torch.mean((render(params, o, d, seed=seed) - target) ** 2)
+        loss = torch.mean((render(params, o, d, draws=draws, seed=seed)
+                           - target) ** 2)
         loss.backward()
         adam.step()
         history.append(float(loss.detach()))

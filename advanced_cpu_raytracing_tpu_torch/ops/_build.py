@@ -53,6 +53,16 @@ class TexParams(ctypes.Structure):
                 ("env_first", _I)]
 
 
+class BwdExtParams(ctypes.Structure):
+    """K2b's tables, draws and light cotangents: ``mb::BwdExt`` of
+    csrc/mega_bwd.cu."""
+
+    _fields_ = [("sl", _P), ("n_spot", _I), ("al", _P), ("n_area", _I),
+                ("mll", _P), ("n_ml", _I), ("mlr", _P), ("uab", _P),
+                ("uml", _P), ("ugi", _P), ("d_sl", _P), ("d_al", _P),
+                ("d_ml", _P)]
+
+
 _SIGNATURES = {
     "mega_whitted": {
         # rays, out, n; tri, chunks, the tree (or null); spheres ...
@@ -74,12 +84,12 @@ _SIGNATURES = {
         # rays, gbar (null: the primal), out, n; tri, chunks, the tree (or
         # null); spheres, materials, lights, bg, consts; draws, depth,
         # max_depth, flags, seed, step; the cotangents (tri, mat, pl, dl,
-        # bg, o, d); stream
+        # bg, o, d); K2b's tables (null: K2a); stream
         "mega_bwd_launch": (
             _I, [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P,
                  _I, _P, _I, _P, ctypes.POINTER(ctypes.c_float), _P, _I, _I,
                  _I, ctypes.c_uint32, ctypes.c_uint32, _P, _P, _P, _P, _P, _P,
-                 _P, _P]),
+                 _P, ctypes.POINTER(BwdExtParams), _P]),
         "mega_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
 }

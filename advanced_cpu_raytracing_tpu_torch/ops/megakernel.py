@@ -721,6 +721,25 @@ def _onb(nx, ny, nz):
     return (ux, uy, uz), (vx, vy, vz)
 
 
+def _gi_direction(nx, ny, nz, r1, r2, importance: bool):
+    """The GI direction of the uniforms (r1, r2) about the unit normal n
+    (ComputeGlobalIllumination, raytracer.cpp:143-173): phi = 2 pi r1, and
+    theta = asin(sqrt(r2)) with importance sampling, else acos(r2), as
+    ``gi_direction`` of csrc/mega_common.cuh computes it."""
+    phi = TWO_PI * r1
+    if importance:
+        sin_t = torch.sqrt(r2)  # theta = asin(sqrt(r2))
+        cos_t = torch.sqrt(torch.clamp(1.0 - r2, min=0.0))
+    else:
+        cos_t = r2  # theta = acos(r2)
+        sin_t = torch.sqrt(torch.clamp(1.0 - r2 * r2, min=0.0))
+    (ux, uy, uz), (vx, vy, vz) = _onb(nx, ny, nz)
+    sc = sin_t * torch.cos(phi)
+    ss = sin_t * torch.sin(phi)
+    return _norm3(ux * sc + nx * cos_t + vx * ss, uy * sc + ny * cos_t + vy * ss,
+                  uz * sc + nz * cos_t + vz * ss)
+
+
 def _tri_hit(v0, v1, v2, px, py, pz, vx, vy, vz, bary=False):
     """Cramer's-rule test (Mesh::IntersectFace, src/mesh.cpp:201-236) of
     rays (R,1) against faces (1,F): returns (t, valid), each (R,F), and
@@ -1551,20 +1570,8 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             else:
                 gi_alive = shadeable & (dep > 0)
                 rr_scale = ones[idx]
-            r1, r2 = rnd(1), rnd(2)
-            phi = TWO_PI * r1
-            if mc.pt_importance:
-                sin_t = torch.sqrt(r2)  # theta = asin(sqrt(r2))
-                cos_t = torch.sqrt(torch.clamp(1.0 - r2, min=0.0))
-            else:
-                cos_t = r2  # theta = acos(r2)
-                sin_t = torch.sqrt(torch.clamp(1.0 - r2 * r2, min=0.0))
-            (ubx, uby, ubz), (vbx, vby, vbz) = _onb(nx, ny, nz)
-            sc = sin_t * torch.cos(phi)
-            ss = sin_t * torch.sin(phi)
-            gdx, gdy, gdz = _norm3(ubx * sc + nx * cos_t + vbx * ss,
-                                   uby * sc + ny * cos_t + vby * ss,
-                                   ubz * sc + nz * cos_t + vbz * ss)
+            gdx, gdy, gdz = _gi_direction(nx, ny, nz, rnd(1), rnd(2),
+                                          mc.pt_importance)
             # the reference's hard-coded GI epsilon (raytracer.cpp:174)
             gox, goy, goz = px + nx * 1e-4, py + ny * 1e-4, pz + nz * 1e-4
             gi = gi_alive.nonzero().squeeze(1)

@@ -6,11 +6,12 @@ Phases, each printing one JSON line:
   1. probe: the card's name and power limit, torch's CUDA version, nvcc;
   2. build the kernel sources, one nvcc each, started together:
      csrc/mega_whitted.cu (K1a), csrc/mega_pt.cu (K1b, and K1c and K1d,
-     each static and with motion) and csrc/mega_bwd.cu (K2a, its primal and
-     its fwd+bwd instantiation), with ptxas's register, frame and spill
-     lines per kernel (kept beside a cached library); K1a must keep its 72
-     registers, K1b its 77, K1c its 84 (90 with motion) and K1d its 123
-     (128 with motion), and each has a tree instantiation (K1e);
+     each static and with motion) and csrc/mega_bwd.cu (K2a and K2b, each
+     with its primal and its fwd+bwd instantiation), with ptxas's register,
+     frame and spill lines per kernel (kept beside a cached library); K1a
+     must keep its 72 registers, K1b its 77, K1c its 84 (90 with motion),
+     K1d its 123 (128 with motion) and K2a its 72 (primal) and 128
+     (fwd+bwd), and each has a tree instantiation (K1e);
   3. K1a against its plain torch version on 65,536 primary rays of
      scenes/whitted_conductors.xml (1 spp, no DoF), and on a ray along -z
      in the plane y = -10 of the first chunk's box (the room's floor), which
@@ -132,7 +133,34 @@ Phases, each printing one JSON line:
      chunks (the plain version's counts on every 16th ray) and over the
      tree (TreeWalker's on every ray, with the boxes, rows and winners
      read), the cheaper of the two, plus the step and its adjoint per
-     traced segment and lit light evaluation.
+     traced segment and lit light evaluation;
+ 21. K2b (csrc/mega_bwd.cu's kPt instantiations: path tracing, spot, area
+     and mesh lights) against its plain version (autograd) on 16,384
+     primary rays at full depth of scenes/feat_pt.xml (and by substitution
+     with NEE only and with neither NEE nor importance sampling),
+     feat_pt_rr.xml, feat_pt_spec.xml (and with RussianRoulette added),
+     feat_spotareaml.xml (Whitted: spot, area, mesh light, emissive), the
+     demo scene with its area light, and the demo under PathTracing + NEE
+     with its mirror sphere diffuse, each with table draws from a
+     torch.Generator and with Philox (against its twin bwd_draws), over the
+     chunks and (FLAT_MAX_FACES at 0) over the tree: K2a's gates;
+ 22. the path-traced training main path (JAX bench.py --bwd --bwd-scene pt):
+     optimize on scenes/feat_pt.xml at 800x800 (one fixed jitter: 640,000
+     rays), depth 4, NEE + importance sampling, fields mat_diffuse,
+     ml_radiance (feat_pt has no point light) and verts, 5 Adam steps toward
+     a target rendered by the primal at the true parameters — with every
+     counter at 0 before it, K2b's primal must launch 6 times, its fwd+bwd 5
+     times and nothing else; the loss falls at every step; then the step
+     in a loop of its own (median of 5 after a warm-up) and rays per second;
+     then one value-and-grad of sum(img^2)/n at 1920x1080 (2,073,600 rays,
+     JAX main_bwd's grid and loss) on feat_pt.xml, feat_pt_rr.xml and
+     feat_pt_spec.xml, the median of 3 after a warm-up;
+ 23. K2b at the main path's shape (phase 22's 640,000 rays, and the same on
+     feat_pt_rr.xml and feat_pt_spec.xml): as phase 20, time per launch of
+     the primal, the fwd+bwd and the fwd+bwd without its scatter, the plain
+     version's time and agreement on every 16th ray, the tree twins timed
+     and held to the flat kernels on every ray, and the bound over the
+     chunks and over the tree, with the GI queries and GI samples counted.
 Every phase line carries t_s, the seconds since the script started.
 Then the kernels line (each entry with its rays and the plain version's
 stride over them), the card line and, last, the result line.  Any
@@ -159,16 +187,20 @@ ROOT = Path(__file__).resolve().parent
 SCENES = ROOT / "scenes"
 WHITTED_SCENE = SCENES / "whitted_conductors.xml"
 PT_SCENE = SCENES / "feat_pt.xml"
+PT_RR_SCENE = SCENES / "feat_pt_rr.xml"
+PT_SPEC_SCENE = SCENES / "feat_pt_spec.xml"
 LIGHTS_SCENE = SCENES / "feat_lights_brdf.xml"
 TEXTURES_SCENE = SCENES / "feat_textures.xml"
 REPLACES = "advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py:912"
 REPLACES_K2 = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:428"
-# registers of the K1a-K1d kernels since they were first measured; the
-# later variants' policies (motion, textures, the tree) must not change
-# their code
+# registers of the K1a-K1d and K2a kernels since they were first measured;
+# the later variants' policies (motion, textures, the tree, K2b's template
+# flag) must not change their code
 KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
                   "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90,
-                  "mega_tex_kernel": 123, "mega_tex_motion_kernel": 128}
+                  "mega_tex_kernel": 123, "mega_tex_motion_kernel": 128,
+                  "mega_bwd_primal_kernel": 72, "mega_bwd_kernel": 128,
+                  "mega_bwd_primal_tree_kernel": 72, "mega_bwd_tree_kernel": 128}
 KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_ext_motion_kernel", "mega_tex_kernel",
                   "mega_tex_motion_kernel", "mega_whitted_tree_kernel",
@@ -176,7 +208,9 @@ KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_ext_motion_tree_kernel", "mega_tex_tree_kernel",
                   "mega_tex_motion_tree_kernel", "mega_bwd_primal_kernel",
                   "mega_bwd_kernel", "mega_bwd_primal_tree_kernel",
-                  "mega_bwd_tree_kernel")
+                  "mega_bwd_tree_kernel", "mega_bwd_primal_pt_kernel",
+                  "mega_bwd_pt_kernel", "mega_bwd_primal_pt_tree_kernel",
+                  "mega_bwd_pt_tree_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -218,6 +252,13 @@ PERLIN_FLOPS, TAP_FLOPS, ENV_CAND_FLOPS = 347, 11, 16
 # Blinn-Phong (powmax's log and exp counted once each) and their adjoint
 STEP_FLOPS, ADJ_STEP_FLOPS = 60, 150
 LIGHT_FLOPS, ADJ_LIGHT_FLOPS = 65, 110
+# K2b, counted in csrc/mega_bwd.cu (rounded): per GI sample the direction
+# (onb with its two norm3, phi's sine and cosine counted once each, the
+# combination and its norm3), the GI origin and the child's Blinn-Phong
+# weight, and their adjoint (gi_direction_vjp's three norm3_vjp and four
+# cross products, shade_unit_vjp, the RR reweight); a spot, area or mesh
+# light's term costs about a point light's (LIGHT_FLOPS above)
+GI_FLOPS, ADJ_GI_FLOPS = 90, 260
 # K2a against its plain version: the cotangents are sums whose atomic order
 # changes from run to run, and the hand-derived adjoint rounds otherwise
 # than autograd
@@ -1339,6 +1380,341 @@ def main() -> int:
         "scatter_ms": fb_ms - no_scatter_ms,
         "bound_counted_over": bd_fb["counted_over"],
         "tree_twin_ms": tree_fb_ms})
+
+    # ---- K2b: path tracing, spot, area and mesh lights (slice C2) ----
+    k2b_dir = out_dir / "k2b"
+    k2b_dir.mkdir()
+
+    def k2b_xml(name, xml):
+        path = k2b_dir / name
+        path.write_text(xml)
+        return path
+
+    pt_xml = PT_SCENE.read_text()
+    spec_xml = PT_SPEC_SCENE.read_text()
+    k2b_scenes = (
+        ("feat_pt.xml", PT_SCENE),
+        ("feat_pt.xml, NEE only", k2b_xml("pt_nee.xml", pt_xml.replace(
+            "NextEventEstimation ImportanceSampling", "NextEventEstimation"))),
+        ("feat_pt.xml, neither NEE nor importance sampling", k2b_xml(
+            "pt_plain.xml", pt_xml.replace(
+                "NextEventEstimation ImportanceSampling", ""))),
+        ("feat_pt_rr.xml", PT_RR_SCENE),
+        ("feat_pt_spec.xml", PT_SPEC_SCENE),
+        ("feat_pt_spec.xml + RussianRoulette", k2b_xml(
+            "pt_spec_rr.xml", spec_xml.replace(
+                "ImportanceSampling", "ImportanceSampling RussianRoulette"))),
+        ("feat_spotareaml.xml", SCENES / "feat_spotareaml.xml"),
+        ("demo, its area light", k2b_xml("demo_area.xml", AREA_DEMO_XML)),
+        ("demo under PathTracing + NEE, its mirror sphere diffuse", k2b_xml(
+            "demo_pt.xml", path_traced(AREA_DEMO_XML).replace(
+                '<Material id="2" type="mirror">', '<Material id="2">'))),
+    )
+
+    # 21. K2b against its plain version: 16,384 primary rays at full depth,
+    # both draw modes, over the chunks and over the tree
+    n21 = 16384
+    try:
+        for geometry in ("chunks", "tree"):
+            if geometry == "tree":
+                mk.FLAT_MAX_FACES = 0
+            for label, path in k2b_scenes:
+                cfg, _, _, f, tabs, cam = diff_render(path)
+                bc = f.bc
+                if bc.variant != "mega_bwd_pt" + ("_tree" if geometry == "tree"
+                                                  else ""):
+                    raise AssertionError(f"K2b {label}: routed to {bc.variant}")
+                o, d = primary_rays(cfg.cameras[0], cam, n21, seed=3)
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(12)
+                gbar = torch.randn((n21, 3), generator=gen, device=dev)
+                for mode in ("table", "philox"):
+                    draws = (mb.table_draws(bc, n21, gen, dev)
+                             if mode == "table" else None)
+                    prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=19,
+                                             step=3)
+                    got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=19,
+                                               step=3, gbar=gbar)
+                    torch.cuda.synchronize()
+                    if draws is None:
+                        draws = mb.bwd_draws(bc, 19, 3, n21, device=dev)
+                    t0 = time.perf_counter()
+                    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws,
+                                                      gbar)
+                    torch.cuda.synchronize()
+                    plain_s = time.perf_counter() - t0
+                    what = f"K2b {bc.variant}, {label}, {mode}"
+                    err = check_close(prim, ref, what + ", primal")
+                    err_fb = check_close(got, ref, what + ", fwd+bwd")
+                    emit("kernel_vs_plain", kernel=bc.variant, scene=label,
+                         draws=mode, rays=n21, depth=mb.bc_depth(bc),
+                         faces=bc.n_tri, plain_s=plain_s, primal=err,
+                         fwd_bwd_exact_frac=err_fb["exact_frac"],
+                         fwd_bwd_max_abs_err=err_fb["max_abs_err"],
+                         grads=check_grads(g, gref, what), mean_tol=MEAN_TOL,
+                         q999_tol=Q999_TOL, grad_rtol=GRAD_RTOL,
+                         grad_atol_scale=GRAD_ATOL_SCALE)
+                    del draws, gref, g
+    finally:
+        mk.FLAT_MAX_FACES = flat_max
+
+    # 22. the path-traced training main path (JAX bench.py --bwd --bwd-scene
+    # pt): 5 Adam steps through K2b on feat_pt.xml at 800x800
+    fields = ("mat_diffuse", "ml_radiance", "verts")
+    cfg, pack, opts, _, _, cam = diff_render(PT_SCENE)
+    cam_cfg = cfg.cameras[0]
+    w, h = cam_cfg.width, cam_cfg.height
+    idx = torch.arange(w * h, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    jit = torch.rand((w * h, 2), generator=gen, device=dev)
+    px = (idx % w).float() + jit[:, 0]
+    py = (idx // w).float() + jit[:, 1]
+    rng = np.random.default_rng(7)
+    # the light mesh hangs 0.01 below the ceiling: the vertices move less
+    start = {
+        "mat_diffuse": pack.mat_diffuse * torch.as_tensor(rng.uniform(
+            0.7, 1.1, tuple(pack.mat_diffuse.shape)).astype(np.float32),
+            device=dev),
+        "ml_radiance": pack.ml_radiance * 1.2,
+        "verts": pack.verts + torch.as_tensor(rng.normal(
+            0.0, 0.001, tuple(pack.verts.shape)).astype(np.float32),
+            device=dev)}
+    o, d = (t.contiguous() for t in generate_rays(cam, px, py))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f = mb.make_diff_render(pack, opts, device=dev)
+    with torch.no_grad():
+        target = f({}, o, d)
+    # Adam moves each value about its rate a step: kd's 0.1 channels start
+    # within 0.03 of the truth, so kd takes 5e-3 (2e-2 overshoots them by
+    # the third step and the loss rises), the vertices kd's rate / 30
+    rates = {"mat_diffuse": 5e-3, "ml_radiance": 0.4, "verts": 5e-3 / 30}
+    _, history = optimize(inject_params(pack, start), cam, px, py, opts, target,
+                          fields, steps=5, lr=rates, seed=0, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = counts()
+    want = {k: {"mega_bwd_primal_pt": 6, "mega_bwd_pt": 5}.get(k, 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"path-traced training main path: launches "
+                             f"{launches}, expected {want}")
+    if not (all(math.isfinite(x) for x in history)
+            and all(b < a for a, b in zip(history, history[1:]))):
+        raise AssertionError(f"path-traced training main path: loss history "
+                             f"{history}")
+    pt_launches = dict(launches)
+    f_step = mb.make_diff_render(inject_params(pack, start), opts, device=dev)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in start.items()}
+    adam = torch.optim.Adam([{"params": [params[k]], "lr": rates[k]}
+                             for k in fields])
+    step_s = []
+    for i in range(6):
+        t1 = time.perf_counter()
+        adam.zero_grad(set_to_none=True)
+        loss = torch.mean((f_step(params, o, d) - target) ** 2)
+        loss.backward()
+        adam.step()
+        float(loss.detach())
+        if i:
+            step_s.append(time.perf_counter() - t1)
+    del f_step, params, adam, loss
+    step_med = sorted(step_s)[len(step_s) // 2]
+    emit("main_path", kernel="mega_bwd_pt", scene="feat_pt.xml", width=w,
+         height=h, rays=w * h, depth=opts.max_depth, fields=list(fields),
+         lr=rates, steps=5, loss_history=history, step_s=step_s,
+         step_s_median=step_med, mrays_per_s=w * h / step_med / 1e6,
+         total_s_with_setup=total_s,
+         launches={k: v for k, v in launches.items() if v}, card=card)
+    # one value-and-grad of sum(img^2) / n at 1920x1080 (JAX bench.py
+    # main_bwd's grid over the camera's image and its loss), the median of
+    # 3 after a warm-up
+    bw, bh = 1920, 1080
+    ys, xs = np.divmod(np.arange(bw * bh, dtype=np.int64), bw)
+    for path in (PT_SCENE, PT_RR_SCENE, PT_SPEC_SCENE):
+        cfg_b, pack_b, opts_b, f_b, _, cam_b = diff_render(path)
+        sx = cfg_b.cameras[0].width / bw
+        sy = cfg_b.cameras[0].height / bh
+        ob, db = (t.contiguous() for t in generate_rays(
+            cam_b, torch.as_tensor(xs * sx, dtype=torch.float32, device=dev),
+            torch.as_tensor(ys * sy, dtype=torch.float32, device=dev)))
+        leaves = {k: getattr(pack_b, k).detach().clone().requires_grad_(True)
+                  for k in fields}
+        vg_s, loss_v = [], None
+        for i in range(4):
+            t1 = time.perf_counter()
+            img = f_b(leaves, ob, db)
+            loss = (img ** 2).sum() / float(bw * bh)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            torch.cuda.synchronize()
+            if i:
+                vg_s.append(time.perf_counter() - t1)
+            loss_v = float(loss.detach())
+        if not (math.isfinite(loss_v) and all(bool(torch.isfinite(g).all())
+                                              for g in grads)):
+            raise AssertionError(f"1080p value-and-grad on {path.name}: "
+                                 f"loss {loss_v}")
+        vg_med = sorted(vg_s)[len(vg_s) // 2]
+        emit("value_and_grad_1080p", kernel=f_b.bc.variant, scene=path.name,
+             rays=bw * bh, depth=opts_b.max_depth, fields=list(fields),
+             loss=loss_v, s=vg_s, s_median=vg_med,
+             mrays_per_s=bw * bh / vg_med / 1e6, card=card)
+        del f_b, leaves, img, loss, grads, ob, db
+
+    # 23. K2b at the main path's shape: one sample's 640,000 rays of
+    # feat_pt.xml (phase 22's), feat_pt_rr.xml and feat_pt_spec.xml
+    def k2b_bounds(counted, n_bytes_primal, n_bytes_fwd_bwd):
+        """As k2a_bounds, with K2b's segments (traced or reusing the GI
+        ray's hit), lit light evaluations and GI samples."""
+        seg = counted.get("traces", 0) + counted.get("reused", 0)
+        fwd = (seg * STEP_FLOPS + counted["lit_light_evals"] * LIGHT_FLOPS
+               + counted.get("gi_traces", 0) * GI_FLOPS)
+        adj = (seg * ADJ_STEP_FLOPS
+               + counted["lit_light_evals"] * ADJ_LIGHT_FLOPS
+               + counted.get("gi_traces", 0) * ADJ_GI_FLOPS)
+        out = []
+        for n_bytes, extra in ((n_bytes_primal, fwd),
+                               (n_bytes_fwd_bwd, fwd + adj)):
+            bd = bound(counted, n_bytes)
+            bd["flops"] += extra
+            bd["ops_ms"] = bd["flops"] / PEAK_FP32_FLOPS * 1e3
+            bd["bound_ms"] = max(bd["ops_ms"], bd["bytes_ms"])
+            bd["bound_by"] = ("operations" if bd["ops_ms"] >= bd["bytes_ms"]
+                              else "bytes")
+            out.append(bd)
+        return out
+
+    k2b_main = {}
+    for path in (PT_SCENE, PT_RR_SCENE, PT_SPEC_SCENE):
+        cfg_s, pack_s, opts_s, f_s, tabs_s, cam_s = diff_render(path)
+        bc = f_s.bc
+        o_s, d_s = (t.contiguous() for t in generate_rays(cam_s, px, py))
+        n23 = o_s.shape[0]
+        gbar = torch.randn((n23, 3), generator=gen, device=dev)
+        prim_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs_s, o_s, d_s), 5)
+        fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs_s, o_s, d_s,
+                                                  gbar=gbar), 5)
+        no_scatter_ms = cuda_ms(lambda: mb.mega_bwd_trace(
+            bc, tabs_s, o_s, d_s, gbar=gbar, scatter=False), 5)
+        # the plain version on every 16th ray, the kernel on the same rays
+        # and draws
+        stride = 16
+        os_, ds_, gs_ = (t[::stride].contiguous() for t in (o_s, d_s, gbar))
+        draws = mb.bwd_draws(bc, 0, 0, os_.shape[0], device=dev)
+        prim = mb.mega_bwd_trace(bc, tabs_s, os_, ds_, draws)
+        got, g = mb.mega_bwd_trace(bc, tabs_s, os_, ds_, draws, gbar=gs_)
+        torch.cuda.synchronize()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        ref0 = mb.mega_bwd_trace_ref(bc, tabs_s, os_, ds_, draws, stats=stats)
+        torch.cuda.synchronize()
+        plain_prim_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref, gref = mb.mega_bwd_trace_ref(bc, tabs_s, os_, ds_, draws, gs_)
+        torch.cuda.synchronize()
+        plain_fb_ms = (time.perf_counter() - t0) * 1e3
+        what = f"K2b at the main path's shape, {path.name}, every 16th ray"
+        err_p = check_close(prim, ref0, what + ", primal")
+        err_fb = check_close(got, ref, what + ", fwd+bwd")
+        gerr = check_grads(g, gref, what)
+        del draws, ref, gref, g
+        # the tree twins (FLAT_MAX_FACES at 0) on every ray, against the
+        # flat kernels, and the tree's work counted on every ray
+        mk.FLAT_MAX_FACES = 0
+        try:
+            f_t = mb.make_diff_render(pack_s, opts_s, device=dev)
+        finally:
+            mk.FLAT_MAX_FACES = flat_max
+        bct = f_t.bc
+        tabs_t = mb.BwdTables(*(t.detach().contiguous()
+                                for t in f_t.tables({})))
+        flat_p = mb.mega_bwd_trace(bc, tabs_s, o_s, d_s)
+        _, flat_g = mb.mega_bwd_trace(bc, tabs_s, o_s, d_s, gbar=gbar)
+        tree_p = mb.mega_bwd_trace(bct, tabs_t, o_s, d_s)
+        tree_fb, tree_g = mb.mega_bwd_trace(bct, tabs_t, o_s, d_s, gbar=gbar)
+        tree_prim_ms = cuda_ms(lambda: mb.mega_bwd_trace(bct, tabs_t, o_s, d_s),
+                               5)
+        tree_fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(bct, tabs_t, o_s, d_s,
+                                                       gbar=gbar), 5)
+        what = f"K2b's tree twins at the main path's shape, {path.name}"
+        tree_err = {"primal": check_close(tree_p, flat_p, what + ", primal"),
+                    "fwd_bwd": check_close(tree_fb, flat_p, what + ", fwd+bwd"),
+                    "grads": check_grads(tree_g, flat_g, what)}
+        del flat_p, flat_g, tree_p, tree_fb, tree_g
+        tree_stats: dict = {}
+        table = mb.bwd_draws(bct, 0, 0, n23, device=dev)
+        for lo in range(0, n23, 160000):
+            part = slice(lo, lo + 160000)
+            mb.mega_bwd_trace_ref(
+                bct, tabs_t, o_s[part].contiguous(), d_s[part].contiguous(),
+                mb.BwdDraws(*(x[:, part].contiguous() for x in table)),
+                stats=tree_stats)
+        del table
+        reads = tree_stats.pop("reads")
+        tree_stats.update(nodes_read=int(reads["nodes"].sum()),
+                          rows_read=int(reads["rows"].sum()),
+                          rows_won=int(reads["won"].sum()))
+        counted = {k: v * stride for k, v in stats.items()}
+        ext_tabs = (bc.mc.spot_lights, bc.mc.area_lights, bc.mc.ml_lights,
+                    bc.ml_rows)
+        tables = sum(t.numel() * 4 for t in (
+            bc.tri_rest, tabs_s.tri_w, bc.chunk_tab, bc.mc.spheres,
+            bc.mc.materials, bc.mc.point_lights, bc.mc.dir_lights, *ext_tabs))
+        grads_bytes = sum(t.numel() * 4 for t in tabs_s)
+        flat_bd = k2b_bounds(counted, n23 * 9 * 4 + tables,
+                             n23 * 18 * 4 + tables + grads_bytes)
+        tree_tables = table_bytes(bct.mc, None, reads) + sum(
+            t.numel() * 4 for t in ext_tabs)
+        tree_grads = (sum(t.numel() * 4 for t in tabs_t) - tabs_t.tri_w.numel()
+                      * 4 + tree_stats["rows_won"] * 9 * 4)
+        tree_bd = k2b_bounds(tree_stats, n23 * 9 * 4 + tree_tables,
+                             n23 * 18 * 4 + tree_tables + tree_grads)
+        bd_p, bd_fb = (dict(min(fb, tb, key=lambda x: x["bound_ms"]),
+                            counted_over="chunks" if fb["bound_ms"]
+                            <= tb["bound_ms"] else "tree")
+                       for fb, tb in zip(flat_bd, tree_bd))
+        grad_err = max(v["max_abs_err"] for v in gerr.values())
+        emit("kernel_at_main_shape", kernel="mega_bwd_pt", scene=path.name,
+             rays=n23, plain_stride=stride, primal_ms=prim_ms, fwd_bwd_ms=fb_ms,
+             fwd_bwd_no_scatter_ms=no_scatter_ms,
+             scatter_ms=fb_ms - no_scatter_ms, plain_primal_ms=plain_prim_ms,
+             plain_fwd_bwd_ms=plain_fb_ms, primal_bound=bd_p,
+             fwd_bwd_bound=bd_fb, primal=err_p,
+             fwd_bwd_exact_frac=err_fb["exact_frac"], grads=gerr,
+             counts=counted, card=card)
+        emit("kernel_at_main_shape", kernel="mega_bwd_pt_tree", scene=path.name,
+             rays=n23, primal_ms=tree_prim_ms, fwd_bwd_ms=tree_fb_ms,
+             flat_primal_ms=prim_ms, flat_fwd_bwd_ms=fb_ms, vs_flat=tree_err,
+             counts=tree_stats, count_stride=1, primal_bound=tree_bd[0],
+             fwd_bwd_bound=tree_bd[1], flat_primal_bound=flat_bd[0],
+             flat_fwd_bwd_bound=flat_bd[1], card=card)
+        k2b_main[path.name] = dict(
+            prim_ms=prim_ms, fb_ms=fb_ms, scatter_ms=fb_ms - no_scatter_ms,
+            plain_prim_ms=plain_prim_ms, plain_fb_ms=plain_fb_ms, bd_p=bd_p,
+            bd_fb=bd_fb, err_p=err_p, err_fb={"max_abs_err": max(
+                err_fb["max_abs_err"], grad_err)},
+            tree_prim_ms=tree_prim_ms, tree_fb_ms=tree_fb_ms, rays=n23)
+        del f_s, f_t, tabs_s, tabs_t, o_s, d_s, gbar
+    main = k2b_main[PT_SCENE.name]
+    others = {name: {k: v[k] for k in ("prim_ms", "fb_ms", "tree_prim_ms",
+                                        "tree_fb_ms")}
+              for name, v in k2b_main.items() if name != PT_SCENE.name}
+    kernels.append({**kernel_entry(
+        "mega_bwd_primal_pt", pt_launches["mega_bwd_primal_pt"],
+        main["prim_ms"], main["plain_prim_ms"], main["bd_p"], main["err_p"],
+        main["rays"], 16, library=mb.LIBRARY, replaces=REPLACES_K2),
+        "bound_counted_over": main["bd_p"]["counted_over"],
+        "tree_twin_ms": main["tree_prim_ms"], "other_scenes": others})
+    kernels.append({**kernel_entry(
+        "mega_bwd_pt", pt_launches["mega_bwd_pt"], main["fb_ms"],
+        main["plain_fb_ms"], main["bd_fb"], main["err_fb"], main["rays"], 16,
+        library=mb.LIBRARY, replaces=REPLACES_K2),
+        "scatter_ms": main["scatter_ms"],
+        "bound_counted_over": main["bd_fb"]["counted_over"],
+        "tree_twin_ms": main["tree_fb_ms"], "other_scenes": others})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

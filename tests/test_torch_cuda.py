@@ -435,3 +435,90 @@ def test_optimize_goes_through_the_bwd_kernel(cuda, tmp_path):
         build_camera(cfg.cameras[0], device="cpu"), px.cpu(), py.cpu(), opts,
         target.cpu(), ("mat_diffuse",), steps=3, device="cpu")
     np.testing.assert_allclose(hist, hist_cpu, rtol=1e-3)
+
+
+K2B_SCENES = ("feat_pt", "feat_pt_rr", "feat_pt_spec", "feat_spotareaml")
+
+
+def _k2b_scene(dev, name, n=2048):
+    """A K2b scene of scenes/ on the card: its differentiable render, the
+    pack, options and camera, and n random primary rays."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    cfg = load_scene(str(REPO / "scenes" / f"{name}.xml"))
+    pack = pack_scene(cfg, device=dev)
+    opts = options_for_camera(cfg, cfg.cameras[0])
+    f = mb.make_diff_render(pack, opts, device=dev)
+    cam = build_camera(cfg.cameras[0], device=dev)
+    rng = np.random.default_rng(6)
+    px = torch.as_tensor(rng.uniform(0, cfg.cameras[0].width, n).astype(
+        np.float32), device=dev)
+    py = torch.as_tensor(rng.uniform(0, cfg.cameras[0].height, n).astype(
+        np.float32), device=dev)
+    o, d = generate_rays(cam, px, py)
+    return cfg, pack, opts, f, cam, o.contiguous(), d.contiguous(), px, py
+
+
+@pytest.mark.parametrize("mode", ["table", "philox"])
+@pytest.mark.parametrize("name", K2B_SCENES)
+def test_k2b_kernel_matches_plain_version(cuda, name, mode):
+    """K2b's primal and fwd+bwd against the plain version and autograd on
+    the path-traced scenes (NEE, Russian roulette, the specular mixtures)
+    and the Whitted spot + area + mesh-light scene, with table draws from
+    a torch.Generator and with Philox against its twin ``bwd_draws``:
+    radiance to K1a's bound, every cotangent within rtol 1e-3, atol 1e-4
+    max|ref|."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    _, _, _, f, _, o, d, _, _ = _k2b_scene(cuda, name)
+    bc = f.bc
+    assert bc.k2b and bc.variant == "mega_bwd_pt"
+    tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    gbar = torch.randn(o.shape, generator=gen, device=cuda)
+    draws = (mb.table_draws(bc, o.shape[0], gen, cuda) if mode == "table"
+             else None)
+    before = dict(mb.LAUNCHES)
+    prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1)
+    got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1, gbar=gbar)
+    torch.cuda.synchronize()
+    assert {k: mb.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k in ("mega_bwd_pt", "mega_bwd_primal_pt")) for k in before}
+    if draws is None:
+        draws = mb.bwd_draws(bc, 3, 1, o.shape[0], device=cuda)
+    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws, gbar)
+    for out in (prim, got):
+        diff = (out - ref).abs().cpu().numpy()
+        assert np.mean(diff) < 0.01 and np.quantile(diff, 0.999) < 0.5
+    for k in gref._fields:
+        a, b = getattr(gref, k), getattr(g, k)
+        assert bool(torch.isfinite(b).all()), k
+        if a.numel():
+            torch.testing.assert_close(b, a, rtol=1e-3,
+                                       atol=1e-4 * float(a.abs().max()))
+
+
+def test_optimize_goes_through_the_k2b_kernel(cuda):
+    """Three Adam steps on scenes/feat_pt.xml on the card: one K2b primal
+    and one K2b fwd+bwd launch per step, nothing else, and a falling
+    loss."""
+    from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
+    from advanced_cpu_raytracing_tpu_torch.diff.params import inject_params
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    _, pack, opts, f, cam, o, d, px, py = _k2b_scene(cuda, "feat_pt", 4096)
+    with torch.no_grad():
+        target = f({}, o, d)
+    start = {"mat_diffuse": pack.mat_diffuse * 0.8,
+             "ml_radiance": pack.ml_radiance * 1.3}
+    before = dict(mb.LAUNCHES), dict(mk.LAUNCHES)
+    _, hist = optimize(inject_params(pack, start), cam, px, py, opts, target,
+                       tuple(start), steps=3,
+                       lr={"mat_diffuse": 5e-2, "ml_radiance": 0.5},
+                       device=cuda)
+    assert {k: mb.LAUNCHES[k] - before[0][k] for k in before[0]} == {
+        k: 3 * int(k in ("mega_bwd_pt", "mega_bwd_primal_pt"))
+        for k in before[0]}
+    assert dict(mk.LAUNCHES) == before[1]
+    assert all(np.isfinite(hist)) and hist[-1] < hist[0]

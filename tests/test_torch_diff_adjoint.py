@@ -1,10 +1,15 @@
-"""The hand-derived adjoints of kernel K2a (csrc/mega_bwd.cu), written here
-in torch as the kernel computes them, against torch autograd of the plain
-version's forward formulas (ops/megabwd.py) on random inputs.  The places
-where a derivation goes wrong quietly: norm3's clamp, powmax, the Cramer t
-and its det == 0 guard, the conductor's Fresnel ratio, refraction's
-square root on refract lanes only, the sphere's root and normal.  In
-float64, so that a wrong term shows and rounding does not: rtol 1e-9."""
+"""The hand-derived adjoints of kernels K2a and K2b (csrc/mega_bwd.cu),
+written here in torch as the kernel computes them, against torch autograd
+of the plain version's forward formulas (ops/megabwd.py, and
+ops/megakernel.py's GI direction) on random inputs.  The places where a
+derivation goes wrong quietly: norm3's clamp, powmax, the Cramer t and its
+det == 0 guard, the conductor's Fresnel ratio, refraction's square root on
+refract lanes only, the sphere's root and normal; and K2b's: the GI
+direction through the orthonormal basis (both sampling forms), the spot
+light's cosine-space falloff, the area light's two-sided irradiance, the
+mesh light's sampled point and the direction toward a light, and Russian
+roulette's reweight through max (ties split) and the clip.  In float64, so
+that a wrong term shows and rounding does not: rtol 1e-9."""
 
 from __future__ import annotations
 
@@ -254,3 +259,205 @@ def test_sphere_root_and_normal_adjoint():
     gd = torch.einsum("nij,in->jn", M[:, :, :3], gdl)
     close(go, want[0])
     close(gd, want[1])
+
+
+# ---- K2b's adjoints, transcribed ----
+
+def cross(a, b):
+    return torch.linalg.cross(a, b, dim=0)
+
+
+def gi_direction_vjp(n, r1, r2, importance, gg):
+    """``gi_direction_vjp``: through the final norm3, v = unit(n x u),
+    u = unit(r' x n) and r' (n with its smallest component set to 1)."""
+    phi = 2.0 * np.pi * r1
+    if importance:
+        sin_t, cos_t = torch.sqrt(r2), torch.sqrt(torch.clamp(1.0 - r2, min=0.0))
+    else:
+        cos_t, sin_t = r2, torch.sqrt(torch.clamp(1.0 - r2 * r2, min=0.0))
+    a = n.abs()
+    use_x = (a[0] < a[1]) & (a[0] < a[2])
+    use_y = ~(a[0] < a[1]) & (a[1] < a[2])
+    use_z = ~(use_x | use_y)
+    use = torch.stack([use_x, use_y, use_z])
+    rp = torch.where(use, 1.0, n)
+    ur = cross(rp, n)
+    u = torch.stack(mk._norm3(*ur))
+    vr = cross(n, u)
+    v = torch.stack(mk._norm3(*vr))
+    sc, ss = sin_t * torch.cos(phi), sin_t * torch.sin(phi)
+    x = u * sc + n * cos_t + v * ss
+    gx = norm3_vjp(x, gg)
+    gu, gv, gn = gx * sc, gx * ss, gx * cos_t
+    gvr = norm3_vjp(vr, gv)
+    gn = gn + cross(u, gvr)
+    gu = gu + cross(gvr, n)
+    gur = norm3_vjp(ur, gu)
+    grp = cross(n, gur)
+    gn = gn + cross(gur, rp)
+    return gn + torch.where(use, 0.0, grp)
+
+
+def towards_vjp(tl, gwi, g_d2):
+    """``towards_vjp``: the cotangent of tl = target - p from those of
+    wi = tl / sqrt(d2) and d2 = max(tl . tl, 1e-20)."""
+    s2 = (tl * tl).sum(0)
+    d2 = torch.clamp(s2, min=1e-20)
+    inv = 1.0 / torch.sqrt(d2)
+    g_d2 = g_d2 + (gwi * tl).sum(0) * (-0.5 * inv / d2)
+    return gwi * inv + torch.where(s2 > 1e-20, 2.0 * tl * g_d2, 0.0)
+
+
+def spot_e_vjp(sl, wi, d2, ge):
+    """``ext_e_vjp`` for a spot light: into wi and d2."""
+    raw = -(sl[3] * wi[0] + sl[4] * wi[1] + sl[5] * wi[2])
+    cos_a = torch.clamp(raw, -1.0, 1.0)
+    irr = 1.0 / d2
+    x = (cos_a - sl[9]) / sl[11]
+    frac = torch.clamp(x, min=0.0)
+    scale = torch.where(cos_a < sl[10], frac ** 4, 1.0)
+    outside = (cos_a >= 1.0) | (cos_a < sl[9])
+    scale = torch.where(outside, 0.0, scale)
+    g_d2 = -ge * scale * irr / d2
+    band = (~outside & (cos_a < sl[10]) & (x >= 0.0) & (raw >= -1.0)
+            & (raw <= 1.0))
+    g_cos = torch.where(band, ge * irr * 4.0 * x * x * x / sl[11], 0.0)
+    d = torch.tensor(sl[3:6], dtype=F64)[:, None]
+    return -g_cos * d, g_d2
+
+
+def area_e_vjp(al, wi, d2, ge):
+    """``ext_e_vjp`` for an area light: e = area |n . wi| / d2."""
+    nl = torch.tensor(al[3:6], dtype=F64)[:, None]
+    c = (nl * wi).sum(0)
+    e = al[10] * c.abs() / d2
+    return ge / d2 * al[10] * torch.sign(c) * nl, -ge * e / d2
+
+
+def rr_fac_vjp(w, g_fac):
+    """The GI weight's factor fac = 2 pi / clip(max w, 1e-4, 1): into w,
+    the clip passing where 1e-4 <= max w <= 1, max splitting its cotangent
+    among tied channels."""
+    mx = w.amax(0)
+    prob = torch.clamp(mx, 1e-4, 1.0)
+    rs = 1.0 / prob
+    g_mx = torch.where((mx >= 1e-4) & (mx <= 1.0),
+                       -g_fac * 2.0 * np.pi * rs * rs, 0.0)
+    ties = (w == mx).sum(0)
+    return torch.where(w == mx, g_mx / ties, 0.0)
+
+
+# ---- K2b's checks ----
+
+@pytest.mark.parametrize("importance", [True, False])
+def test_gi_direction_adjoint(importance):
+    """The GI direction's adjoint in the normal (a sphere's normal moves
+    with the ray), every axis of the basis's swap taken."""
+    rng = np.random.default_rng(6)
+    n = torch.stack(mk._norm3(*rand(rng, 3, 600)))
+    n[:, :4] = torch.tensor([[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0],
+                             [0.6, 0.0, 0.8]], dtype=F64).T
+    r1, r2 = rand(rng, 600, lo=0, hi=1), rand(rng, 600, lo=0.01, hi=0.99)
+    gg = rand(rng, 3, 600)
+    a = n.abs()
+    assert bool(((a[0] < a[1]) & (a[0] < a[2])).any())
+    assert bool((~(a[0] < a[1]) & (a[1] < a[2])).any())
+    want = grads_of(lambda nn: torch.stack(mk._gi_direction(
+        *nn, r1, r2, importance)), [n], gg)[0]
+    close(gi_direction_vjp(n, r1, r2, importance, gg), want)
+
+
+def test_towards_adjoint():
+    rng = np.random.default_rng(7)
+    tl = rand(rng, 3, 500, lo=-4, hi=4)
+    tl[:, :3] = 0.0  # the clamp binds
+    gwi, g_d2 = rand(rng, 3, 500), rand(rng, 500)
+    want = grads_of(lambda x: [torch.stack(mb._towards(list(x), [0.0] * 3)[0]),
+                               mb._towards(list(x), [0.0] * 3)[1]],
+                    [tl], [gwi, g_d2])[0]
+    close(towards_vjp(tl, gwi, g_d2), want)
+
+
+def test_spot_falloff_adjoint():
+    """Inside the falloff cone (no gradient through the cosine), between
+    the cones (frac^4), outside (zero): the spot row of scenes/
+    feat_spotareaml.xml's kind, cos(cov/2) 0.9397, cos(fall/2) 0.9781."""
+    rng = np.random.default_rng(8)
+    chc, chf = float(np.cos(np.radians(20))), float(np.cos(np.radians(12)))
+    # f32 values, as the light's table holds them (``_div`` makes the
+    # denominator an f32 tensor)
+    sl = [float(np.float32(x))
+          for x in (0, 0, 0, 0.0, 0.0, -1.0, 1, 1, 1, chc, chf, chf - chc)]
+    ang = rand(rng, 600, lo=0.0, hi=0.5)
+    wi = torch.stack([torch.sin(ang), torch.zeros_like(ang), torch.cos(ang)])
+    wi = torch.stack(mk._norm3(*(wi + rand(rng, 3, 600, lo=-1e-3, hi=1e-3))))
+    d2 = rand(rng, 600, lo=0.5, hi=9.0)
+    ge = rand(rng, 600)
+    cos_a = -(sl[5] * wi[2])
+    assert bool((cos_a < chc).any() and ((cos_a > chc) & (cos_a < chf)).any()
+                and (cos_a > chf).any())
+    want = grads_of(lambda w, dd: mb._spot_e(sl, list(w), dd), [wi, d2], ge)
+    got = spot_e_vjp(sl, wi, d2, ge)
+    close(got[0], want[0])
+    close(got[1], want[1])
+
+
+def test_area_irradiance_adjoint():
+    """Both sides of the square (the two-sided cosine)."""
+    rng = np.random.default_rng(9)
+    al = [0, 3, 0, 0.3, -0.9, 0.2, 5, 5, 5, 1.2, 1.44, 1, 0, 0, 0, 0, 1]
+    wi = torch.stack(mk._norm3(*rand(rng, 3, 500)))
+    d2 = rand(rng, 500, lo=0.5, hi=9.0)
+    ge = rand(rng, 500)
+    c = (torch.tensor(al[3:6], dtype=F64)[:, None] * wi).sum(0)
+    assert bool((c > 0).any() and (c < 0).any())
+
+    def e(w, dd):
+        return al[10] * torch.abs(al[3] * w[0] + al[4] * w[1] + al[5] * w[2]) / dd
+
+    want = grads_of(e, [wi, d2], ge)
+    got = area_e_vjp(al, wi, d2, ge)
+    close(got[0], want[0])
+    close(got[1], want[1])
+
+
+def test_mesh_light_point_adjoint():
+    """The sampled point's cotangent into the face's nine corners (the
+    kernel's scatter by row) and into the hit point p, through the
+    direction toward it."""
+    rng = np.random.default_rng(10)
+    v9 = rand(rng, 400, 9, lo=-3, hi=3)
+    p = rand(rng, 3, 400, lo=-1, hi=1)
+    b1, b2 = rand(rng, 400, lo=0, hi=1), rand(rng, 400, lo=0, hi=1)
+    gwi, g_d2 = rand(rng, 3, 400), rand(rng, 400)
+
+    def fwd(vv, pp):
+        wi, d2 = mb._towards(mb._ml_point(vv, b1, b2), list(pp))
+        return [torch.stack(wi), d2]
+
+    want = grads_of(fwd, [v9, p], [gwi, g_d2])
+    tl = torch.stack(mb._ml_point(v9, b1, b2)) - p
+    gtl = towards_vjp(tl, gwi, g_d2)
+    sq = torch.sqrt(b1)
+    got_v = torch.cat([gtl * (1.0 - sq), gtl * sq * (1.0 - b2), gtl * sq * b2]).T
+    close(got_v, want[0])
+    close(-gtl, want[1])
+
+
+def test_rr_reweight_adjoint():
+    """The reweight's factor through max and the clip: ties (grey
+    materials give equal channels) split the cotangent evenly, as torch's
+    amax and the JAX oracle's max do; nothing passes where the clip
+    binds."""
+    rng = np.random.default_rng(11)
+    w = rand(rng, 3, 600, lo=0.0, hi=1.3)
+    w[:, :50] = w[0, :50]  # three-way ties
+    w[1, 50:100] = w[0, 50:100]  # two-way
+    w[:, 100:110] = 1e-5  # below the clip
+    g_fac = rand(rng, 600)
+
+    def fac(ww):
+        return 2.0 * np.pi * (1.0 / torch.clamp(ww.amax(0), 1e-4, 1.0))
+
+    want = grads_of(fac, [w], g_fac)[0]
+    close(rr_fac_vjp(w, g_fac), want)

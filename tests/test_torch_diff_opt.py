@@ -179,10 +179,11 @@ def test_optimize_refuses_what_k2a_does_not_cover(gauge, tmp_path):
     cam = build_camera(cfg.cameras[0], device="cpu")
     opts = options_for_camera(cfg, cfg.cameras[0])
     args = (gauge["px"], gauge["py"])
-    with pytest.raises(NotImplementedError, match="path tracing"):
-        optimize(gauge["pack"], cam, *args, dataclasses.replace(
-            opts, path_tracing=True), gauge["target"], FIELDS, steps=1,
-            device="cpu")
+    moving = dataclasses.replace(gauge["pack"], static=dataclasses.replace(
+        gauge["pack"].static, has_motion=True))
+    with pytest.raises(NotImplementedError, match="motion blur"):
+        optimize(moving, cam, *args, opts, gauge["target"], FIELDS, steps=1,
+                 device="cpu")
     with pytest.raises(NotImplementedError, match="depth-of-field"):
         optimize(gauge["pack"], dataclasses.replace(cam, use_dof=True), *args,
                  opts, gauge["target"], FIELDS, steps=1, device="cpu")
@@ -197,11 +198,18 @@ def test_bwd_missing_names_each_gate_and_keeps_no_tpu_cap(gauge):
                               n_materials=40, n_point=9, n_directional=6,
                               n_spheres=8)
     assert mb.bwd_eligible(big, dataclasses.replace(opts, max_depth=10))
+    # K2b's envelope: path tracing with RR, and every light kind, up to 32
+    pt = dataclasses.replace(opts, path_tracing=True, russian_roulette=True,
+                             next_event_estimation=True, max_depth=10)
+    lights = dataclasses.replace(st, n_point=10, n_directional=5, n_spot=8,
+                                 n_area=5, n_mesh_lights=4)
+    assert mb.bwd_missing(lights, pt) == []
+    lights = "more than 32 point, directional, spot, area and mesh lights"
     cases = [
-        (st, dataclasses.replace(opts, path_tracing=True), "path tracing (K2b)"),
-        (dataclasses.replace(st, n_spot=1), opts, "spot lights (K2b)"),
-        (dataclasses.replace(st, n_area=1), opts, "area lights (K2b)"),
-        (dataclasses.replace(st, n_mesh_lights=1), opts, "mesh lights (K2b)"),
+        (dataclasses.replace(st, n_point=10, n_directional=5, n_spot=8,
+                             n_area=6, n_mesh_lights=4), pt, lights),
+        (dataclasses.replace(st, n_mesh_lights=5), opts,
+         "more than 4 mesh lights"),
         (dataclasses.replace(st, n_textures=1), opts, "textures"),
         (dataclasses.replace(st, n_env=1), opts, "an environment light"),
         (dataclasses.replace(st, has_motion=True), opts, "motion blur"),
@@ -211,8 +219,7 @@ def test_bwd_missing_names_each_gate_and_keeps_no_tpu_cap(gauge):
         (dataclasses.replace(st, n_materials=129), opts,
          "more than 128 materials"),
         (st, dataclasses.replace(opts, max_depth=11), "depth above 10"),
-        (dataclasses.replace(st, n_point=20, n_directional=13), opts,
-         "more than 32 point and directional lights"),
+        (dataclasses.replace(st, n_point=20, n_directional=13), opts, lights),
     ]
     for static, o, want in cases:
         assert want in mb.bwd_missing(static, o), want
