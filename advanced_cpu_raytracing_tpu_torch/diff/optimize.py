@@ -4,11 +4,14 @@ over the differentiable render toward a target image (the JAX package's
 add eps to sqrt(v-hat)).
 
 The loss of every step goes through the fused route, ``make_diff_render``
-(kernel K2a, or K2b for path tracing and spot, area and mesh lights, on the
-card; their plain version with ``device="cpu"``).  The
+(kernel K2a, or K2b for path tracing and spot, area and mesh lights, each
+with its K2c twin for diffuse image textures, on the card; their plain
+version with ``device="cpu"``), so ``fields`` may hold ``img_atlas``.  The
 JAX package falls back to ``jax.grad`` through its wavefront for scenes
-outside its fused kernel; the port has no wavefront yet, so such a scene,
-or a camera with depth of field, raises ``NotImplementedError``.
+outside its fused kernel; the port has no wavefront yet, so such a scene
+(sphere, background, Perlin or non-diffuse textures, an environment light,
+motion, roughness, BRDFs), or a camera with depth of field, raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,18 @@ from advanced_cpu_raytracing_tpu_torch.ops.megabwd import (
 )
 from advanced_cpu_raytracing_tpu_torch.render.camera import generate_rays
 from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
+
+# Per-field Adam rates at which the training runs of the port's smoke script
+# lose at every one of their 5 steps (held by tests/test_torch_diff_pt.py on
+# the CPU).  Adam moves each value about its rate a step, so kd's rate sits
+# below the distance of its closest channels from the truth (at 2e-2 the
+# loss rises after the third step); the vertices take kd's rate / 30, as the
+# JAX package's tools/inverse_render.py sets it; the light's rate is scaled
+# to its size.  GAUGE_RATES: the gauge scene (gauge_scene_xml), K2a;
+# FEAT_PT_RATES: scenes/feat_pt.xml, whose mesh light hangs 0.01 below the
+# ceiling, K2b.
+GAUGE_RATES = {"mat_diffuse": 5e-3, "pl_intensity": 400.0, "verts": 5e-3 / 30}
+FEAT_PT_RATES = {"mat_diffuse": 5e-3, "ml_radiance": 0.4, "verts": 5e-3 / 30}
 
 
 def optimize(pack, cam, px, py, opts, target, fields, steps: int = 50,
@@ -46,7 +61,8 @@ def optimize(pack, cam, px, py, opts, target, fields, steps: int = 50,
         missing.append("a depth-of-field camera")
     if missing:
         raise NotImplementedError(
-            "optimize: scene outside the differentiable kernels K2a and K2b ("
+            "optimize: scene outside the differentiable kernels K2a, K2b and "
+            "K2c ("
             + ", ".join(missing) + "); the JAX package's fallback through "
             "its wavefront is not ported")
     render = make_diff_render(pack, opts, device=dev)

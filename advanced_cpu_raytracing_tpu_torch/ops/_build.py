@@ -63,6 +63,13 @@ class BwdExtParams(ctypes.Structure):
                 ("d_ml", _P)]
 
 
+class BwdTexParams(ctypes.Structure):
+    """K2c's texture tables, the texel pool and its cotangent: ``mb::BwdTex``
+    of csrc/mega_bwd.cu."""
+
+    _fields_ = [("face", _P), ("tint", _P), ("texels", _P), ("d_texels", _P)]
+
+
 _SIGNATURES = {
     "mega_whitted": {
         # rays, out, n; tri, chunks, the tree (or null); spheres ...
@@ -84,12 +91,14 @@ _SIGNATURES = {
         # rays, gbar (null: the primal), out, n; tri, chunks, the tree (or
         # null); spheres, materials, lights, bg, consts; draws, depth,
         # max_depth, flags, seed, step; the cotangents (tri, mat, pl, dl,
-        # bg, o, d); K2b's tables (null: K2a); stream
+        # bg, o, d); K2b's tables (null: K2a); K2c's (null: no texture);
+        # stream
         "mega_bwd_launch": (
             _I, [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P,
                  _I, _P, _I, _P, ctypes.POINTER(ctypes.c_float), _P, _I, _I,
                  _I, ctypes.c_uint32, ctypes.c_uint32, _P, _P, _P, _P, _P, _P,
-                 _P, ctypes.POINTER(BwdExtParams), _P]),
+                 _P, ctypes.POINTER(BwdExtParams),
+                 ctypes.POINTER(BwdTexParams), _P]),
         "mega_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
 }

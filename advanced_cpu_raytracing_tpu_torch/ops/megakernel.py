@@ -195,6 +195,7 @@ class MegaConsts:
     tbn_obj: bool = False  # the TBN columns are in object space
     bg_tex: int = -1  # the replace_background texture, or -1
     env: tuple = ()  # (width, height, first texel) of the env map, or ()
+    tex_images: tuple = ()  # ((image, height, width), ...) in the pool's order
     # ---- the tree over the work items past FLAT_MAX_FACES (K1e) ----
     tree: torch.Tensor | None = None  # (N, NODE_COLS), depth-first
     tree_depth: int = 0
@@ -500,6 +501,7 @@ def build_mega(pack, opts, device=None):
         texels=tens(tx["texels"]), perm=tens(tx["perm"]),
         n_textures=st.n_textures, tbn_obj=tx["tbn_obj"],
         bg_tex=int(st.bg_tex) if st.n_textures else -1, env=tx["env"],
+        tex_images=tx["images"],
         tree=None if tree is None else tens(tree), tree_depth=tree_depth,
     )
     return mc, tens(tab), tens(ctab)
@@ -591,7 +593,7 @@ def _texture_tables(pack, tab) -> dict:
     tint = np.zeros((max(n_tex, 1), TEXI_COLS), np.int32)
     tflt = np.zeros((max(n_tex, 1), TEXR_COLS), np.float32)
     pool: list = []
-    first: dict = {}  # image index -> first texel
+    first: dict = {}  # image index -> first texel, in the pool's order
     atlas, img_w, img_h = (_np(pack.img_atlas), _np(pack.img_w),
                            _np(pack.img_h))
 
@@ -676,6 +678,8 @@ def _texture_tables(pack, tab) -> dict:
         raise ValueError("texel pool past 2^31 texels")
     return {"face": face, "sph": sph, "int": tint, "flt": tflt,
             "texels": np.ascontiguousarray(texels), "env": env,
+            "images": tuple((img, int(img_h[img]), int(img_w[img]))
+                            for img in first),
             "perm": _texture.PERM512.astype(np.int32), "tbn_obj": bool(tbn_obj)}
 
 

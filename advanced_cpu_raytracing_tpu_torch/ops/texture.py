@@ -70,14 +70,18 @@ def nearest_ij(u, v, w, h):
     return clamp((u * w).to(torch.int64), w), clamp((v * h).to(torch.int64), h)
 
 
-def bilinear(fetch, u, v, w, h):
-    """Bilinear sample at (u, v) of an image of ``w`` x ``h`` texels read
-    through ``fetch(i, j) -> (..., 3)``; the tap order and weight
-    arithmetic of the megakernel (megakernel.py:1086-1119)."""
+def bilinear_taps(u, v, w, h):
+    """The four taps (i, j) of a bilinear lookup at (u, v) of a ``w`` x
+    ``h`` image and their weights (megakernel.py:1086-1119).  The weights
+    are differentiable in u and v as the JAX package's ``jnp.clip`` is:
+    the clip is max then min, whose gradient splits evenly at a tie, so a
+    coordinate exactly on 0 or w - 1 passes half of it; the taps and the
+    floor are constants."""
     fw = torch.as_tensor(w, dtype=torch.float32)
     fh = torch.as_tensor(h, dtype=torch.float32)
-    fi = torch.minimum(torch.clamp(u * fw, min=0.0), fw - 1.0)
-    fj = torch.minimum(torch.clamp(v * fh, min=0.0), fh - 1.0)
+    zero = torch.zeros((), dtype=torch.float32, device=u.device)
+    fi = torch.minimum(torch.maximum(u * fw, zero), fw - 1.0)
+    fj = torch.minimum(torch.maximum(v * fh, zero), fh - 1.0)
     p = torch.floor(fi)
     q = torch.floor(fj)
     dx = fi - p
@@ -86,11 +90,19 @@ def bilinear(fetch, u, v, w, h):
     q1 = torch.minimum(q + 1.0, fh - 1.0)
     pi, qi = p.to(torch.int64), q.to(torch.int64)
     p1i, q1i = p1.to(torch.int64), q1.to(torch.int64)
-    taps = [fetch(pi, qi), fetch(p1i, qi), fetch(pi, q1i), fetch(p1i, q1i)]
+    taps = [(pi, qi), (p1i, qi), (pi, q1i), (p1i, q1i)]
     wts = [(1.0 - dx) * (1.0 - dy), dx * (1.0 - dy), (1.0 - dx) * dy, dx * dy]
-    out = wts[0][..., None] * taps[0]
-    for wt, c in zip(wts[1:], taps[1:]):
-        out = out + wt[..., None] * c
+    return taps, wts
+
+
+def bilinear(fetch, u, v, w, h):
+    """Bilinear sample at (u, v) of an image of ``w`` x ``h`` texels read
+    through ``fetch(i, j) -> (..., 3)``; the tap order and weight
+    arithmetic of the megakernel (megakernel.py:1086-1119)."""
+    taps, wts = bilinear_taps(u, v, w, h)
+    out = wts[0][..., None] * fetch(*taps[0])
+    for wt, ij in zip(wts[1:], taps[1:]):
+        out = out + wt[..., None] * fetch(*ij)
     return out
 
 

@@ -18,7 +18,12 @@ makes the committed assets of ``scenes/feat_textures.xml``.
 ``torus_mesh`` makes the torus of ``scenes/whitted_conductors_mesh.ply``
 (and the coarse one of the CPU tests), and ``gauge_scene_xml`` writes the
 scene of the differentiable path (slice C1): that room with a directional
-anchor light.
+anchor light.  The differentiable textures (slice C3) take
+``texture_inverse_scene_xml`` (the JAX tools/inverse_render.py's texture
+scene), ``tex_bwd_scene_xml`` (the JAX texture-gradient test's two
+textures and mirror sphere) and ``textured_pt_scene_xml``
+(``scenes/feat_pt.xml`` with a textured floor); each writes its XML and
+images at run time into a directory the caller gives.
 """
 
 from __future__ import annotations
@@ -931,3 +936,190 @@ def gauge_scene_xml(out_dir, scenes_dir, coarse: bool = False,
                      + ("" if glass else "_mirror") + ".xml")
     out.write_text(xml)
     return str(out)
+
+
+# ---- differentiable textures (slice C3) ----
+
+
+def _scene_dir(out_dir) -> Path:
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
+def inverse_texture(n: int = 64) -> np.ndarray:
+    """The JAX tools/inverse_render.py texture: an n x n ramp in red, an
+    8 x 8 checker in green, a ramp in blue (u8)."""
+    ys, xs = np.mgrid[0:n, 0:n] / float(n)
+    return np.stack([40 + 170 * xs,
+                     30 + 60 * ((np.floor(xs * 8) + np.floor(ys * 8)) % 2),
+                     220 * ys], axis=-1).clip(0, 255).astype(np.uint8)
+
+
+def texture_inverse_scene_xml(n: int = 64, image=None, *, out_dir) -> str:
+    """The scene of inverse texture recovery, a copy of the JAX
+    tools/inverse_render.py::texture_scene (85-143): a bilinear
+    ``replace_kd`` texture on a tilted floor quad filling most of an
+    800x800 frame, a point light and ambient light, depth 2.  The texture
+    is ``inverse_texture(n)``, or with ``image`` that image file (a path)
+    in its place.  Written to ``out_dir``; returns the XML's path."""
+    from advanced_cpu_raytracing_tpu_torch.scene.images import write_png
+
+    out = _scene_dir(out_dir)
+    if image is None:
+        image = out / "tex.png"
+        write_png(str(image), inverse_texture(n))
+    xml = f"""<Scene>
+  <BackgroundColor>5 5 5</BackgroundColor>
+  <MaxRecursionDepth>2</MaxRecursionDepth>
+  <Cameras><Camera id="1">
+    <Position>0 3.4 3.6</Position><Gaze>0 -0.72 -1</Gaze><Up>0 1 0</Up>
+    <NearPlane>-1 1 -1 1</NearPlane><NearDistance>1</NearDistance>
+    <ImageResolution>800 800</ImageResolution>
+    <ImageName>invtex.png</ImageName>
+  </Camera></Cameras>
+  <Lights>
+    <AmbientLight>20 20 20</AmbientLight>
+    <PointLight id="1"><Position>1 4 2</Position>
+      <Intensity>1200 1200 1200</Intensity></PointLight>
+  </Lights>
+  <Materials>
+    <Material id="1"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.5 0.5 0.5</DiffuseReflectance>
+      <SpecularReflectance>0.1 0.1 0.1</SpecularReflectance>
+      <PhongExponent>10</PhongExponent></Material>
+  </Materials>
+  <Textures>
+    <Images><Image id="1">{Path(image).resolve()}</Image></Images>
+    <TextureMap id="1" type="image">
+      <DecalMode>replace_kd</DecalMode><ImageId>1</ImageId>
+      <Interpolation>bilinear</Interpolation>
+    </TextureMap>
+  </Textures>
+  <VertexData>
+    -2.2 -0.5 1.6   2.2 -0.5 1.6   2.2 0.2 -2.8   -2.2 0.2 -2.8
+  </VertexData>
+  <TexCoordData>
+    0 1   1 1   1 0   0 0
+  </TexCoordData>
+  <Objects>
+    <Mesh id="1"><Material>1</Material><Textures>1</Textures>
+      <Faces>1 2 3  1 3 4</Faces></Mesh>
+  </Objects>
+</Scene>"""
+    path = out / "invtex.xml"
+    path.write_text(xml)
+    return str(path)
+
+
+# the JAX texture-gradient test's scene (tests/test_megabwd.py:513-567): a
+# nearest replace_kd floor tiled twice, a bilinear blend_kd wall and a mirror
+# sphere that shows both
+TEX_BWD_XML = """<Scene>
+  <BackgroundColor>2 2 2</BackgroundColor>
+  <MaxRecursionDepth>2</MaxRecursionDepth>
+  <Cameras><Camera id="1">
+    <Position>0 0.6 3.5</Position><Gaze>0 -0.1 -1</Gaze><Up>0 1 0</Up>
+    <NearPlane>-1 1 -0.75 0.75</NearPlane><NearDistance>1</NearDistance>
+    <ImageResolution>320 240</ImageResolution>
+    <ImageName>texbwd.png</ImageName>
+  </Camera></Cameras>
+  <Lights>
+    <AmbientLight>15 15 15</AmbientLight>
+    <PointLight id="1"><Position>1 3 3</Position>
+      <Intensity>400 400 400</Intensity></PointLight>
+  </Lights>
+  <Materials>
+    <Material id="1"><AmbientReflectance>1 1 1</AmbientReflectance>
+      <DiffuseReflectance>0.5 0.4 0.3</DiffuseReflectance>
+      <SpecularReflectance>0.2 0.2 0.2</SpecularReflectance>
+      <PhongExponent>12</PhongExponent></Material>
+    <Material id="2" type="mirror"><AmbientReflectance>0 0 0</AmbientReflectance>
+      <DiffuseReflectance>0.05 0.05 0.05</DiffuseReflectance>
+      <SpecularReflectance>0 0 0</SpecularReflectance>
+      <MirrorReflectance>0.8 0.8 0.8</MirrorReflectance></Material>
+  </Materials>
+  <Textures>
+    <Images>
+      <Image id="1">{img1}</Image>
+      <Image id="2">{img2}</Image>
+    </Images>
+    <TextureMap id="1" type="image">
+      <DecalMode>replace_kd</DecalMode><ImageId>1</ImageId>
+      <Interpolation>nearest</Interpolation>
+    </TextureMap>
+    <TextureMap id="2" type="image">
+      <DecalMode>blend_kd</DecalMode><ImageId>2</ImageId>
+      <Interpolation>bilinear</Interpolation>
+    </TextureMap>
+  </Textures>
+  <VertexData>
+    -4 -1 3   4 -1 3   4 -1 -6   -4 -1 -6
+    -2.5 -1 -2   2.5 -1 -2   2.5 2 -2   -2.5 2 -2
+  </VertexData>
+  <TexCoordData>
+    0 2   2 2   2 0   0 0
+    0 1   1 1   1 0   0 0
+  </TexCoordData>
+  <Objects>
+    <Mesh id="1"><Material>1</Material><Textures>1</Textures>
+      <Faces>1 2 3  1 3 4</Faces></Mesh>
+    <Mesh id="2"><Material>1</Material><Textures>2</Textures>
+      <Faces vertexOffset="4" textureOffset="4">1 2 3  1 3 4</Faces></Mesh>
+    <Sphere id="1"><Material>2</Material><Center>1</Center>
+      <Radius>0.5</Radius></Sphere>
+  </Objects>
+</Scene>"""
+
+
+def tex_bwd_scene_xml(out_dir, seed: int = 7) -> str:
+    """``TEX_BWD_XML`` with its two images as the JAX test makes them: a
+    16x12 and an 8x9 image of uniform random texels, drawn in that order
+    from ``np.random.default_rng(seed)``.  Written to ``out_dir``; returns
+    the XML's path."""
+    from advanced_cpu_raytracing_tpu_torch.scene.images import write_png
+
+    out = _scene_dir(out_dir)
+    rng = np.random.default_rng(seed)
+    img1, img2 = out / "t1.png", out / "t2.png"
+    write_png(str(img1), rng.integers(0, 256, (12, 16, 3), dtype=np.uint8))
+    write_png(str(img2), rng.integers(0, 256, (9, 8, 3), dtype=np.uint8))
+    path = out / "texbwd.xml"
+    path.write_text(TEX_BWD_XML.format(img1=img1.resolve(),
+                                       img2=img2.resolve()))
+    return str(path)
+
+
+def textured_pt_scene_xml(scenes_dir, out_dir, seed: int = 5) -> str:
+    """``scenes_dir/feat_pt.xml`` (left as it is) with UVs on its floor,
+    tiled twice, and a bilinear ``replace_kd`` texture on it: a 24x20
+    image of uniform random texels from ``np.random.default_rng(seed)``.
+    Written to ``out_dir``; returns the XML's path."""
+    from advanced_cpu_raytracing_tpu_torch.scene.images import write_png
+
+    out = _scene_dir(out_dir)
+    img = out / "floor.png"
+    write_png(str(img), np.random.default_rng(seed).integers(
+        0, 256, (20, 24, 3), dtype=np.uint8))
+    xml = (Path(scenes_dir) / "feat_pt.xml").read_text()
+    if "TexCoordData" in xml or "<Textures>" in xml:
+        raise ValueError("feat_pt.xml has textures")
+    uvs = "0 2   2 2   2 0   0 0" + "   0 0" * 8  # the floor's 4, then 8
+    textures = f"""<Textures>
+    <Images><Image id="1">{img.resolve()}</Image></Images>
+    <TextureMap id="1" type="image">
+      <DecalMode>replace_kd</DecalMode><ImageId>1</ImageId>
+      <Interpolation>bilinear</Interpolation>
+    </TextureMap>
+  </Textures>
+  """
+    xml = xml.replace("<VertexData>", textures + "<VertexData>")
+    xml = xml.replace("</VertexData>", "</VertexData>\n  <TexCoordData>"
+                      + uvs + "</TexCoordData>")
+    xml, n = re.subn(r'(<Mesh id="1"><Material>1</Material>)',
+                     r"\1<Textures>1</Textures>", xml)
+    if n != 1:
+        raise ValueError("feat_pt.xml: no floor mesh 1")
+    path = out / "feat_pt_textured.xml"
+    path.write_text(xml)
+    return str(path)

@@ -7,11 +7,12 @@ Phases, each printing one JSON line:
   2. build the kernel sources, one nvcc each, started together:
      csrc/mega_whitted.cu (K1a), csrc/mega_pt.cu (K1b, and K1c and K1d,
      each static and with motion) and csrc/mega_bwd.cu (K2a and K2b, each
-     with its primal and its fwd+bwd instantiation), with ptxas's register,
-     frame and spill lines per kernel (kept beside a cached library); K1a
-     must keep its 72 registers, K1b its 77, K1c its 84 (90 with motion),
-     K1d its 123 (128 with motion) and K2a its 72 (primal) and 128
-     (fwd+bwd), and each has a tree instantiation (K1e);
+     with its primal and its fwd+bwd instantiation, and their K2c texture
+     twins), with ptxas's register, frame and spill lines per kernel (kept
+     beside a cached library); K1a must keep its 72 registers, K1b its 77,
+     K1c its 84 (90 with motion), K1d its 123 (128 with motion), K2a its 72
+     (primal) and 128 (fwd+bwd) and K2b its 80 (primal) and 152 / 154
+     (fwd+bwd, flat / tree), and each has a tree instantiation (K1e);
   3. K1a against its plain torch version on 65,536 primary rays of
      scenes/whitted_conductors.xml (1 spp, no DoF), and on a ray along -z
      in the plane y = -10 of the first chunk's box (the room's floor), which
@@ -118,13 +119,14 @@ Phases, each printing one JSON line:
      background, vertices, rays) within rtol 1e-3 and atol 1e-4 max|ref|;
  19. the training main path: diff/optimize.py::optimize on the gauge scene
      at 800x800 (one fixed jitter: 640,000 rays), depth 6, fields
-     mat_diffuse, pl_intensity and verts (rates 2e-2, 400 and 2e-2 / 30),
-     5 Adam steps from the true parameters perturbed by a fixed seed toward
-     a target rendered by the primal at the true ones, the same draws every
-     step — with every counter at 0 before it, the
-     primal must launch 6 times, the fwd+bwd 5 times and no K1 kernel; the
-     last loss below the first; then optimize's step in a loop of its own,
-     one warm-up and the median of 5 timed steps, and rays per second;
+     mat_diffuse, pl_intensity and verts (rates diff/optimize.py::
+     GAUGE_RATES), 5 Adam steps
+     from the true parameters perturbed by a fixed seed toward a target
+     rendered by the primal at the true ones, the same draws every step —
+     with every counter at 0 before it, the primal must launch 6 times, the
+     fwd+bwd 5 times and no K1 kernel; the loss falls at every step; then
+     optimize's step in a loop of its own, one warm-up and the median of 5
+     timed steps, and rays per second;
  20. K2a at the main path's shape (those 640,000 rays): time per launch of
      the primal and of the fwd+bwd, and of the fwd+bwd without its scatter;
      the plain version's time and agreement on every 16th ray; the tree
@@ -160,7 +162,34 @@ Phases, each printing one JSON line:
      the primal, the fwd+bwd and the fwd+bwd without its scatter, the plain
      version's time and agreement on every 16th ray, the tree twins timed
      and held to the flat kernels on every ray, and the bound over the
-     chunks and over the tree, with the GI queries and GI samples counted.
+     chunks and over the tree, with the GI queries and GI samples counted;
+ 24. K2c (csrc/mega_bwd.cu's kTex instantiations: diffuse image textures)
+     against its plain version (autograd) on 16,384 primary rays at full
+     depth of the two-texture scene of the JAX texture-gradient test (a
+     nearest replace_kd floor, a bilinear blend_kd wall, a mirror sphere),
+     of scenes/feat_pt.xml with a bilinear replace_kd floor (path tracing,
+     with table draws from a torch.Generator and with Philox) and of the
+     inverse-texture quad carrying scenes/textures/floor_tiles.png
+     (1,048,576 texels), over the chunks and (FLAT_MAX_FACES at 0) over the
+     tree: K2a's gates, the texel cotangents included;
+ 25. the slice's main path: the port's tools/inverse_render.py --texture
+     (advanced_cpu_raytracing_tpu_torch/tools/inverse_render.py) as the
+     JAX artifact's run: 800x800, 4 sample grids, 300 steps, the 64x64 texture from
+     flat grey + noise — with every counter at 0 before it, K2c's primal
+     must launch (300 + 2) x 4 + 1 times, its fwd+bwd 301 x 4 times and
+     nothing else; the loss finite and lower at the last step than at the
+     first; the texture's PSNR at most PSNR_MARGIN_DB below the JAX tool's
+     artifact's (tools/artifacts/inverse_render_texture.json); the loss
+     every 25 steps, the texture's PSNR and max-rel error beside the
+     artifact's, wall seconds, steps/s and rays/s;
+ 26. K2c at the main path's shape (one sample grid's 640,000 rays of the
+     64x64 scene): as phase 20, time per launch of the primal, the fwd+bwd
+     and the fwd+bwd without its scatter, the plain version's time and
+     agreement on every 16th ray, the tree twins, the bound with the taps
+     and the textured steps counted; the path-traced twins timed on the
+     textured feat_pt.xml; then one value-and-grad of sum(img^2)/n with
+     respect to img_atlas at 1920x1080 on the 1,048,576-texel quad, the
+     median of 3 after a warm-up.
 Every phase line carries t_s, the seconds since the script started.
 Then the kernels line (each entry with its rays and the plain version's
 stride over them), the card line and, last, the result line.  Any
@@ -193,6 +222,8 @@ LIGHTS_SCENE = SCENES / "feat_lights_brdf.xml"
 TEXTURES_SCENE = SCENES / "feat_textures.xml"
 REPLACES = "advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py:912"
 REPLACES_K2 = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:428"
+# K2c: the texel cotangents of the same kernel (megabwd.py:1484-1564)
+REPLACES_K2C = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:1484"
 # registers of the K1a-K1d and K2a kernels since they were first measured;
 # the later variants' policies (motion, textures, the tree, K2b's template
 # flag) must not change their code
@@ -200,7 +231,10 @@ KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
                   "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90,
                   "mega_tex_kernel": 123, "mega_tex_motion_kernel": 128,
                   "mega_bwd_primal_kernel": 72, "mega_bwd_kernel": 128,
-                  "mega_bwd_primal_tree_kernel": 72, "mega_bwd_tree_kernel": 128}
+                  "mega_bwd_primal_tree_kernel": 72, "mega_bwd_tree_kernel": 128,
+                  "mega_bwd_primal_pt_kernel": 80, "mega_bwd_pt_kernel": 152,
+                  "mega_bwd_primal_pt_tree_kernel": 80,
+                  "mega_bwd_pt_tree_kernel": 154}
 KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_ext_motion_kernel", "mega_tex_kernel",
                   "mega_tex_motion_kernel", "mega_whitted_tree_kernel",
@@ -210,7 +244,12 @@ KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_bwd_kernel", "mega_bwd_primal_tree_kernel",
                   "mega_bwd_tree_kernel", "mega_bwd_primal_pt_kernel",
                   "mega_bwd_pt_kernel", "mega_bwd_primal_pt_tree_kernel",
-                  "mega_bwd_pt_tree_kernel")
+                  "mega_bwd_pt_tree_kernel", "mega_bwd_primal_tex_kernel",
+                  "mega_bwd_tex_kernel", "mega_bwd_primal_tex_tree_kernel",
+                  "mega_bwd_tex_tree_kernel", "mega_bwd_primal_pt_tex_kernel",
+                  "mega_bwd_pt_tex_kernel",
+                  "mega_bwd_primal_pt_tex_tree_kernel",
+                  "mega_bwd_pt_tex_tree_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -259,10 +298,19 @@ LIGHT_FLOPS, ADJ_LIGHT_FLOPS = 65, 110
 # cross products, shade_unit_vjp, the RR reweight); a spot, area or mesh
 # light's term costs about a point light's (LIGHT_FLOPS above)
 GI_FLOPS, ADJ_GI_FLOPS = 90, 260
+# K2c, counted in csrc/mega_bwd.cu (rounded): per textured step the
+# barycentrics, uv and tile_uv (TEX_FLOPS) and their adjoint beside the
+# Cramer one's (ADJ_TEX_FLOPS); per tap the weight and RGB blend (TAP_FLOPS
+# above) and its adjoint, the weight's cotangent and three scattered texel
+# cotangents (ADJ_TAP_FLOPS)
+TEX_FLOPS, ADJ_TEX_FLOPS, ADJ_TAP_FLOPS = 45, 70, 12
 # K2a against its plain version: the cotangents are sums whose atomic order
 # changes from run to run, and the hand-derived adjoint rounds otherwise
 # than autograd
 GRAD_RTOL, GRAD_ATOL_SCALE = 1e-3, 1e-4
+# phase 25: how far the recovered texture's PSNR may fall below the JAX
+# tool's artifact (tools/artifacts/inverse_render_texture.json)
+PSNR_MARGIN_DB = 1.0
 
 
 T0 = time.perf_counter()
@@ -370,7 +418,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
+    from advanced_cpu_raytracing_tpu_torch.diff.optimize import (
+        FEAT_PT_RATES,
+        GAUGE_RATES,
+        optimize,
+    )
     from advanced_cpu_raytracing_tpu_torch.diff.params import inject_params
     from advanced_cpu_raytracing_tpu_torch.ops import _build
     from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
@@ -391,12 +443,16 @@ def main() -> int:
         k1d_scenes,
         path_traced,
         ply_bytes,
+        tex_bwd_scene_xml,
+        texture_inverse_scene_xml,
+        textured_pt_scene_xml,
         torus_mesh,
     )
     from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
     from advanced_cpu_raytracing_tpu_torch.scene.synth import terrain_scene
     from advanced_cpu_raytracing_tpu_torch.scene.types import SceneConfig
     from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
+    from advanced_cpu_raytracing_tpu_torch.tools import inverse_render
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1203,9 +1259,7 @@ def main() -> int:
     f = mb.make_diff_render(pack, opts, device=dev)
     with torch.no_grad():
         target = f({}, o, d)
-    # the vertices' rate 30x below kd's, as the JAX package's
-    # tools/inverse_render.py sets it; the intensities' scaled to their size
-    rates = {"mat_diffuse": 2e-2, "pl_intensity": 400.0, "verts": 2e-2 / 30}
+    rates = GAUGE_RATES
     _, history = optimize(inject_params(pack, start), cam, px, py, opts, target,
                           fields, steps=5, lr=rates, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -1215,7 +1269,8 @@ def main() -> int:
     if launches != want:
         raise AssertionError(f"training main path: launches {launches}, "
                              f"expected {want}")
-    if not (all(math.isfinite(x) for x in history) and history[-1] < history[0]):
+    if not (all(math.isfinite(x) for x in history)
+            and all(b < a for a, b in zip(history, history[1:]))):
         raise AssertionError(f"training main path: loss history {history}")
     # the step's time: optimize's step (the render's value and gradient,
     # Adam, the loss read back) in a loop of its own, one warm-up then 5
@@ -1487,10 +1542,7 @@ def main() -> int:
     f = mb.make_diff_render(pack, opts, device=dev)
     with torch.no_grad():
         target = f({}, o, d)
-    # Adam moves each value about its rate a step: kd's 0.1 channels start
-    # within 0.03 of the truth, so kd takes 5e-3 (2e-2 overshoots them by
-    # the third step and the loss rises), the vertices kd's rate / 30
-    rates = {"mat_diffuse": 5e-3, "ml_radiance": 0.4, "verts": 5e-3 / 30}
+    rates = FEAT_PT_RATES
     _, history = optimize(inject_params(pack, start), cam, px, py, opts, target,
                           fields, steps=5, lr=rates, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -1715,6 +1767,266 @@ def main() -> int:
         "scatter_ms": main["scatter_ms"],
         "bound_counted_over": main["bd_fb"]["counted_over"],
         "tree_twin_ms": main["tree_fb_ms"], "other_scenes": others})
+
+    # ---- K2c: diffuse image textures (slice C3) ----
+    k2c_dir = out_dir / "k2c"
+    tiles_path = texture_inverse_scene_xml(
+        image=SCENES / "textures" / "floor_tiles.png", out_dir=k2c_dir / "tiles")
+    pt_tex_path = textured_pt_scene_xml(SCENES, k2c_dir / "pt")
+    k2c_scenes = (
+        ("two textures: nearest replace_kd, bilinear blend_kd, a mirror sphere",
+         tex_bwd_scene_xml(k2c_dir / "two")),
+        ("feat_pt.xml with a bilinear replace_kd floor", pt_tex_path),
+        ("floor_tiles.png on the inverse-texture quad (1,048,576 texels)",
+         tiles_path))
+
+    # 24. K2c against its plain version: 16,384 primary rays at full depth,
+    # both draw modes where the scene draws, over the chunks and the tree
+    n24 = 16384
+    try:
+        for geometry in ("chunks", "tree"):
+            if geometry == "tree":
+                mk.FLAT_MAX_FACES = 0
+            for label, path in k2c_scenes:
+                cfg, _, _, f, tabs, cam = diff_render(path)
+                bc = f.bc
+                want = ("mega_bwd" + ("_pt" if bc.pt else "") + "_tex"
+                        + ("_tree" if geometry == "tree" else ""))
+                if bc.variant != want:
+                    raise AssertionError(f"K2c {label}: routed to {bc.variant}")
+                o, d = primary_rays(cfg.cameras[0], cam, n24, seed=3)
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(12)
+                gbar = torch.randn((n24, 3), generator=gen, device=dev)
+                for mode in (("table", "philox") if mb.needs_draws(bc)
+                             else ("none",)):
+                    draws = (mb.table_draws(bc, n24, gen, dev)
+                             if mode == "table" else None)
+                    prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=19,
+                                             step=3)
+                    got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=19,
+                                               step=3, gbar=gbar)
+                    torch.cuda.synchronize()
+                    if mode == "philox":
+                        draws = mb.bwd_draws(bc, 19, 3, n24, device=dev)
+                    stats: dict = {}
+                    t0 = time.perf_counter()
+                    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws,
+                                                      gbar, stats=stats)
+                    torch.cuda.synchronize()
+                    plain_s = time.perf_counter() - t0
+                    what = f"K2c {bc.variant}, {label}, {mode}"
+                    err = check_close(prim, ref, what + ", primal")
+                    err_fb = check_close(got, ref, what + ", fwd+bwd")
+                    if not stats.get("texel_taps"):
+                        raise AssertionError(f"{what}: no textured hit")
+                    emit("kernel_vs_plain", kernel=bc.variant, scene=label,
+                         draws=mode, rays=n24, depth=mb.bc_depth(bc),
+                         faces=bc.n_tri, texels=tabs.texels.shape[0],
+                         texel_taps=stats["texel_taps"], plain_s=plain_s,
+                         primal=err, fwd_bwd_exact_frac=err_fb["exact_frac"],
+                         fwd_bwd_max_abs_err=err_fb["max_abs_err"],
+                         grads=check_grads(g, gref, what), mean_tol=MEAN_TOL,
+                         q999_tol=Q999_TOL, grad_rtol=GRAD_RTOL,
+                         grad_atol_scale=GRAD_ATOL_SCALE)
+                    del draws, gref, g
+    finally:
+        mk.FLAT_MAX_FACES = flat_max
+
+    # 25. the slice's main path: the port's tools/inverse_render.py
+    # --texture at its defaults (JAX tools/inverse_render.py --texture)
+    steps25, spp25 = 300, 4
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inv = inverse_render.run("texture", steps=steps25, spp=spp25, res=800,
+                             lr=5e-3, device=dev, log=lambda _: None)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = counts()
+    want = {k: {"mega_bwd_primal_tex": (steps25 + 2) * spp25 + 1,
+                "mega_bwd_tex": (steps25 + 1) * spp25}.get(k, 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"inverse texture main path: launches {launches}, "
+                             f"expected {want}")
+    history = inv["loss_history"]
+    if not (all(math.isfinite(x) for x in history)
+            and history[-1] < history[0]):
+        raise AssertionError(f"inverse texture main path: loss history "
+                             f"{history[::25]} ... {history[-1]}")
+    jax_art = json.loads((ROOT / "tools" / "artifacts"
+                          / "inverse_render_texture.json").read_text())
+    # the recovery: the JAX tool's run of the same scene, start, grids and
+    # rate reached 58.68 dB; the port's must not fall more than 1 dB short
+    psnr_floor = jax_art["texture_psnr_db"] - PSNR_MARGIN_DB
+    if not inv["texture_psnr_db"] >= psnr_floor:
+        raise AssertionError(f"inverse texture main path: texture PSNR "
+                             f"{inv['texture_psnr_db']} dB below {psnr_floor}"
+                             f" dB (the JAX artifact's less {PSNR_MARGIN_DB})")
+    emit("main_path", kernel="mega_bwd_tex",
+         scene="inverse texture recovery (tools/inverse_render.py --texture)",
+         resolution=inv["resolution"], spp=spp25, steps=steps25, lr=inv["lr"],
+         rays_per_grid=800 * 800,
+         loss_every_25=history[::25] + [history[-1]],
+         texture_psnr_db=inv["texture_psnr_db"],
+         texture_mse=inv["texture_mse"], max_rel_err=inv["max_rel_err"],
+         max_rel_err_observable=inv["max_rel_err_observable"],
+         unobservable_entries=inv["unobservable_entries"],
+         image_psnr_db=inv["image_psnr_db"], wall_s=inv["wall_s"],
+         steps_per_s=inv["steps_per_s"], rays_per_s=inv["rays_per_s"],
+         total_s_with_setup=total_s,
+         launches={k: v for k, v in launches.items() if v},
+         launches_per_step={"mega_bwd_primal_tex": spp25,
+                            "mega_bwd_tex": spp25},
+         jax_artifact_tpu={k: jax_art[k] for k in (
+             "texture_psnr_db", "max_rel_err", "max_rel_err_observable",
+             "loss_first", "loss_last", "image_psnr_db")}, card=card)
+    tex_launches = dict(launches)
+
+    # 26. K2c at the main path's shape: one sample grid's 640,000 rays of
+    # the 64x64 scene, the true texture
+    cfg, pack, opts, f, tabs, cam = diff_render(
+        texture_inverse_scene_xml(64, out_dir=k2c_dir / "inv"))
+    bc = f.bc
+    o, d = inverse_render.sample_grids(cfg.cameras[0], cam, 800, 1, dev)[0]
+    n26 = o.shape[0]
+    gbar = torch.randn((n26, 3), generator=gen, device=dev)
+    prim_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d), 5)
+    fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar), 5)
+    no_scatter_ms = cuda_ms(lambda: mb.mega_bwd_trace(
+        bc, tabs, o, d, gbar=gbar, scatter=False), 5)
+    stride = 16
+    os_, ds_, gs_ = (t[::stride].contiguous() for t in (o, d, gbar))
+    prim = mb.mega_bwd_trace(bc, tabs, os_, ds_)
+    got, g = mb.mega_bwd_trace(bc, tabs, os_, ds_, gbar=gs_)
+    torch.cuda.synchronize()
+    stats = {}
+    t0 = time.perf_counter()
+    ref0 = mb.mega_bwd_trace_ref(bc, tabs, os_, ds_, stats=stats)
+    torch.cuda.synchronize()
+    plain_prim_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, os_, ds_, gbar=gs_)
+    torch.cuda.synchronize()
+    plain_fb_ms = (time.perf_counter() - t0) * 1e3
+    what = "K2c at the main path's shape, every 16th ray"
+    err_p = check_close(prim, ref0, what + ", primal")
+    err_fb = check_close(got, ref, what + ", fwd+bwd")
+    gerr = check_grads(g, gref, what)
+    mk.FLAT_MAX_FACES = 0
+    try:
+        f_tree = mb.make_diff_render(pack, opts, device=dev)
+    finally:
+        mk.FLAT_MAX_FACES = flat_max
+    bct = f_tree.bc
+    tabs_t = mb.BwdTables(*(t.detach().contiguous()
+                            for t in f_tree.tables({})))
+    tree_prim_ms = cuda_ms(lambda: mb.mega_bwd_trace(bct, tabs_t, o, d), 5)
+    tree_fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(bct, tabs_t, o, d,
+                                                   gbar=gbar), 5)
+    what = "K2c's tree twins at the main path's shape, against the flat"
+    flat_p = mb.mega_bwd_trace(bc, tabs, o, d)
+    _, flat_g = mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar)
+    tree_fb, tree_g = mb.mega_bwd_trace(bct, tabs_t, o, d, gbar=gbar)
+    tree_err = {"fwd_bwd": check_close(tree_fb, flat_p, what + ", fwd+bwd"),
+                "grads": check_grads(tree_g, flat_g, what)}
+    del flat_p, flat_g, tree_fb, tree_g
+    # the bound: the chunks' tests (two faces, one chunk) on every 16th ray
+    # times 16, the step and its adjoint per segment and lit light, and per
+    # textured step and tap; bytes: the rays, the tables and the texel pool
+    # read once, and in the fwd+bwd the radiance's cotangent in and every
+    # cotangent out (the pool's included)
+    counted = {k: v * stride for k, v in stats.items()}
+    tex_extra = (counted["tex_steps"] * TEX_FLOPS,
+                 counted["tex_steps"] * ADJ_TEX_FLOPS
+                 + counted["texel_taps"] * ADJ_TAP_FLOPS)
+    tables = sum(t.numel() * t.element_size() for t in (
+        bc.tri_rest, tabs.tri_w, bc.chunk_tab, bc.mc.spheres, bc.mc.materials,
+        bc.mc.point_lights, bc.mc.dir_lights, bc.mc.tex_face, bc.mc.tex_int,
+        tabs.texels))
+    grads_bytes = sum(t.numel() * 4 for t in tabs)
+    bd_p, bd_fb = k2a_bounds(counted, n26 * 9 * 4 + tables,
+                             n26 * 18 * 4 + tables + grads_bytes)
+    for bd, extra in ((bd_p, tex_extra[0]), (bd_fb, sum(tex_extra))):
+        bd["flops"] += extra
+        bd["ops_ms"] = bd["flops"] / PEAK_FP32_FLOPS * 1e3
+        bd["bound_ms"] = max(bd["ops_ms"], bd["bytes_ms"])
+        bd["bound_by"] = ("operations" if bd["ops_ms"] >= bd["bytes_ms"]
+                          else "bytes")
+    emit("kernel_at_main_shape", kernel="mega_bwd_tex", rays=n26,
+         plain_stride=stride, primal_ms=prim_ms, fwd_bwd_ms=fb_ms,
+         fwd_bwd_no_scatter_ms=no_scatter_ms,
+         scatter_ms=fb_ms - no_scatter_ms, plain_primal_ms=plain_prim_ms,
+         plain_fwd_bwd_ms=plain_fb_ms, primal_bound=bd_p, fwd_bwd_bound=bd_fb,
+         primal=err_p, fwd_bwd_exact_frac=err_fb["exact_frac"], grads=gerr,
+         counts=counted, tree_primal_ms=tree_prim_ms,
+         tree_fwd_bwd_ms=tree_fb_ms, tree_vs_flat=tree_err,
+         launches_per_step={"mega_bwd_primal_tex": spp25,
+                            "mega_bwd_tex": spp25}, card=card)
+    # the path-traced twins on the textured feat_pt.xml, one sample's rays
+    _, _, _, f_pt, tabs_pt, cam_pt = diff_render(pt_tex_path)
+    o_pt, d_pt = (t.contiguous() for t in generate_rays(
+        cam_pt, (torch.arange(n26, device=dev) % 800).float() + 0.5,
+        (torch.arange(n26, device=dev) // 800).float() + 0.5))
+    pt_prim_ms = cuda_ms(lambda: mb.mega_bwd_trace(f_pt.bc, tabs_pt, o_pt,
+                                                   d_pt), 5)
+    pt_fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(f_pt.bc, tabs_pt, o_pt, d_pt,
+                                                 gbar=gbar), 5)
+    pt_no_scatter_ms = cuda_ms(lambda: mb.mega_bwd_trace(
+        f_pt.bc, tabs_pt, o_pt, d_pt, gbar=gbar, scatter=False), 5)
+    emit("kernel_at_main_shape", kernel=f_pt.bc.variant,
+         scene="feat_pt.xml with a textured floor", rays=n26,
+         primal_ms=pt_prim_ms, fwd_bwd_ms=pt_fb_ms,
+         scatter_ms=pt_fb_ms - pt_no_scatter_ms, card=card)
+    del f_pt, tabs_pt, o_pt, d_pt
+    # one value-and-grad of sum(img^2) / n with respect to img_atlas at
+    # 1920x1080 on the 1,048,576-texel quad, the median of 3 after a warm-up
+    cfg_b, pack_b, _, f_b, _, cam_b = diff_render(tiles_path)
+    bw, bh = 1920, 1080
+    ys, xs = np.divmod(np.arange(bw * bh, dtype=np.int64), bw)
+    ob, db = (t.contiguous() for t in generate_rays(
+        cam_b, torch.as_tensor(xs * (cfg_b.cameras[0].width / bw),
+                               dtype=torch.float32, device=dev),
+        torch.as_tensor(ys * (cfg_b.cameras[0].height / bh),
+                        dtype=torch.float32, device=dev)))
+    atlas = pack_b.img_atlas.detach().clone().requires_grad_(True)
+    vg_s = []
+    for i in range(4):
+        t1 = time.perf_counter()
+        img = f_b({"img_atlas": atlas}, ob, db)
+        loss = (img ** 2).sum() / float(bw * bh)
+        (g_atlas,) = torch.autograd.grad(loss, [atlas])
+        torch.cuda.synchronize()
+        if i:
+            vg_s.append(time.perf_counter() - t1)
+    if not (math.isfinite(float(loss)) and bool(torch.isfinite(g_atlas).all())
+            and float(g_atlas.abs().sum()) > 0):
+        raise AssertionError(f"1080p value-and-grad on floor_tiles.png: loss "
+                             f"{float(loss)}")
+    vg_med = sorted(vg_s)[len(vg_s) // 2]
+    emit("value_and_grad_1080p", kernel=f_b.bc.variant,
+         scene="floor_tiles.png quad", texels=int(pack_b.img_w[0])
+         * int(pack_b.img_h[0]), rays=bw * bh, fields=["img_atlas"],
+         loss=float(loss), texels_with_gradient=int(
+             (g_atlas.abs().sum(-1) > 0).sum()), s=vg_s, s_median=vg_med,
+         mrays_per_s=bw * bh / vg_med / 1e6, card=card)
+    del f_b, atlas, img, loss, g_atlas, ob, db
+    grad_err = max(v["max_abs_err"] for v in gerr.values())
+    pt_twins = {"feat_pt.xml, textured floor": {
+        "prim_ms": pt_prim_ms, "fb_ms": pt_fb_ms,
+        "scatter_ms": pt_fb_ms - pt_no_scatter_ms}}
+    kernels.append({**kernel_entry(
+        "mega_bwd_primal_tex", tex_launches["mega_bwd_primal_tex"], prim_ms,
+        plain_prim_ms, bd_p, err_p, n26, stride, library=mb.LIBRARY,
+        replaces=REPLACES_K2C), "bound_counted_over": "chunks",
+        "tree_twin_ms": tree_prim_ms, "pt_twin": pt_twins})
+    kernels.append({**kernel_entry(
+        "mega_bwd_tex", tex_launches["mega_bwd_tex"], fb_ms, plain_fb_ms,
+        bd_fb, {"max_abs_err": max(err_fb["max_abs_err"], grad_err)}, n26,
+        stride, library=mb.LIBRARY, replaces=REPLACES_K2C),
+        "scatter_ms": fb_ms - no_scatter_ms, "bound_counted_over": "chunks",
+        "tree_twin_ms": tree_fb_ms, "pt_twin": pt_twins})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -522,3 +522,102 @@ def test_optimize_goes_through_the_k2b_kernel(cuda):
         for k in before[0]}
     assert dict(mk.LAUNCHES) == before[1]
     assert all(np.isfinite(hist)) and hist[-1] < hist[0]
+
+
+def _k2c_scene(dev, tmp_path, name, n=2048):
+    """A K2c scene on the card: ``two`` (the JAX texture-gradient test's
+    nearest replace_kd floor, bilinear blend_kd wall and mirror sphere;
+    Whitted) or ``pt`` (scenes/feat_pt.xml with a bilinear replace_kd floor;
+    path tracing), its differentiable render and n random primary rays."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+    from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+        tex_bwd_scene_xml,
+        textured_pt_scene_xml,
+    )
+
+    path = (tex_bwd_scene_xml(tmp_path) if name == "two"
+            else textured_pt_scene_xml(REPO / "scenes", tmp_path))
+    cfg = load_scene(path)
+    pack = pack_scene(cfg, device=dev)
+    opts = options_for_camera(cfg, cfg.cameras[0])
+    f = mb.make_diff_render(pack, opts, device=dev)
+    cam = build_camera(cfg.cameras[0], device=dev)
+    rng = np.random.default_rng(8)
+    px = torch.as_tensor(rng.uniform(0, cfg.cameras[0].width, n).astype(
+        np.float32), device=dev)
+    py = torch.as_tensor(rng.uniform(0, cfg.cameras[0].height, n).astype(
+        np.float32), device=dev)
+    o, d = generate_rays(cam, px, py)
+    return pack, opts, f, cam, o.contiguous(), d.contiguous(), px, py
+
+
+@pytest.mark.parametrize("tree", [False, True], ids=["chunks", "tree"])
+@pytest.mark.parametrize("name", ["two", "pt"])
+def test_k2c_kernel_matches_plain_version(cuda, tmp_path, monkeypatch, name,
+                                          tree):
+    """K2c's primal and fwd+bwd (the Whitted and the path-traced texture
+    twins, over the chunks and the tree) against the plain version and
+    autograd: radiance to K1a's bound, every cotangent, the texel pool's
+    included, within rtol 1e-3, atol 1e-4 max|ref|."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    if tree:
+        monkeypatch.setattr(mk, "FLAT_MAX_FACES", 0)
+    _, _, f, _, o, d, _, _ = _k2c_scene(cuda, tmp_path, name)
+    bc = f.bc
+    assert bc.variant == ("mega_bwd" + ("_pt" if name == "pt" else "")
+                          + "_tex" + ("_tree" if tree else ""))
+    tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    gbar = torch.randn(o.shape, generator=gen, device=cuda)
+    draws = mb.table_draws(bc, o.shape[0], gen, cuda) if bc.pt else None
+    before = dict(mb.LAUNCHES)
+    prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1)
+    got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1, gbar=gbar)
+    torch.cuda.synchronize()
+    primal = bc.variant.replace("mega_bwd", "mega_bwd_primal")
+    assert {k: mb.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k in (bc.variant, primal)) for k in before}
+    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws, gbar)
+    for out in (prim, got):
+        diff = (out - ref).abs().cpu().numpy()
+        assert np.mean(diff) < 0.01 and np.quantile(diff, 0.999) < 0.5
+    assert float(gref.texels.abs().sum()) > 0
+    for k in gref._fields:
+        a, b = getattr(gref, k), getattr(g, k)
+        assert bool(torch.isfinite(b).all()), k
+        if a.numel():
+            torch.testing.assert_close(b, a, rtol=1e-3,
+                                       atol=1e-4 * float(a.abs().max()))
+
+
+def test_optimize_recovers_a_texture_through_the_k2c_kernel(cuda, tmp_path):
+    """Three Adam steps over img_atlas on the two-texture scene on the
+    card: one K2c primal and one K2c fwd+bwd launch per step, nothing else,
+    a falling loss, and the loss history of the plain version on the CPU
+    within rtol 1e-3."""
+    from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
+    from advanced_cpu_raytracing_tpu_torch.diff.params import inject_params
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    pack, opts, f, cam, o, d, px, py = _k2c_scene(cuda, tmp_path, "two", 4096)
+    with torch.no_grad():
+        target = f({}, o, d)
+    start = {"img_atlas": torch.full_like(pack.img_atlas, 128.0)}
+    before = dict(mb.LAUNCHES), dict(mk.LAUNCHES)
+    _, hist = optimize(inject_params(pack, start), cam, px, py, opts, target,
+                       ("img_atlas",), steps=3, lr=4.0, device=cuda)
+    assert {k: mb.LAUNCHES[k] - before[0][k] for k in before[0]} == {
+        k: 3 * int(k in ("mega_bwd_tex", "mega_bwd_primal_tex"))
+        for k in before[0]}
+    assert dict(mk.LAUNCHES) == before[1]
+    assert all(np.isfinite(hist)) and hist[-1] < hist[0]
+    cpu_pack = pack_scene(load_scene(str(tmp_path / "texbwd.xml")),
+                          device="cpu")
+    _, hist_cpu = optimize(
+        inject_params(cpu_pack, {"img_atlas": start["img_atlas"].cpu()}),
+        build_camera(load_scene(str(tmp_path / "texbwd.xml")).cameras[0],
+                     device="cpu"), px.cpu(), py.cpu(), opts, target.cpu(),
+        ("img_atlas",), steps=3, lr=4.0, device="cpu")
+    np.testing.assert_allclose(hist, hist_cpu, rtol=1e-3)

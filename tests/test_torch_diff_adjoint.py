@@ -8,8 +8,11 @@ refract lanes only, the sphere's root and normal; and K2b's: the GI
 direction through the orthonormal basis (both sampling forms), the spot
 light's cosine-space falloff, the area light's two-sided irradiance, the
 mesh light's sampled point and the direction toward a light, and Russian
-roulette's reweight through max (ties split) and the clip.  In float64, so
-that a wrong term shows and rounding does not: rtol 1e-9."""
+roulette's reweight through max (ties split) and the clip; and K2c's: the
+barycentrics through the winner's vertices and the ray (beside Cramer's t),
+uv from them, tile_uv's slope and the bilinear weights' through JAX's clip
+(max then min: half at a tie).  In float64, so that a wrong term shows and
+rounding does not: rtol 1e-9."""
 
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
 from advanced_cpu_raytracing_tpu_torch.ops import megakernel as mk
+from advanced_cpu_raytracing_tpu_torch.ops import texture as tex
 
 F64 = torch.float64
 
@@ -461,3 +465,105 @@ def test_rr_reweight_adjoint():
 
     want = grads_of(fac, [w], g_fac)[0]
     close(rr_fac_vjp(w, g_fac), want)
+
+
+# ---- K2c: the texture step ----
+
+
+def bary_vjp(v, o, d, gt, g_beta, g_gamma):
+    """The kernel's Cramer adjoint with K2c's barycentrics beside t: beta =
+    b . (e2 x d) / det, gamma = e1 . (b x d) / det, by the cross products
+    c1..c6 of ``diff_ray``'s reverse sweep."""
+    c = torch.linalg.cross
+    e1, e2, b = v[0:3] - v[3:6], v[0:3] - v[6:9], v[0:3] - o
+    det = (e1 * c(e2, d, dim=0)).sum(0)
+    t = (e1 * c(e2, b, dim=0)).sum(0) / det
+    beta = (b * c(e2, d, dim=0)).sum(0) / det
+    gamma = (e1 * c(b, d, dim=0)).sum(0) / det
+    g_num = gt / det
+    g_det = -gt * t / det - (g_beta * beta + g_gamma * gamma) / det
+    g_bn, g_gn = g_beta / det, g_gamma / det
+    c1, c2, c3 = c(e2, b, dim=0), c(b, e1, dim=0), c(e1, e2, dim=0)
+    c4, c5, c6 = c(e2, d, dim=0), c(d, e1, dim=0), c(b, d, dim=0)
+    ge1 = g_num * c1 + g_det * c4 + g_gn * c6
+    ge2 = g_num * c2 + g_det * c5 - g_bn * c6
+    gb = g_num * c3 + g_bn * c4 + g_gn * c5
+    gd = g_det * c3 - g_bn * c1 - g_gn * c2
+    return torch.cat([ge1 + ge2 + gb, -ge1, -ge2]), -gb, gd
+
+
+def test_barycentric_adjoint():
+    rng = np.random.default_rng(12)
+    v, o, d = rand(rng, 9, 300, lo=-5, hi=5), rand(rng, 3, 300), rand(rng, 3, 300)
+    gt, gb, gg = rand(rng, 300), rand(rng, 300), rand(rng, 300)
+    want = grads_of(lambda vv, oo, dd: mb._cramer_t(
+        list(vv), list(oo), list(dd), bary=True), [v, o, d], [gt, gb, gg])
+    for a, b in zip(bary_vjp(v, o, d, gt, gb, gg), want):
+        close(a, b)
+
+
+def test_uv_from_the_barycentrics():
+    """uv = uv0 + beta (uv1 - uv0) + gamma (uv2 - uv0): g_beta = g_u (u1 -
+    u0) + g_v (v1 - v0), g_gamma = g_u (u2 - u0) + g_v (v2 - v0)."""
+    rng = np.random.default_rng(13)
+    uv = rand(rng, 6, 200, lo=-1.0, hi=3.0)
+    beta, gamma, gu, gv = (rand(rng, 200) for _ in range(4))
+
+    def fwd(bb, gg):
+        return [uv[0] + bb * (uv[2] - uv[0]) + gg * (uv[4] - uv[0]),
+                uv[1] + bb * (uv[3] - uv[1]) + gg * (uv[5] - uv[1])]
+
+    want = grads_of(fwd, [beta, gamma], [gu, gv])
+    close(gu * (uv[2] - uv[0]) + gv * (uv[3] - uv[1]), want[0])
+    close(gu * (uv[4] - uv[0]) + gv * (uv[5] - uv[1]), want[1])
+
+
+def tile_slope(x):
+    """``tile_slope``: 1, or 0 where tile_uv returns the constant 1."""
+    return ((x <= 1.0001) | (x - torch.floor(x) >= 0.0001)).to(x.dtype)
+
+
+def test_tile_uv_slope():
+    rng = np.random.default_rng(14)
+    x = rand(rng, 400, lo=-2.0, hi=4.0)
+    x[:6] = torch.tensor([1.0, 1.0001, 2.0, 2.00005, 3.0, 0.5])
+    want = grads_of(tex.tile_uv, [x], torch.ones_like(x))[0]
+    close(tile_slope(x), want)
+    assert float(want[2]) == 0.0 and float(want[0]) == 1.0
+
+
+def clip_slope(x, hi):
+    """``clip_slope``: d min(max(x, 0), hi) / dx, half of it at each tie."""
+    a = torch.where(x > 0, 1.0, torch.where(x == 0, 0.5, 0.0))
+    y = torch.clamp(x, min=0.0)
+    return a * torch.where(y < hi, 1.0, torch.where(y == hi, 0.5, 0.0))
+
+
+def weights_vjp(u, v, w, h, gw):
+    """``tex_step_vjp``'s bilinear part: the weights' cotangents gw (4, R)
+    into u and v through dx, dy and the clip (floor a constant)."""
+    xi, xj = u * w, v * h
+    fi = torch.clamp(torch.clamp(xi, min=0.0), max=w - 1.0)
+    fj = torch.clamp(torch.clamp(xj, min=0.0), max=h - 1.0)
+    dx, dy = fi - torch.floor(fi), fj - torch.floor(fj)
+    g_dx = (gw[1] - gw[0]) * (1.0 - dy) + (gw[3] - gw[2]) * dy
+    g_dy = (gw[2] - gw[0]) * (1.0 - dx) + (gw[3] - gw[1]) * dx
+    return g_dx * clip_slope(xi, w - 1.0) * w, g_dy * clip_slope(xj, h - 1.0) * h
+
+
+@pytest.mark.parametrize("w, h", [(8, 5), (1, 3)])
+def test_bilinear_weights_adjoint(w, h):
+    """The four weights of ``ops/texture.py::bilinear_taps`` in u and v,
+    with the coordinates exactly on 0 and on w - 1 (JAX's clip passes half
+    there) and outside the image (nothing passes); a one-texel-wide image
+    puts both ties on one point."""
+    rng = np.random.default_rng(15)
+    u, v = rand(rng, 300, lo=-0.3, hi=1.3), rand(rng, 300, lo=-0.3, hi=1.3)
+    u[:4] = torch.tensor([0.0, (w - 1) / w, 1.0, 0.5], dtype=F64)
+    v[4:8] = torch.tensor([0.0, (h - 1) / h, 1.0, 0.5], dtype=F64)
+    gw = rand(rng, 4, 300)
+    want = grads_of(lambda uu, vv: tex.bilinear_taps(uu, vv, w, h)[1],
+                    [u, v], list(gw))
+    got = weights_vjp(u, v, float(w), float(h), gw)
+    close(got[0], want[0])
+    close(got[1], want[1])

@@ -227,20 +227,25 @@ def test_bwd_missing_names_each_gate_and_keeps_no_tpu_cap(gauge):
 
 
 def test_bwd_missing_words_the_texture_gates(tmp_path):
-    """A diffuse image texture waits for K2c; a Perlin one, or a specular
-    slot or a bump map, the JAX fused kernel never differentiates."""
+    """Diffuse image textures are K2c's (tests/test_torch_diff_tex.py); a
+    Perlin one, or a specular slot or a bump map, the JAX fused kernel never
+    differentiates: the K1d image scene's replace_ks and Perlin replace_kd
+    beside its nearest replace_kd and bilinear blend_kd are named, and so
+    are the Perlin scene's."""
     from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import k1d_scenes
 
     xmls = k1d_scenes(tmp_path, REPO / "scenes")
-    for name, want in (("image", "diffuse image textures (K2c)"),
-                       ("perlin", "specular-slot, Perlin, bump or normal-map "
-                                  "textures")):
+    for name, want in (
+            ("image", ["Perlin textures", "textures with decal replace_ks "
+                       "(specular-slot, bump or normal-map)"]),
+            ("perlin", ["Perlin textures", "textures with decal bump_normal, "
+                        "replace_ks (specular-slot, bump or normal-map)"])):
         path = tmp_path / f"{name}.xml"
         path.write_text(xmls[name])
         cfg = load_scene(str(path))
         pack = pack_scene(cfg, device="cpu")
         opts = options_for_camera(cfg, cfg.cameras[0])
-        assert want in mb.bwd_missing(pack.static, opts, pack), name
+        assert mb.bwd_missing(pack.static, opts, pack) == want, name
 
 
 def test_branch_uniforms_are_philox_keyed_by_seed_and_step():

@@ -20,8 +20,8 @@ central finite differences within rtol 2e-3.  Also here: the Philox twin
 ``bwd_draws`` against Philox4x32-10's words, and ``optimize`` on the CPU
 against the JAX ``optimize`` through its fused kernel in interpret mode
 (the draws of ``PRNGKey(0)`` at every step on both sides), and the
-loss of ``chip_smoke.py``'s path-traced training run falling at every
-step on a grid of its rays.
+loss of ``chip_smoke.py``'s path-traced (phase 22) and gauge (phase 19,
+K2a) training runs falling at every step on a grid of their rays.
 """
 
 from __future__ import annotations
@@ -52,7 +52,11 @@ from advanced_cpu_raytracing_tpu.render.renderer import (
 )
 from advanced_cpu_raytracing_tpu.scene.pack import pack_scene as jax_pack_scene
 from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene as jax_load_scene
-from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
+from advanced_cpu_raytracing_tpu_torch.diff.optimize import (
+    FEAT_PT_RATES,
+    GAUGE_RATES,
+    optimize,
+)
 from advanced_cpu_raytracing_tpu_torch.diff.params import (
     inject_params,
     params_from_arrays,
@@ -61,6 +65,7 @@ from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
 from advanced_cpu_raytracing_tpu_torch.ops.rng import philox4x32, uniform_from_bits
 from advanced_cpu_raytracing_tpu_torch.render.camera import build_camera, generate_rays
 from advanced_cpu_raytracing_tpu_torch.render.renderer import options_for_camera
+from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import gauge_scene_xml
 from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
 from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
 from scene_builders import cornell_pt_spec_xml, cornell_pt_xml
@@ -92,13 +97,15 @@ def with_sphere(xml: str, material: int = 1) -> str:
 
 
 def setup(xml: str, tmp, n: int, max_depth: int | None = None, seed: int = 3,
-          window=None):
-    """Both packages' packs of the scene ``xml`` (written to ``tmp``), the
-    rays from the JAX camera (through uniform pixel positions, in the
-    whole image or in ``window`` = (x0, x1, y0, y1)), the JAX draws as a
-    ``BwdDraws``, the oracle's options and the parameter leaves as numpy."""
-    path = tmp / "scene.xml"
-    path.write_text(xml)
+          window=None, leaves=LEAVES, path=None):
+    """Both packages' packs of the scene ``xml`` (written to ``tmp``, or
+    the scene file ``path``), the rays from the JAX camera (through uniform
+    pixel positions, in the whole image or in ``window`` = (x0, x1, y0,
+    y1)), the JAX draws as a ``BwdDraws``, the oracle's options and the
+    parameter ``leaves`` as numpy."""
+    if path is None:
+        path = tmp / "scene.xml"
+        path.write_text(xml)
     jcfg = jax_load_scene(str(path))
     jpack = jax_pack_scene(jcfg)
     cam = jax_camera.build_camera(jcfg.cameras[0])
@@ -128,7 +135,7 @@ def setup(xml: str, tmp, n: int, max_depth: int | None = None, seed: int = 3,
         importance_sampling=bc.pt_importance, russian_roulette=bc.pt_rr,
         stochastic_dielectric=bc.has_dielectric, stochastic_spec_gi=bc.pt_spec)
     arrays = {k: np.asarray(v) for k, v in
-              jax_extract_params(jpack, LEAVES).items()}
+              jax_extract_params(jpack, leaves).items()}
     return dict(path=path, jpack=jpack, cam=cam, px=px, py=py, o=np.asarray(o),
                 d=np.asarray(d), pack=pack, opts=opts, bc=bc, draws=draws,
                 j_opts=j_opts, arrays=arrays)
@@ -350,8 +357,9 @@ def test_the_training_rates_make_the_loss_fall_at_every_step():
     """chip_smoke.py phase 22's training run, cut to a 40x40 grid of its
     800x800 rays on the CPU: the same start (kd scaled by U(0.7, 1.1) of
     seed 7, the mesh light's radiance x1.2, the vertices moved by
-    N(0, 0.001)) and the same per-field rates; the loss falls at every one
-    of the 5 Adam steps, to below a third of where it began.  With kd at
+    N(0, 0.001)) and the same per-field rates (``diff/optimize.py::
+    FEAT_PT_RATES``); the loss falls at every one of the 5 Adam steps, to
+    below a third of where it began.  With kd at
     2e-2 it rises after the third step: Adam moves each value about its
     rate a step, and kd's 0.1 channels start within 0.03 of the truth."""
     root = Path(__file__).resolve().parents[1]
@@ -376,9 +384,50 @@ def test_the_training_rates_make_the_loss_fall_at_every_step():
     f = mb.make_diff_render(pack, opts, device="cpu")
     with torch.no_grad():
         target = f({}, *generate_rays(cam, px, py))
-    rates = {"mat_diffuse": 5e-3, "ml_radiance": 0.4, "verts": 5e-3 / 30}
+    rates = FEAT_PT_RATES
     _, h = optimize(inject_params(pack, start), cam, px, py, opts, target,
                     tuple(rates), steps=5, lr=rates, device="cpu")
     assert all(np.isfinite(h)) and len(h) == 5
     assert all(b < a for a, b in zip(h, h[1:])), h
     assert h[-1] < h[0] / 3, h
+
+
+def test_the_gauge_rates_make_the_loss_fall_at_every_step(tmp_path):
+    """chip_smoke.py phase 19's training run (K2a, the gauge scene at depth
+    6), cut to a 20x20 grid of its 800x800 rays on the CPU: the same start
+    (kd scaled by U(0.7, 1.1) of seed 6, the point lights x1.2, the vertices
+    moved by N(0, 0.01)), the same draws (Philox keyed (0, 0)) and the same
+    per-field rates (``diff/optimize.py::GAUGE_RATES``); the loss falls at
+    every one of the 5 Adam steps, to below 0.8 of where it began.  With kd
+    at 2e-2 (the rate phase 19 had before) or 1e-2 it rises after the third
+    step, as phase 19's history did on the card (646.4 -> 465.4 -> 403.35
+    -> 403.36 -> 428.0)."""
+    cfg = load_scene(gauge_scene_xml(tmp_path, Path(__file__).resolve()
+                                     .parents[1] / "scenes"))
+    cam_cfg = cfg.cameras[0]
+    pack, opts = pack_scene(cfg, device="cpu"), options_for_camera(cfg, cam_cfg)
+    cam = build_camera(cam_cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    ys, xs = torch.meshgrid(torch.arange(0, cam_cfg.height, 40),
+                            torch.arange(0, cam_cfg.width, 40), indexing="ij")
+    jit = torch.rand((xs.numel(), 2), generator=gen)
+    px = xs.reshape(-1).float() + jit[:, 0]
+    py = ys.reshape(-1).float() + jit[:, 1]
+    rng = np.random.default_rng(6)
+    start = {
+        "mat_diffuse": pack.mat_diffuse * torch.as_tensor(rng.uniform(
+            0.7, 1.1, tuple(pack.mat_diffuse.shape)).astype(np.float32)),
+        "pl_intensity": pack.pl_intensity * 1.2,
+        "verts": pack.verts + torch.as_tensor(rng.normal(
+            0.0, 0.01, tuple(pack.verts.shape)).astype(np.float32))}
+    f = mb.make_diff_render(pack, opts, device="cpu")
+    assert f.bc.variant == "mega_bwd" and f.bc.has_dielectric
+    with torch.no_grad():
+        target = f({}, *generate_rays(cam, px, py))
+    rates = GAUGE_RATES
+    _, h = optimize(inject_params(pack, start), cam, px, py, opts, target,
+                    tuple(rates), steps=5, lr=rates, device="cpu")
+    assert all(np.isfinite(h)) and len(h) == 5
+    assert all(b < a for a, b in zip(h, h[1:])), h
+    assert h[-1] < 0.8 * h[0], h

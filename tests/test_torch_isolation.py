@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing every module of it loads
 neither JAX nor the JAX package, needs neither triton nor a CUDA card, and
-its entry points (the renderer, and the differentiable render's
-``optimize``, ``make_diff_render`` and ``mega_bwd_trace``) refuse to fall
-back to the CPU when no card is there."""
+its entry points (the renderer, the differentiable render's ``optimize``,
+``make_diff_render`` and ``mega_bwd_trace``, and the inverse-rendering
+tool) refuse to fall back to the CPU when no card is there."""
 
 from __future__ import annotations
 
@@ -29,6 +29,10 @@ bad = sorted(k for k in sys.modules
              or k == "advanced_cpu_raytracing_tpu"
              or k.startswith("advanced_cpu_raytracing_tpu."))
 assert not bad, bad
+# the modules of slice C3 among them
+assert {"advanced_cpu_raytracing_tpu_torch.tools.inverse_render",
+        "advanced_cpu_raytracing_tpu_torch.scene.feature_scenes",
+        "advanced_cpu_raytracing_tpu_torch.ops.megabwd"} <= set(names)
 
 from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
 from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
@@ -39,6 +43,7 @@ from advanced_cpu_raytracing_tpu_torch.render.renderer import (
 )
 from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
 from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
+from advanced_cpu_raytracing_tpu_torch.tools import inverse_render
 cfg = load_scene(sys.argv[1])
 cpu_pack = pack_scene(cfg, device="cpu")
 opts = options_for_camera(cfg, cfg.cameras[0])
@@ -51,7 +56,9 @@ for call in (lambda: pack_scene(cfg),
              # the wrapper takes the plain version only for CPU tensors, and
              # its scene tables default to the card
              lambda: mb.mega_bwd_trace(mb.build_bwd_consts(cpu_pack, opts),
-                                       None, None, None)):
+                                       None, None, None),
+             lambda: inverse_render.run("texture", steps=1, spp=1, res=8),
+             lambda: inverse_render.main(["--texture", "--steps", "1"])):
     try:
         call()
     except RuntimeError as e:
@@ -68,7 +75,7 @@ def test_port_imports_alone_without_cuda_or_triton():
         [sys.executable, "-c", _PROBE, str(REPO / "scenes" / "feat_pt.xml")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 33
 
 
 def test_port_sources_import_nothing_of_jax():
