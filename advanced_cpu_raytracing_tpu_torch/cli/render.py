@@ -4,11 +4,14 @@
 Matches the reference's main program (src/main.cpp:132-202): renders every
 camera in the scene; tonemapped cameras emit both ``<name>.hdr`` (raw
 radiance) and ``<name w/o ext>.png``; others emit the clamped LDR png;
-prints total wall-clock at the end.  Renders on the CUDA card unless ``--device cpu``.
-Any scene inside the megakernel's envelope (``ops/megakernel.py::
-mega_missing``): Whitted or path traced, with point, directional, spot,
-area, mesh and environment lights, the pluggable BRDFs, roughness, motion
-blur, DoF, and image and Perlin textures in every decal mode.
+prints total wall-clock at the end.  Renders on the CUDA card unless
+``--device cpu``.  A scene inside the megakernel's envelope
+(``ops/megakernel.py::mega_missing``: Whitted or path traced, with point,
+directional, spot, area, mesh and environment lights, the pluggable BRDFs,
+roughness, motion blur, DoF, and image and Perlin textures in every decal
+mode) renders through the megakernel; any other (two environment lights,
+textures with a BRDF or motion, depth above 10, ...) through the wavefront
+integrator, in lane tiles of ``--tile`` rays.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--spp", type=int, default=None,
                         help="override per-camera NumSamples")
+    parser.add_argument("--tile", type=int, default=None,
+                        help="the wavefront's lane tile size (rays)")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="render on the CUDA card (default) or the CPU")
     args = parser.parse_args(argv)
@@ -55,7 +60,7 @@ def main(argv=None) -> int:
         if cam_cfg.renderer_params.path_tracing:
             print(f"Path tracing is enabled for: {cam_cfg.image_name}")
         img = render_camera(pack, cfg, cam_cfg, seed=args.seed, spp=args.spp,
-                            device=args.device)
+                            device=args.device, tile_size=args.tile)
         base = os.path.join(args.out_dir, cam_cfg.image_name)
         stem = base[: base.rfind(".")] if "." in os.path.basename(base) else base
         if cam_cfg.tonemap is not None:

@@ -47,7 +47,9 @@ Russian-roulette and coin draws; handed in, or from Philox keyed by (seed,
 step) (``bwd_draws`` is its torch twin).  A bare ``(D, R)`` tensor is the
 branch uniforms alone, K2a's only draws.  Scenes outside the kernels
 (``bwd_missing``: sphere, background, Perlin or non-diffuse textures, the
-environment light, ...) raise ``NotImplementedError``.
+environment light, ...) raise ``NotImplementedError`` here;
+``diff/optimize.py`` differentiates them through the wavefront integrator
+instead, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -267,9 +269,8 @@ def bwd_missing(static, opts, pack=None) -> list[str]:
 def _texture_missing(static, pack) -> list[str]:
     """The semantic gates of the JAX ``_bwd_tex_ok`` (megabwd.py:203-230)
     without its caps of 4 textures and 4,096 texels: image textures with a
-    ``replace_kd`` or ``blend_kd`` decal, on meshes.  The JAX package
-    differentiates the others only through its wavefront, which the port
-    does not have yet."""
+    ``replace_kd`` or ``blend_kd`` decal, on meshes.  The others go through
+    the wavefront (``diff/optimize.py``), as in the JAX package."""
     if pack is None:  # the gates read the pack
         return ["textures"]
     n = static.n_textures

@@ -58,6 +58,8 @@ from advanced_cpu_raytracing_tpu_torch.scene.types import (
     MaterialType,
 )
 from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
+# a / b rounded once, as the kernels' IEEE division (see math3d.div)
+from advanced_cpu_raytracing_tpu_torch.utils.math3d import div as _div
 
 BIG = 3.0e37  # "no hit" distance
 CHUNK = 128  # faces per culling chunk (BVH depth-first order)
@@ -693,19 +695,6 @@ def _norm3(x, y, z):
     # otherwise, on the card in a few ulp)
     inv = 1.0 / torch.sqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
     return x * inv, y * inv, z * inv
-
-
-def _div(a, b):
-    """a / b rounded once, as the kernels' IEEE division.  torch computes a
-    Python number over a tensor as the tensor's reciprocal times the number,
-    and on CUDA a tensor over a Python number as the tensor times the
-    number's reciprocal; each rounds twice, and a bump's finite differences
-    turn the last bit into a different path."""
-    if not torch.is_tensor(a):
-        a = torch.tensor(a, dtype=torch.float32, device=b.device)
-    if not torch.is_tensor(b):
-        b = torch.tensor(b, dtype=torch.float32, device=a.device)
-    return torch.div(a, b)
 
 
 def _onb(nx, ny, nz):

@@ -91,3 +91,97 @@ def rnd(table: torch.Tensor, it: int, slot: int, max_iters: int,
         n_draws: int) -> torch.Tensor:
     """Draw ``slot`` of node iteration ``it`` for every ray of the table."""
     return table[min(it, max_iters - 1) * n_draws + slot]
+
+
+# ---------------------------------------------------------------------------
+# the wavefront integrator's draw source
+# ---------------------------------------------------------------------------
+
+# Draw sites of the wavefront integrator (render/integrator.py,
+# render/lights.py, render/renderer.py).  Iteration -1 holds the draws made
+# once per primary ray, before the loop: the motion time, the lens sample,
+# the sub-pixel jitter.
+(SITE_TIME, SITE_LENS, SITE_JITTER, SITE_GI, SITE_RR, SITE_AREA,
+ SITE_ML_FACE, SITE_ML_BARY, SITE_ENV, SITE_ROUGH_M, SITE_COIN, SITE_ROUGH_T,
+ SITE_REFL, SITE_ROUGH_F) = range(14)
+_LIGHTS_PER_SITE = 256
+
+
+def _scale(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """Uniforms in [0, 1) to [lo, hi) as ``jax.random.uniform`` maps its
+    floats: u * (hi - lo) + lo, then max with lo."""
+    if lo == 0.0 and hi == 1.0:
+        return u
+    return torch.maximum(u * (hi - lo) + lo, torch.tensor(lo, device=u.device))
+
+
+class PhiloxDraws:
+    """The integrator's default draw source: Philox4x32-10 keyed by (seed,
+    sample), counter (the ray's index in the frame, iteration + 1, site *
+    256 + light, block); the four words of a block are four draws.  The
+    ray's index counts from ``ray0``, the index of a tile's first ray, so a
+    tile size changes no draw; the CPU and the card draw the same
+    numbers."""
+
+    def __init__(self, seed: int = 0, sample: int = 0, ray0: int = 0,
+                 device=None):
+        self.seed, self.sample, self.ray0 = int(seed), int(sample), int(ray0)
+        self.device = device
+
+    def to(self, device) -> "PhiloxDraws":
+        """The same draws, made on ``device``."""
+        return PhiloxDraws(self.seed, self.sample, self.ray0, device)
+
+    def _raw(self, it: int, site: int, r: int, n: int, light: int):
+        device = self.device
+        n_blocks = (n + 3) // 4
+        ray = torch.arange(self.ray0, self.ray0 + r, dtype=torch.int64,
+                           device=device)[:, None].expand(r, n_blocks)
+        blk = torch.arange(n_blocks, dtype=torch.int64,
+                           device=device)[None, :].expand(r, n_blocks)
+        fill = torch.full((r, n_blocks), 0, dtype=torch.int64, device=device)
+        words = philox4x32(ray, fill + (it + 1), fill + (
+            site * _LIGHTS_PER_SITE + light), blk, self.seed, self.sample)
+        return uniform_from_bits(torch.stack(words, dim=2)).reshape(
+            r, n_blocks * 4)[:, :n]
+
+    def uniform(self, it: int, site: int, r: int, n: int = 1, light: int = 0,
+                lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+        """(r, n) f32 uniforms in [lo, hi) of iteration ``it``, ``site`` and
+        ``light``."""
+        return _scale(self._raw(it, site, r, n, light), lo, hi)
+
+    def randint(self, it: int, site: int, r: int, hi: int,
+                light: int = 0) -> torch.Tensor:
+        """(r,) int64 uniform in [0, hi)."""
+        u = self._raw(it, site, r, 1, light)[:, 0]
+        return torch.clamp((u * hi).to(torch.int64), max=hi - 1)
+
+
+class TableDraws:
+    """A draw source that reads a table: ``table[(it, site, light)]`` is an
+    (R, n) array of uniforms in [0, 1) (mapped to [lo, hi) as
+    ``jax.random.uniform`` maps them) or, for ``randint``, an (R,) array of
+    integers.  The port's tests fill it with the JAX wavefront's own draws,
+    so the two integrators take the same randoms ray for ray."""
+
+    def __init__(self, table: dict, device=None):
+        self.table, self.device = table, device
+
+    def to(self, device) -> "TableDraws":
+        return TableDraws(self.table, device)
+
+    def _get(self, it, site, r, light):
+        x = self.table[(it, site, light)]
+        if len(x) != r:
+            raise ValueError(f"draw table: {len(x)} rays, asked for {r}")
+        return torch.as_tensor(x, device=self.device)
+
+    def uniform(self, it: int, site: int, r: int, n: int = 1, light: int = 0,
+                lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+        u = self._get(it, site, r, light).to(torch.float32)
+        return _scale(u.reshape(r, n), lo, hi)
+
+    def randint(self, it: int, site: int, r: int, hi: int,
+                light: int = 0) -> torch.Tensor:
+        return self._get(it, site, r, light).to(torch.int64).reshape(r)

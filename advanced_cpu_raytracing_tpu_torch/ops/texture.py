@@ -168,3 +168,17 @@ def perlin_sample(p, noise_scale, conversion, perm=None):
     ((n+1)/2), 1 absval (perlinTexture.h:127-132)."""
     n = perlin_raw(p * noise_scale[..., None], perm)
     return torch.where(conversion == 0, (n + 1.0) * 0.5, torch.abs(n))
+
+
+def atlas_fetch(atlas, img_idx, i, j):
+    """Integer texel fetch from the padded atlas: (R,) indices -> (R,3)
+    (the JAX ``atlas_fetch``)."""
+    return atlas[img_idx, j, i]
+
+
+def sample_image(atlas, img_w, img_h, img_idx, interp, u, v):
+    """An image sample per lane (the JAX ``sample_image``): ``interp`` (R,)
+    0 nearest, 1 bilinear."""
+    nearest = sample_nearest(atlas, img_w, img_h, img_idx, u, v)
+    bil = sample_bilinear(atlas, img_w, img_h, img_idx, u, v)
+    return torch.where((interp == 0)[..., None], nearest, bil)

@@ -1123,3 +1123,61 @@ def textured_pt_scene_xml(scenes_dir, out_dir, seed: int = 5) -> str:
     path = out / "feat_pt_textured.xml"
     path.write_text(xml)
     return str(path)
+
+
+# ---- the wavefront's main path (slice D1) ----
+
+# the torus standing in feat_pt.xml's box: 48 x 20 cells, 1,920 faces, so
+# that with the box's 12 the scene has 1,932 work items, within the 2,048 of
+# the wavefront's brute-force strategy (kernel K3); the CPU tests take the
+# coarse 96-face one
+PT_ENV_TORUS = dict(n_major=48, n_minor=20)
+PT_ENV_COARSE_TORUS = dict(n_major=8, n_minor=6)
+PT_ENV_TORUS_MATERIAL = """<Material id="5"><AmbientReflectance>0 0 0</AmbientReflectance>
+      <DiffuseReflectance>0.6 0.45 0.25</DiffuseReflectance>
+      <SpecularReflectance>0 0 0</SpecularReflectance></Material>
+  """
+PT_ENV_LENS = ("<ApertureSize>0.4</ApertureSize>"
+               "<FocusDistance>21</FocusDistance>")
+
+
+def pt_env_dof_scene_xml(scenes_dir, out_dir, torus=PT_ENV_TORUS,
+                         depth: int | None = None) -> str:
+    """``scenes_dir/feat_pt.xml`` (left as it is) with a diffuse torus of
+    ``torus`` cells (``torus_mesh``, resized to stand in the box: centre
+    (0, 3, -1), radii 2.2 and 0.8), the HDR sky ``scenes_dir/textures/
+    sky.hdr`` as a SphericalDirectionalLight (it reaches the inside through
+    the box's open front) and a thin lens focused on the torus.  Path
+    traced with NEE and importance sampling at feat_pt.xml's depth 4, or
+    ``depth``: outside the differentiable kernels on two counts (the env
+    light, the lens), so ``optimize`` takes the wavefront.  Written with its
+    mesh to ``out_dir``; returns the XML's path."""
+    scenes_dir = Path(scenes_dir)
+    out = _scene_dir(out_dir)
+    xml = (scenes_dir / "feat_pt.xml").read_text()
+    if "<Textures>" in xml or "ApertureSize" in xml:
+        raise ValueError("feat_pt.xml has textures or a lens")
+    name = "pt_env_dof_{n_major}x{n_minor}".format(**torus)
+    ply = out / f"{name}.ply"
+    ply.write_bytes(ply_bytes(*torus_mesh(
+        **torus, major=2.2, minor=0.8, center=(0.0, 3.0, -1.0))))
+    sky = (scenes_dir / "textures" / "sky.hdr").resolve()
+    xml = xml.replace("</NumSamples>", "</NumSamples>" + PT_ENV_LENS)
+    xml = xml.replace("<Lights></Lights>", """<Lights>
+    <SphericalDirectionalLight id="1"><ImageId>1</ImageId>
+    </SphericalDirectionalLight>
+  </Lights>
+  <Textures><Images><Image id="1">""" + str(sky) + """</Image></Images>
+  </Textures>""")
+    xml = xml.replace("</Materials>", PT_ENV_TORUS_MATERIAL + "</Materials>")
+    xml = xml.replace("</Objects>", f"""  <Mesh id="7"><Material>5</Material>
+      <Faces plyFile="{ply.name}"/></Mesh>
+  </Objects>""")
+    if depth is not None:
+        xml = re.sub(r"<MaxRecursionDepth>\d+</MaxRecursionDepth>",
+                     f"<MaxRecursionDepth>{depth}</MaxRecursionDepth>", xml)
+    if xml.count("SphericalDirectionalLight") != 2 or ply.name not in xml:
+        raise ValueError("feat_pt.xml: no empty <Lights> or no </Objects>")
+    path = out / (name + ("" if depth is None else f"_d{depth}") + ".xml")
+    path.write_text(xml)
+    return str(path)

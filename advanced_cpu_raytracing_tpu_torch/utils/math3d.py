@@ -63,3 +63,36 @@ def orthonormal_basis(r: Tensor) -> tuple[Tensor, Tensor]:
 def luminance(rgb: Tensor) -> Tensor:
     """Rec.709 luminance (src/tonemapper.h:42, 77)."""
     return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]
+
+
+def _as(x, like: Tensor) -> Tensor:
+    return x if torch.is_tensor(x) else torch.tensor(
+        x, dtype=like.dtype, device=like.device)
+
+
+def div(a, b) -> Tensor:
+    """a / b rounded once, as an IEEE division.  torch computes a tensor
+    over a Python number on the card as a product with the number's
+    reciprocal, and a number over a tensor as the tensor's reciprocal times
+    the number; each rounds twice."""
+    like = a if torch.is_tensor(a) else b
+    return torch.div(_as(a, like), _as(b, like))
+
+
+def maximum(a, b) -> Tensor:
+    """Elementwise max that takes Python numbers; at an exact tie its
+    gradient splits evenly between the two, as ``jnp.maximum``'s does
+    (``torch.clamp`` passes all of it)."""
+    like = a if torch.is_tensor(a) else b
+    return torch.maximum(_as(a, like), _as(b, like))
+
+
+def minimum(a, b) -> Tensor:
+    """Elementwise min; see ``maximum``."""
+    like = a if torch.is_tensor(a) else b
+    return torch.minimum(_as(a, like), _as(b, like))
+
+
+def clip(x: Tensor, lo, hi) -> Tensor:
+    """``jnp.clip``: min(max(x, lo), hi), with its gradient at ties."""
+    return minimum(maximum(x, lo), hi)

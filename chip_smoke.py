@@ -8,11 +8,13 @@ Phases, each printing one JSON line:
      csrc/mega_whitted.cu (K1a), csrc/mega_pt.cu (K1b, and K1c and K1d,
      each static and with motion) and csrc/mega_bwd.cu (K2a and K2b, each
      with its primal and its fwd+bwd instantiation, and their K2c texture
-     twins), with ptxas's register, frame and spill lines per kernel (kept
+     twins) and csrc/tri_intersect.cu (K3, the wavefront's dense closest
+     hit), with ptxas's register, frame and spill lines per kernel (kept
      beside a cached library); K1a must keep its 72 registers, K1b its 77,
      K1c its 84 (90 with motion), K1d its 123 (128 with motion), K2a its 72
-     (primal) and 128 (fwd+bwd) and K2b its 80 (primal) and 152 / 154
-     (fwd+bwd, flat / tree), and each has a tree instantiation (K1e);
+     (primal) and 128 (fwd+bwd), K2b its 80 (primal) and 152 / 154
+     (fwd+bwd, flat / tree) and K3 its 40, and each K1 and K2 kernel has a
+     tree instantiation (K1e);
   3. K1a against its plain torch version on 65,536 primary rays of
      scenes/whitted_conductors.xml (1 spp, no DoF), and on a ray along -z
      in the plane y = -10 of the first chunk's box (the room's floor), which
@@ -189,7 +191,45 @@ Phases, each printing one JSON line:
      and the textured steps counted; the path-traced twins timed on the
      textured feat_pt.xml; then one value-and-grad of sum(img^2)/n with
      respect to img_atlas at 1920x1080 on the 1,048,576-texel quad, the
-     median of 3 after a warm-up.
+     median of 3 after a warm-up;
+ 27. K3 (csrc/tri_intersect.cu, the wavefront's dense closest hit)
+     against its plain version (ops/tri_intersect.py::tri_closest_hit_ref)
+     bit for bit on t, the item index, beta and gamma, on 65,536 rays: the
+     camera rays of the slice D1 scene (scene/feature_scenes.py::
+     pt_env_dof_scene_xml: scenes/feat_pt.xml with a 1,920-face torus, the
+     HDR sky as an environment light and a thin lens; 1,932 work items)
+     against its item table and its shadow table, against feat_pt.xml's 12
+     items, rays through a random 2,048-item table with det = 0 items and
+     exact ties, and the motion scene's table with its motion rows and
+     random times;
+ 28. K3 at the main path's shape (phase 29's 640,000 rays, through the
+     lens, against the 1,932 items): time per launch (CUDA events, 5
+     launches), the plain version's time on the same rays, and the bound:
+     the FP32 operations of every ray x item test (61 each, counted in the
+     source) against the bytes of the rays, the table and the results;
+ 29. the slice's main path: diff/optimize.py::optimize on that scene at
+     800x800 (the pixel centres plus one fixed jitter: 640,000 rays), path
+     tracing at depth 4 with NEE and importance sampling, fields
+     mat_diffuse and ml_radiance at FEAT_PT_RATES, outside the fused
+     kernels on two counts (the env light, the lens), so optimize takes
+     the wavefront (torch autograd, K3 for every closest-hit and shadow
+     query): 6 Adam steps from the true parameters moved off by a fixed
+     seed toward the scene's own wavefront render at the true ones, every
+     step on the target's draws — with every counter at 0 before it, K3
+     must launch and no K1 or K2 kernel; the loss falls at every step;
+     then the step in a loop of its own with a fresh draw key per step
+     (optimize's default), one warm-up and 5 timed: the median step,
+     rays/s, K3's launches per step, the peak memory and the step's time
+     outside K3's launches;
+ 30. the wavefront's forward route: render_camera on that scene at depth
+     12 (above the megakernel's 10, so mega_missing routes it to the
+     wavefront), 800x800: one warm-up frame at 1 spp, then one timed frame
+     at 16 spp with the counters at 0 before it (K3 launches, no K1
+     kernel), in Mpaths/s; a Welch z-test over 8 per-seed means of the
+     depth-4 scene's 1-spp frame through the wavefront against K1d
+     (render_camera's megakernel route); and one BVH-strategy closest-hit
+     query's time on 65,536 camera rays of scenes/whitted_conductors.xml
+     (32,768 faces: the plain-torch walk of ops/traverse.py).
 Every phase line carries t_s, the seconds since the script started.
 Then the kernels line (each entry with its rays and the plain version's
 stride over them), the card line and, last, the result line.  Any
@@ -224,6 +264,7 @@ REPLACES = "advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py:912"
 REPLACES_K2 = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:428"
 # K2c: the texel cotangents of the same kernel (megabwd.py:1484-1564)
 REPLACES_K2C = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:1484"
+REPLACES_K3 = "advanced_cpu_raytracing_tpu/ops/pallas/tri_intersect.py:39"
 # registers of the K1a-K1d and K2a kernels since they were first measured;
 # the later variants' policies (motion, textures, the tree, K2b's template
 # flag) must not change their code
@@ -234,7 +275,7 @@ KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
                   "mega_bwd_primal_tree_kernel": 72, "mega_bwd_tree_kernel": 128,
                   "mega_bwd_primal_pt_kernel": 80, "mega_bwd_pt_kernel": 152,
                   "mega_bwd_primal_pt_tree_kernel": 80,
-                  "mega_bwd_pt_tree_kernel": 154}
+                  "mega_bwd_pt_tree_kernel": 154, "tri_intersect_kernel": 40}
 KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_ext_motion_kernel", "mega_tex_kernel",
                   "mega_tex_motion_kernel", "mega_whitted_tree_kernel",
@@ -249,7 +290,7 @@ KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_bwd_tex_tree_kernel", "mega_bwd_primal_pt_tex_kernel",
                   "mega_bwd_pt_tex_kernel",
                   "mega_bwd_primal_pt_tex_tree_kernel",
-                  "mega_bwd_pt_tex_tree_kernel")
+                  "mega_bwd_pt_tex_tree_kernel", "tri_intersect_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -304,6 +345,13 @@ GI_FLOPS, ADJ_GI_FLOPS = 90, 260
 # above) and its adjoint, the weight's cotangent and three scattered texel
 # cotangents (ADJ_TAP_FLOPS)
 TEX_FLOPS, ADJ_TEX_FLOPS, ADJ_TAP_FLOPS = 45, 70, 12
+# K3, counted in csrc/tri_intersect.cu: per ray x item test the 3
+# differences of b, the 27 products and differences of the three cross
+# terms, the 15 of the three determinants, the 3 divisions, beta + gamma and
+# 7 comparisons; motion adds 6
+K3_TEST_FLOPS, K3_MOTION_FLOPS = 61, 6
+# phase 30: the wavefront's frame against K1d's in expectation
+WELCH_Z, WELCH_SEEDS = 4.0, 8
 # K2a against its plain version: the cotangents are sums whose atomic order
 # changes from run to run, and the hand-derived adjoint rounds otherwise
 # than autograd
@@ -422,11 +470,15 @@ def main() -> int:
         FEAT_PT_RATES,
         GAUGE_RATES,
         optimize,
+        wavefront_value_and_grad,
     )
     from advanced_cpu_raytracing_tpu_torch.diff.params import inject_params
     from advanced_cpu_raytracing_tpu_torch.ops import _build
     from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
     from advanced_cpu_raytracing_tpu_torch.ops import megakernel as mk
+    from advanced_cpu_raytracing_tpu_torch.ops import rng as wrng
+    from advanced_cpu_raytracing_tpu_torch.ops import traverse
+    from advanced_cpu_raytracing_tpu_torch.ops import tri_intersect as k3
     from advanced_cpu_raytracing_tpu_torch.ops.rng import philox_table
     from advanced_cpu_raytracing_tpu_torch.post.writers import write_png
     from advanced_cpu_raytracing_tpu_torch.render import renderer
@@ -434,15 +486,21 @@ def main() -> int:
         build_camera,
         generate_rays,
     )
+    from advanced_cpu_raytracing_tpu_torch.render.integrator import (
+        trace_radiance,
+    )
     from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
         AREA_DEMO_XML,
         COARSE_TORUS,
         K1D_SAMPLED,
+        MOTION_ROUGH_XML,
+        PT_ENV_TORUS,
         gauge_scene_xml,
         k1c_scenes,
         k1d_scenes,
         path_traced,
         ply_bytes,
+        pt_env_dof_scene_xml,
         tex_bwd_scene_xml,
         texture_inverse_scene_xml,
         textured_pt_scene_xml,
@@ -468,17 +526,18 @@ def main() -> int:
          device_count=torch.cuda.device_count())
 
     def reset_counts():
-        for table in (mk.LAUNCHES, mb.LAUNCHES):
+        for table in (mk.LAUNCHES, mb.LAUNCHES, k3.LAUNCHES):
             for k in table:
                 table[k] = 0
 
     def counts() -> dict:
-        """Every kernel's launches since ``reset_counts``, K1's and K2a's."""
-        return {**mk.LAUNCHES, **mb.LAUNCHES}
+        """Every kernel's launches since ``reset_counts``: K1's, K2's and
+        K3's."""
+        return {**mk.LAUNCHES, **mb.LAUNCHES, **k3.LAUNCHES}
 
     # 2. build every source in parallel
     t0 = time.perf_counter()
-    libs = sorted(set(mk.LIBRARY.values()) | {mb.LIBRARY})
+    libs = sorted(set(mk.LIBRARY.values()) | {mb.LIBRARY, k3.LIBRARY})
     _build.build_all(libs)
     regs = {}
     for name in libs:
@@ -2027,6 +2086,278 @@ def main() -> int:
         stride, library=mb.LIBRARY, replaces=REPLACES_K2C),
         "scatter_ms": fb_ms - no_scatter_ms, "bound_counted_over": "chunks",
         "tree_twin_ms": tree_fb_ms, "pt_twin": pt_twins})
+
+    # 27. K3 against its plain version, bit for bit, on 65,536 rays of each
+    # table: the slice D1 scene's items and shadow items, feat_pt.xml's 12
+    # items, a random 2,048-item table with det = 0 items and ties, and the
+    # motion scene's items with their motion rows
+    d1_dir = out_dir / "d1"
+    d1_path = pt_env_dof_scene_xml(SCENES, d1_dir, torus=PT_ENV_TORUS)
+    cfg_d1 = load_scene(d1_path)
+    pack_d1 = pack_scene(cfg_d1, device=dev)
+    cam_d1 = build_camera(cfg_d1.cameras[0], device=dev)
+    st_d1 = pack_d1.static
+    if st_d1.use_bvh or st_d1.n_work_items != 12 + 1920:
+        raise AssertionError(f"slice D1 scene: {st_d1.n_work_items} work "
+                             f"items, use_bvh {st_d1.use_bvh}")
+    n27 = 65536
+    o27, d27 = primary_rays(cfg_d1.cameras[0], cam_d1, n27, seed=27)
+
+    def k3_check(what, o, d, v0, v1, v2, mo=None, tau=None):
+        got = k3.tri_closest_hit(o, d, v0, v1, v2, mo, tau)
+        ref = k3.tri_closest_hit_ref(o, d, v0, v1, v2, mo, tau)
+        torch.cuda.synchronize()
+        exact = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+        if not all(exact):
+            raise AssertionError(f"K3 on {what}: t, idx, beta, gamma equal "
+                                 f"{exact}")
+        hit = got[1] >= 0
+        return {"items": int(v0.shape[0]), "rays": int(o.shape[0]),
+                "hit_frac": float(hit.float().mean()), "exact": exact}
+
+    g27 = np.random.default_rng(27)
+    rnd = {}
+    for name in ("v0", "v1", "v2"):
+        rnd[name] = g27.uniform(-1.0, 1.0, (2048, 3)).astype(np.float32)
+    rnd["v1"] = rnd["v0"] + 0.6 * (rnd["v1"] - rnd["v0"])
+    rnd["v2"] = rnd["v0"] + 0.6 * (rnd["v2"] - rnd["v0"])
+    rnd["v1"][4::5] = rnd["v0"][4::5]  # det = 0
+    for name in ("v0", "v1", "v2"):
+        rnd[name][6::7] = rnd[name][0]  # exact ties with item 0
+    rv0, rv1, rv2 = (torch.as_tensor(rnd[k], device=dev)
+                     for k in ("v0", "v1", "v2"))
+    pick = torch.as_tensor(g27.integers(0, 2048, n27), device=dev)
+    ro = torch.as_tensor(g27.uniform(-0.3, 0.3, (n27, 3)).astype(np.float32)
+                         + np.float32([0, 0, 3]), device=dev)
+    rd = (rv0[pick] + 0.3 * (rv1[pick] - rv0[pick])
+          + 0.3 * (rv2[pick] - rv0[pick]) - ro).contiguous()
+    cfg_pt = load_scene(str(PT_SCENE))
+    pack_pt = pack_scene(cfg_pt, device=dev)
+    mo_path = d1_dir / "motion_rough.xml"
+    mo_path.write_text(MOTION_ROUGH_XML)
+    cfg_mo = load_scene(str(mo_path))
+    pack_mo = pack_scene(cfg_mo, device=dev)
+    o_mo, d_mo = primary_rays(cfg_mo.cameras[0], build_camera(
+        cfg_mo.cameras[0], device=dev), n27, seed=28)
+    tau = torch.rand(n27, generator=torch.Generator(device=dev).manual_seed(27),
+                     device=dev)
+    checks27 = {
+        "slice D1 scene, items": k3_check(
+            "the D1 items", o27, d27, pack_d1.wi_v0, pack_d1.wi_v1,
+            pack_d1.wi_v2),
+        "slice D1 scene, shadow items": k3_check(
+            "the D1 shadow items", o27, d27, pack_d1.ws_v0, pack_d1.ws_v1,
+            pack_d1.ws_v2),
+        "feat_pt.xml, 12 items": k3_check(
+            "feat_pt.xml", o27, d27, pack_pt.wi_v0, pack_pt.wi_v1,
+            pack_pt.wi_v2),
+        "random 2,048 items, det = 0 and ties": k3_check(
+            "the random table", ro, rd, rv0, rv1, rv2),
+        "motion scene, items with motion": k3_check(
+            "the motion table", o_mo, d_mo, pack_mo.wi_v0, pack_mo.wi_v1,
+            pack_mo.wi_v2, pack_mo.wi_motion, tau),
+    }
+    if checks27["random 2,048 items, det = 0 and ties"]["hit_frac"] < 0.2:
+        raise AssertionError(f"K3 random table: {checks27}")
+    emit("k3_check", kernel="tri_intersect", checks=checks27, card=card)
+    del ro, rd, o_mo, d_mo, tau
+
+    # the main path's rays: the pixel centres plus one fixed jitter,
+    # through the lens of the main path's draws
+    cam_cfg = cfg_d1.cameras[0]
+    w, h = cam_cfg.width, cam_cfg.height
+    idx = torch.arange(w * h, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    jit = torch.rand((w * h, 2), generator=gen, device=dev)
+    px29 = (idx % w).float() + jit[:, 0]
+    py29 = (idx // w).float() + jit[:, 1]
+    n29 = w * h
+    draws29 = wrng.PhiloxDraws(0, device=dev)
+    lens = draws29.uniform(-1, wrng.SITE_LENS, n29, 2, lo=-1.0, hi=1.0)
+    o28, d28 = (t.contiguous() for t in generate_rays(cam_d1, px29, py29, lens,
+                                                      dof=True))
+
+    # 28. K3 at the main path's shape
+    k3_ms = cuda_ms(lambda: k3.tri_closest_hit(o28, d28, pack_d1.wi_v0,
+                                               pack_d1.wi_v1, pack_d1.wi_v2), 5)
+    got28 = k3.tri_closest_hit(o28, d28, pack_d1.wi_v0, pack_d1.wi_v1,
+                               pack_d1.wi_v2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref28 = k3.tri_closest_hit_ref(o28, d28, pack_d1.wi_v0, pack_d1.wi_v1,
+                                   pack_d1.wi_v2)
+    torch.cuda.synchronize()
+    k3_plain_ms = (time.perf_counter() - t0) * 1e3
+    exact28 = [bool(torch.equal(a, b)) for a, b in zip(got28, ref28)]
+    if not all(exact28):
+        raise AssertionError(f"K3 at the main path's shape: equal {exact28}")
+    hit28 = got28[1] >= 0
+    err28 = max(float((got28[0][hit28] - ref28[0][hit28]).abs().max()),
+                float((got28[2] - ref28[2]).abs().max()),
+                float((got28[3] - ref28[3]).abs().max()))
+    w28 = int(pack_d1.wi_v0.shape[0])
+    k3_flops = n29 * w28 * K3_TEST_FLOPS
+    k3_bytes = n29 * (24 + 16) + w28 * 36
+    bd28 = {"flops": k3_flops, "bytes": k3_bytes,
+            "ops_ms": k3_flops / PEAK_FP32_FLOPS * 1e3,
+            "bytes_ms": k3_bytes / PEAK_BYTES_S * 1e3}
+    bd28["bound_ms"] = max(bd28["ops_ms"], bd28["bytes_ms"])
+    bd28["bound_by"] = ("operations" if bd28["ops_ms"] >= bd28["bytes_ms"]
+                        else "bytes")
+    emit("kernel_at_main_shape", kernel="tri_intersect",
+         scene="slice D1 (feat_pt.xml + 1,920-face torus + sky + lens)",
+         rays=n29, items=w28, ms=k3_ms, plain_ms=k3_plain_ms, exact=exact28,
+         hit_frac=float(hit28.float().mean()), bound=bd28,
+         frac_of_bound=bd28["bound_ms"] / k3_ms, card=card)
+    del got28, ref28, o28, d28
+
+    # 29. the slice's main path: optimize through the wavefront, 6 Adam
+    # steps on the target's draws
+    opts29 = renderer.options_for_camera(cfg_d1, cam_cfg)
+    missing29 = mb.bwd_missing(st_d1, opts29, pack_d1)
+    if missing29 != ["an environment light"] or not cam_d1.use_dof:
+        raise AssertionError(f"slice D1 scene inside the fused kernels: "
+                             f"{missing29}, DoF {cam_d1.use_dof}")
+    fields29 = ("mat_diffuse", "ml_radiance")
+    rates29 = {k: FEAT_PT_RATES[k] for k in fields29}
+    g29 = np.random.default_rng(7)
+    start29 = {
+        "mat_diffuse": pack_d1.mat_diffuse * torch.as_tensor(g29.uniform(
+            0.7, 1.1, tuple(pack_d1.mat_diffuse.shape)).astype(np.float32),
+            device=dev),
+        "ml_radiance": pack_d1.ml_radiance * 1.2}
+    steps29 = 6
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        target29 = trace_radiance(pack_d1, cam_d1, px29, py29, draws29, opts29)
+    _, history29 = optimize(inject_params(pack_d1, start29), cam_d1, px29, py29,
+                            opts29, target29, fields29, steps=steps29,
+                            lr=rates29, device=dev, draws=[draws29] * steps29)
+    torch.cuda.synchronize()
+    total29 = time.perf_counter() - t0
+    launches29 = counts()
+    k3_launches = launches29["tri_intersect"]
+    others = {k: v for k, v in launches29.items() if v and k != "tri_intersect"}
+    if others or not k3_launches:
+        raise AssertionError(f"slice D1 main path: launches {launches29}")
+    if not (all(math.isfinite(x) for x in history29)
+            and all(b < a for a, b in zip(history29, history29[1:]))):
+        raise AssertionError(f"slice D1 main path: loss history {history29}")
+    # the step in a loop of its own, a fresh draw key each step (optimize's
+    # default): one warm-up and 5 timed; K3's launches and time per step
+    w_opts = dataclasses.replace(opts29, differentiable=True)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in start29.items()}
+    adam = torch.optim.Adam([{"params": [params[k]], "lr": rates29[k]}
+                             for k in fields29])
+    step_s, fresh_history, k3_per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(6):
+        torch.cuda.synchronize()
+        n_k3 = k3.LAUNCHES["tri_intersect"]
+        t1 = time.perf_counter()
+        adam.zero_grad(set_to_none=True)
+        fresh_history.append(wavefront_value_and_grad(
+            pack_d1, cam_d1, px29, py29, w_opts, target29, params,
+            wrng.PhiloxDraws(0, sample=i, device=dev)))
+        adam.step()
+        torch.cuda.synchronize()
+        k3_per_step.append(k3.LAUNCHES["tri_intersect"] - n_k3)
+        if i:
+            step_s.append(time.perf_counter() - t1)
+    peak29 = torch.cuda.max_memory_allocated()
+    del params, adam
+    step_med = sorted(step_s)[len(step_s) // 2]
+    k3_step_ms = k3_per_step[-1] * k3_ms  # its launches at phase 28's time
+    emit("main_path", kernel="tri_intersect (wavefront, torch autograd)",
+         scene="slice D1: feat_pt.xml + 1,920-face torus + sky.hdr env "
+               "light + thin lens", width=w, height=h, rays=n29,
+         depth=opts29.max_depth, fields=list(fields29), lr=rates29,
+         steps=steps29, loss_history=history29,
+         fresh_draws_loss_history=fresh_history, step_s=step_s,
+         step_s_median=step_med, mrays_per_s=n29 / step_med / 1e6,
+         k3_launches_per_step=k3_per_step, k3_ms_per_step=k3_step_ms,
+         step_ms_outside_k3=step_med * 1e3 - k3_step_ms,
+         peak_memory_gb=peak29 / 1e9,
+         total_s_with_setup=total29,
+         launches={k: v for k, v in launches29.items() if v}, card=card)
+    del target29
+
+    # 30. the forward route: render_camera at depth 12 through the
+    # wavefront; the depth-4 frame against K1d in expectation; one BVH query
+    d12_path = pt_env_dof_scene_xml(SCENES, d1_dir, torus=PT_ENV_TORUS,
+                                    depth=12)
+    cfg12 = load_scene(d12_path)
+    pack12 = pack_scene(cfg12, device=dev)
+    opts12 = renderer.options_for_camera(cfg12, cfg12.cameras[0])
+    if mk.mega_missing(pack12.static, opts12, pack12) != ["depth above 10"]:
+        raise AssertionError("the depth-12 scene is inside the megakernel")
+    renderer.render_camera(pack12, cfg12, cfg12.cameras[0], spp=1, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame12 = renderer.render_camera(pack12, cfg12, cfg12.cameras[0], spp=16,
+                                     device=dev)
+    frame_s = time.perf_counter() - t0
+    launches30 = counts()
+    if (any(v for k, v in launches30.items() if k != "tri_intersect")
+            or not launches30["tri_intersect"]):
+        raise AssertionError(f"depth-12 frame: launches {launches30}")
+    if not (frame12.shape == (h, w, 3) and np.isfinite(frame12).all()
+            and frame12.mean() > 1.0):
+        raise AssertionError(f"depth-12 frame: {frame12.shape}, mean "
+                             f"{frame12.mean()}")
+    write_png(str(out_dir / "pt_env_dof_d12.png"),
+              renderer.ldr_from_radiance(frame12))
+    # Welch z over per-seed frame means (1 spp, 800x800): the wavefront
+    # against K1d (the verify notes: per-seed means, not per-lane sigmas)
+    means = {"wavefront": [], "K1d": []}
+    mc_d1 = renderer._mega_build_cached(pack_d1, opts29, dev)[0]
+    if mc_d1.kernel != "mega_tex":
+        raise AssertionError(f"depth-4 scene routes to {mc_d1.kernel}")
+    for seed in range(WELCH_SEEDS):
+        wf = renderer._render_image_wavefront(pack_d1, cam_d1, opts29, 1, w, h,
+                                              seed, None)
+        means["wavefront"].append(float(wf.double().mean()))
+        k1 = renderer.render_camera(pack_d1, cfg_d1, cam_cfg, seed=seed, spp=1,
+                                    device=dev)
+        means["K1d"].append(float(k1.astype(np.float64).mean()))
+    a, b = np.array(means["wavefront"]), np.array(means["K1d"])
+    z = float((a.mean() - b.mean()) / math.sqrt(
+        a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b)))
+    if not abs(z) < WELCH_Z:
+        raise AssertionError(f"wavefront vs K1d frame means: z {z}, {means}")
+    # one BVH-strategy query: the 32,768-face torus of whitted_conductors.xml
+    cfg_w = load_scene(str(WHITTED_SCENE))
+    pack_w = pack_scene(cfg_w, device=dev)
+    if not pack_w.static.use_bvh:
+        raise AssertionError("whitted_conductors.xml takes the brute strategy")
+    o30, d30 = primary_rays(cfg_w.cameras[0], build_camera(
+        cfg_w.cameras[0], device=dev), 65536, seed=30)
+    traverse.closest_hit(pack_w, o30[:1024], d30[:1024])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hit30 = traverse.closest_hit(pack_w, o30, d30)
+    torch.cuda.synchronize()
+    bvh_s = time.perf_counter() - t0
+    emit("main_path", kernel="tri_intersect (wavefront forward)",
+         scene="slice D1 at depth 12", width=w, height=h, spp=16,
+         frame_s=frame_s, mpaths_per_s=w * h * 16 / frame_s / 1e6,
+         frame_mean=float(frame12.mean()),
+         launches={k: v for k, v in launches30.items() if v},
+         welch={"z": z, "seeds": WELCH_SEEDS, **means},
+         bvh_query={"scene": "whitted_conductors.xml", "faces":
+                    pack_w.static.n_faces, "rays": 65536, "s": bvh_s,
+                    "hit_frac": float(hit30.valid.float().mean())}, card=card)
+    del frame12, hit30, o30, d30
+    kernels.append({**kernel_entry(
+        "tri_intersect", k3_launches, k3_ms, k3_plain_ms, bd28,
+        {"max_abs_err": err28}, n29, 1, library=k3.LIBRARY,
+        replaces=REPLACES_K3), "items": w28})
+
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

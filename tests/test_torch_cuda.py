@@ -96,7 +96,10 @@ def test_wrapper_checks_inputs(cuda, tmp_path):
 
 def test_scene_outside_envelope_raises_on_cuda(cuda, tmp_path):
     """A textured scene renders through K1d on the card; with a pluggable
-    BRDF added it is outside the envelope and raises, naming that."""
+    BRDF added it is outside the envelope, naming that, and renders through
+    the wavefront: K3 launches, no K1 kernel does, and the frame is the
+    CPU's."""
+    from advanced_cpu_raytracing_tpu_torch.ops import tri_intersect as k3
     from PIL import Image
     from scene_builders import textured_xml
 
@@ -116,9 +119,18 @@ def test_scene_outside_envelope_raises_on_cuda(cuda, tmp_path):
         "<Materials>", "<BRDFs><OriginalPhong id=\"1\"><Exponent>20"
         "</Exponent></OriginalPhong></BRDFs><Materials>"))
     cfg = load_scene(str(path))
-    with pytest.raises(NotImplementedError, match="textures together with"):
-        render_camera(pack_scene(cfg, device=cuda), cfg, cfg.cameras[0],
-                      device=cuda)
+    pack = pack_scene(cfg, device=cuda)
+    missing = mk.mega_missing(pack.static, options_for_camera(
+        cfg, cfg.cameras[0]), pack)
+    assert len(missing) == 1 and "textures together with" in missing[0]
+    before, k3_before = dict(mk.LAUNCHES), k3.LAUNCHES["tri_intersect"]
+    img = render_camera(pack, cfg, cfg.cameras[0], spp=1, device=cuda)
+    assert mk.LAUNCHES == before
+    assert k3.LAUNCHES["tri_intersect"] > k3_before
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    ref = render_camera(pack_scene(cfg, device="cpu"), cfg, cfg.cameras[0],
+                        spp=1, device="cpu")
+    np.testing.assert_allclose(img, ref, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("name", ["feat_pt.xml", "feat_pt_spec.xml"])
@@ -621,3 +633,82 @@ def test_optimize_recovers_a_texture_through_the_k2c_kernel(cuda, tmp_path):
                      device="cpu"), px.cpu(), py.cpu(), opts, target.cpu(),
         ("img_atlas",), steps=3, lr=4.0, device="cpu")
     np.testing.assert_allclose(hist, hist_cpu, rtol=1e-3)
+
+
+# ---- K3, the dense closest hit of the wavefront (slice D1) ----
+
+
+def _k3_table(w, seed, dev):
+    """Items around the origin with det = 0 rows (every 5th) and exact ties
+    (every 7th a copy of item 0)."""
+    g = np.random.default_rng(seed)
+    v0 = g.uniform(-1.0, 1.0, (w, 3)).astype(np.float32)
+    v1 = (v0 + g.uniform(-0.6, 0.6, (w, 3))).astype(np.float32)
+    v2 = (v0 + g.uniform(-0.6, 0.6, (w, 3))).astype(np.float32)
+    v1[4::5] = v0[4::5]
+    for v in (v0, v1, v2):
+        v[6::7] = v[0]
+    return [torch.tensor(x, device=dev) for x in (v0, v1, v2)]
+
+
+@pytest.mark.parametrize("w", [1, 12, 300, 2048])
+@pytest.mark.parametrize("motion", [False, True])
+def test_k3_kernel_matches_plain_version(cuda, w, motion):
+    """Bit for bit: the same arithmetic in the same order, IEEE division,
+    no FMA contraction."""
+    from advanced_cpu_raytracing_tpu_torch.ops import tri_intersect as k3
+
+    v0, v1, v2 = _k3_table(w, w, cuda)
+    g = np.random.default_rng(w)
+    n = 20000
+    o = torch.tensor(g.uniform(-0.3, 0.3, (n, 3)).astype(np.float32) + np.float32(
+        [0, 0, 3]), device=cuda)
+    k = torch.as_tensor(g.integers(0, w, n), device=cuda)
+    d = (v0[k] + 0.3 * (v1[k] - v0[k]) + 0.3 * (v2[k] - v0[k]) - o).contiguous()
+    mo = {}
+    if motion:
+        mo = dict(motion=torch.tensor(g.normal(0, 0.2, (w, 3)).astype(np.float32),
+                                      device=cuda),
+                  time=torch.rand(n, device=cuda))
+    before = k3.LAUNCHES["tri_intersect"]
+    got = k3.tri_closest_hit(o, d, v0, v1, v2, **mo)
+    ref = k3.tri_closest_hit_ref(o, d, v0, v1, v2, **mo)
+    assert k3.LAUNCHES["tri_intersect"] == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert (got[1] >= 0).float().mean() > 0.2 or w == 1
+
+
+def test_optimize_goes_through_k3(cuda, tmp_path):
+    """The wavefront fallback of ``optimize`` on the main path's scene
+    (coarse torus, 4,096 rays, 2 steps): K3 launches, no K1 or K2 kernel
+    does, and the loss history is the CPU's."""
+    import dataclasses
+
+    from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+    from advanced_cpu_raytracing_tpu_torch.ops import tri_intersect as k3
+    from advanced_cpu_raytracing_tpu_torch.scene import feature_scenes as fs
+
+    path = fs.pt_env_dof_scene_xml(REPO / "scenes", tmp_path,
+                                   torus=fs.PT_ENV_COARSE_TORUS)
+    cfg = load_scene(path)
+    opts = dataclasses.replace(options_for_camera(cfg, cfg.cameras[0]),
+                               max_iters=6)
+    g = np.random.default_rng(3)
+    px = g.uniform(0, 800, 4096).astype(np.float32)
+    py = g.uniform(0, 800, 4096).astype(np.float32)
+    target = g.uniform(0, 300, (4096, 3)).astype(np.float32)
+    hist = {}
+    for dev in (cuda, torch.device("cpu")):
+        pack = pack_scene(cfg, device=dev)
+        before = (dict(mk.LAUNCHES), dict(mb.LAUNCHES),
+                  k3.LAUNCHES["tri_intersect"])
+        _, hist[dev.type] = optimize(
+            pack, build_camera(cfg.cameras[0], device=dev), px, py, opts,
+            target, ("mat_diffuse", "ml_radiance"), steps=2, lr=1e-2,
+            device=dev)
+        assert mk.LAUNCHES == before[0] and mb.LAUNCHES == before[1]
+        launched = k3.LAUNCHES["tri_intersect"] - before[2]
+        assert launched > 0 if dev.type == "cuda" else launched == 0
+    np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-3)

@@ -175,18 +175,25 @@ def test_optimize_on_the_cpu_matches_the_jax_loss_history(gauge):
 
 
 def test_optimize_refuses_what_k2a_does_not_cover(gauge, tmp_path):
+    """A scene outside the fused kernels (here marked as moving) and a
+    camera with depth of field take the wavefront fallback: the loss falls
+    over two steps, and no K2 launch is counted."""
     cfg = gauge["cfg"]
     cam = build_camera(cfg.cameras[0], device="cpu")
-    opts = options_for_camera(cfg, cfg.cameras[0])
+    opts = dataclasses.replace(options_for_camera(cfg, cfg.cameras[0]),
+                               max_depth=DEPTH)
     args = (gauge["px"], gauge["py"])
     moving = dataclasses.replace(gauge["pack"], static=dataclasses.replace(
         gauge["pack"].static, has_motion=True))
-    with pytest.raises(NotImplementedError, match="motion blur"):
-        optimize(moving, cam, *args, opts, gauge["target"], FIELDS, steps=1,
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="depth-of-field"):
-        optimize(gauge["pack"], dataclasses.replace(cam, use_dof=True), *args,
-                 opts, gauge["target"], FIELDS, steps=1, device="cpu")
+    assert "motion blur" in mb.bwd_missing(moving.static, opts)
+    before = dict(mb.LAUNCHES)
+    lens = dataclasses.replace(cam, use_dof=True, aperture=torch.tensor(0.2),
+                               focus_distance=torch.tensor(30.0))
+    for pack, camera in ((moving, cam), (gauge["pack"], lens)):
+        _, h = optimize(pack, camera, *args, opts, gauge["target"], FIELDS,
+                        steps=2, lr=5e-2, device="cpu")
+        assert len(h) == 2 and np.isfinite(h).all() and h[1] < h[0], h
+    assert mb.LAUNCHES == before
 
 
 def test_bwd_missing_names_each_gate_and_keeps_no_tpu_cap(gauge):

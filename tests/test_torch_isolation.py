@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing every module of it loads
 neither JAX nor the JAX package, needs neither triton nor a CUDA card, and
 its entry points (the renderer, the differentiable render's ``optimize``,
-``make_diff_render`` and ``mega_bwd_trace``, and the inverse-rendering
-tool) refuse to fall back to the CPU when no card is there."""
+``make_diff_render`` and ``mega_bwd_trace``, K3's ``tri_closest_hit`` and
+the inverse-rendering tool) refuse to fall back to the CPU when no card is
+there."""
 
 from __future__ import annotations
 
@@ -29,11 +30,19 @@ bad = sorted(k for k in sys.modules
              or k == "advanced_cpu_raytracing_tpu"
              or k.startswith("advanced_cpu_raytracing_tpu."))
 assert not bad, bad
-# the modules of slice C3 among them
+# the modules of slices C3 and D1 (the wavefront and K3) among them
 assert {"advanced_cpu_raytracing_tpu_torch.tools.inverse_render",
         "advanced_cpu_raytracing_tpu_torch.scene.feature_scenes",
-        "advanced_cpu_raytracing_tpu_torch.ops.megabwd"} <= set(names)
+        "advanced_cpu_raytracing_tpu_torch.ops.megabwd",
+        "advanced_cpu_raytracing_tpu_torch.ops.intersect",
+        "advanced_cpu_raytracing_tpu_torch.ops.tri_intersect",
+        "advanced_cpu_raytracing_tpu_torch.ops.brdf",
+        "advanced_cpu_raytracing_tpu_torch.ops.traverse",
+        "advanced_cpu_raytracing_tpu_torch.render.shading",
+        "advanced_cpu_raytracing_tpu_torch.render.lights",
+        "advanced_cpu_raytracing_tpu_torch.render.integrator"} <= set(names)
 
+import dataclasses
 from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
 from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
 from advanced_cpu_raytracing_tpu_torch.render.camera import build_camera
@@ -58,6 +67,11 @@ for call in (lambda: pack_scene(cfg),
              lambda: mb.mega_bwd_trace(mb.build_bwd_consts(cpu_pack, opts),
                                        None, None, None),
              lambda: inverse_render.run("texture", steps=1, spp=1, res=8),
+             # the wavefront's scene: optimize's fallback and the route
+             lambda: optimize(cpu_pack, dataclasses.replace(cam, use_dof=True),
+                              [0.5], [0.5], opts, [[0, 0, 0]],
+                              ("mat_diffuse",), steps=1),
+             lambda: render_camera(cpu_pack, cfg, cfg.cameras[0], tile_size=8),
              lambda: inverse_render.main(["--texture", "--steps", "1"])):
     try:
         call()
@@ -75,7 +89,7 @@ def test_port_imports_alone_without_cuda_or_triton():
         [sys.executable, "-c", _PROBE, str(REPO / "scenes" / "feat_pt.xml")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 33
+    assert int(proc.stdout.split()[-1]) >= 40
 
 
 def test_port_sources_import_nothing_of_jax():

@@ -385,8 +385,8 @@ _GATES = {
 @pytest.mark.parametrize("gate", list(_GATES))
 def test_mega_missing_names_each_remaining_gate(tmp_path, gate):
     """The Perlin scene stays inside the envelope; each change puts it
-    outside with one entry that says what to remove, and rendering it
-    raises naming that."""
+    outside with one entry that says what to remove, and it renders through
+    the wavefront (at 16x12, 1 spp) with no K1 launch."""
     mutate, words = _GATES[gate]
     xml = mutate(fs.PERLIN_XML)
     assert xml != fs.PERLIN_XML
@@ -397,8 +397,12 @@ def test_mega_missing_names_each_remaining_gate(tmp_path, gate):
     missing = mk.mega_missing(pack.static, options_for_camera(
         cfg, cfg.cameras[0]), pack)
     assert len(missing) == 1 and words in missing[0], missing
-    with pytest.raises(NotImplementedError, match=re.escape(words)):
-        render_camera(pack, cfg, cfg.cameras[0], device="cpu")
+    cfg.cameras[0].width, cfg.cameras[0].height = 16, 12
+    before = dict(mk.LAUNCHES)
+    frame = render_camera(pack, cfg, cfg.cameras[0], spp=1, device="cpu")
+    assert mk.LAUNCHES == before
+    assert frame.shape == (12, 16, 3) and np.isfinite(frame).all()
+    assert frame.max() > 0
 
 
 def test_mega_missing_names_streamed_geometry():

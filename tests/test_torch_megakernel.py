@@ -127,8 +127,9 @@ def test_mega_eligible_accepts_path_tracing(name):
 def test_mega_eligible_accepts_spot_area_and_env_lights(tmp_path):
     """Spot and area lights are inside the envelope since K1c, and an
     environment light since K1d: the scene with both routes to the K1d
-    variant and renders on the CPU; a second environment light is refused,
-    and only for that."""
+    variant and renders on the CPU; a second environment light puts it
+    outside, and only for that: it renders through the wavefront, with no
+    K1 launch."""
     cfg = load_scene(str(REPO / "scenes" / "feat_spotareaml.xml"))
     pack = pack_scene(cfg, device="cpu")
     opts = options_for_camera(cfg, cfg.cameras[0])
@@ -159,13 +160,35 @@ def test_mega_eligible_accepts_spot_area_and_env_lights(tmp_path):
     pack = pack_scene(cfg, device="cpu")
     assert mk.mega_missing(pack.static, opts, pack) == [
         "more than one environment light"]
-    with pytest.raises(NotImplementedError, match="environment light"):
-        render_camera(pack, cfg, cfg.cameras[0], device="cpu")
+    assert_wavefront_frame(pack, cfg, (9, 12, 3))
+
+
+def assert_wavefront_frame(pack, cfg, shape):
+    """A finite 1-spp frame of a scene outside the megakernel, through the
+    wavefront: neither the kernels nor their plain version run, and no
+    launch is counted."""
+    from advanced_cpu_raytracing_tpu_torch.render import renderer
+
+    before = dict(mk.LAUNCHES)
+
+    def no_megakernel(*args, **kw):
+        raise AssertionError("the megakernel ran on a scene outside it")
+
+    mega_trace = renderer.mega_trace
+    renderer.mega_trace = no_megakernel
+    try:
+        frame = render_camera(pack, cfg, cfg.cameras[0], spp=1, device="cpu")
+    finally:
+        renderer.mega_trace = mega_trace
+    assert mk.LAUNCHES == before
+    assert frame.shape == shape and np.isfinite(frame).all()
+    assert frame.max() > 0
 
 
 def test_mega_eligible_rejects_textures(tmp_path):
-    """Image and Perlin textures route to the K1d variant since K1d; the
-    same scene is refused once a pluggable BRDF shades it, naming that."""
+    """Image and Perlin textures route to the K1d variant since K1d; once a
+    pluggable BRDF shades the same scene it is outside, naming that, and
+    renders through the wavefront."""
     img = tmp_path / "checker.png"
     Image.fromarray(np.kron(np.eye(2, dtype=np.uint8) * 255, np.ones(
         (4, 4), np.uint8))[..., None].repeat(3, -1)).save(img)
@@ -186,8 +209,8 @@ def test_mega_eligible_rejects_textures(tmp_path):
     pack = pack_scene(cfg, device="cpu")
     missing = mk.mega_missing(pack.static, opts, pack)
     assert len(missing) == 1 and "pluggable BRDF" in missing[0]
-    with pytest.raises(NotImplementedError, match="textures together with"):
-        render_camera(pack, cfg, cfg.cameras[0], device="cpu")
+    assert "textures together with" in missing[0]
+    assert_wavefront_frame(pack, cfg, (8, 8, 3))
 
 
 def test_scene_without_materials_renders_with_the_default_row(tmp_path):
