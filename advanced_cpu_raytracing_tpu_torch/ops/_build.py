@@ -108,6 +108,12 @@ _SIGNATURES = {
             _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]),
         "tri_intersect_error_string": (ctypes.c_char_p, [_I]),
     },
+    "bigtex_gather": {
+        # idx, tab, n_lanes, taps, n_tab; out; stream
+        "bigtex_gather_launch": (
+            _I, [_P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _P, _P]),
+        "bigtex_gather_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 

@@ -28,6 +28,11 @@ differentiates the rest; the loop stops once every stack is empty, where
 the JAX package runs a fixed trip count (reverse mode cannot cross its
 ``lax.while_loop``): the iterations it adds are fully masked and add
 nothing.
+
+Two named ranges mark the forward's parts in a ``torch.profiler`` trace
+(``utils/profiling.py::device_trace``): ``wavefront.stack`` (the pushes and
+pops) and ``wavefront.lights`` (direct lighting and the env light's
+lookups).  Outside a trace they cost a few microseconds a call.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from advanced_cpu_raytracing_tpu_torch.ops import rng
 from advanced_cpu_raytracing_tpu_torch.ops.traverse import (
@@ -156,6 +162,7 @@ def _make_stack(r: int, k: int, device) -> _Stack:
     return _Stack(f, z, z, torch.zeros(r, dtype=torch.int64, device=device))
 
 
+@record_function("wavefront.stack")
 def _push(stack: _Stack, mask, o, d, w, absorb, medium, depth, envmiss,
           primary=None) -> _Stack:
     """Push one entry on each masked ray's stack, at its stack pointer (a
@@ -177,6 +184,7 @@ def _push(stack: _Stack, mask, o, d, w, absorb, medium, depth, envmiss,
     return _Stack(f, dep, fl, stack.sp + mask.long())
 
 
+@record_function("wavefront.stack")
 def _pop(stack: _Stack):
     """Pop the top entry of each ray's stack: (stack, active, (o, d, w,
     absorb, medium, depth, envmiss, primary)).  A ray with an empty stack
@@ -311,9 +319,10 @@ def _process_hit(pack, opts: RenderOptions, o, d, w_in, absorb, medium, depth,
         contrib = pack.ambient_light * mr.ambient
         if (st.n_point + st.n_area + st.n_env + st.n_directional + st.n_spot
                 + st.n_mesh_lights) > 0:
-            contrib = contrib + direct_lighting(
-                pack, surf, w_o, time, draws, it, skip_ml, mat_rows=mr,
-                differentiable=opts.differentiable)
+            with record_function("wavefront.lights"):
+                contrib = contrib + direct_lighting(
+                    pack, surf, w_o, time, draws, it, skip_ml, mat_rows=mr,
+                    differentiable=opts.differentiable)
         L = L + torch.where(lit[:, None], w * contrib, 0.0)
 
     can_recurse = depth > 0
@@ -475,7 +484,8 @@ def primary_miss_color(pack, cam, px, py, d):
         ti = torch.full((r,), st.bg_tex, dtype=torch.int64, device=px.device)
         return _sample_tex_rgb(pack, ti, uv)
     if st.has_env:
-        return env_sample_radiance(pack, d)
+        with record_function("wavefront.lights"):
+            return env_sample_radiance(pack, d)
     return pack.bg_color.expand(r, 3)
 
 
@@ -514,8 +524,10 @@ def trace_radiance(pack, cam, px, py, draws, opts: RenderOptions):
         missed = active & ~hit.valid
         L = L + torch.where((missed & eprim)[:, None], ew * miss_col, 0.0)
         if st.has_env:
-            L = L + torch.where((missed & ~eprim & eenv)[:, None],
-                                ew * env_sample_radiance(pack, ed), 0.0)
+            with record_function("wavefront.lights"):
+                env = env_sample_radiance(pack, ed)
+            L = L + torch.where((missed & ~eprim & eenv)[:, None], ew * env,
+                                0.0)
         L, stack = _process_hit(pack, opts, eo, ed, ew, eabs, emed, edep, time,
                                 draws, it, hit, L, stack)
     return L

@@ -8,13 +8,14 @@ Phases, each printing one JSON line:
      csrc/mega_whitted.cu (K1a), csrc/mega_pt.cu (K1b, and K1c and K1d,
      each static and with motion) and csrc/mega_bwd.cu (K2a and K2b, each
      with its primal and its fwd+bwd instantiation, and their K2c texture
-     twins) and csrc/tri_intersect.cu (K3, the wavefront's dense closest
-     hit), with ptxas's register, frame and spill lines per kernel (kept
-     beside a cached library); K1a must keep its 72 registers, K1b its 77,
-     K1c its 84 (90 with motion), K1d its 123 (128 with motion), K2a its 72
-     (primal) and 128 (fwd+bwd), K2b its 80 (primal) and 152 / 154
-     (fwd+bwd, flat / tree) and K3 its 40, and each K1 and K2 kernel has a
-     tree instantiation (K1e);
+     twins), csrc/tri_intersect.cu (K3, the wavefront's dense closest
+     hit) and csrc/bigtex_gather.cu (K4, the big-texture probe's
+     gather-sum), with ptxas's register, frame and spill lines per kernel
+     (kept beside a cached library); K1a must keep its 72 registers, K1b
+     its 77, K1c its 84 (90 with motion), K1d its 123 (128 with motion),
+     K2a its 72 (primal) and 128 (fwd+bwd), K2b its 80 (primal) and 152 /
+     154 (fwd+bwd, flat / tree), K3 its 40 and K4 its 27, and each K1
+     and K2 kernel has a tree instantiation (K1e);
   3. K1a against its plain torch version on 65,536 primary rays of
      scenes/whitted_conductors.xml (1 spp, no DoF), and on a ray along -z
      in the plane y = -10 of the first chunk's box (the room's floor), which
@@ -220,7 +221,14 @@ Phases, each printing one JSON line:
      then the step in a loop of its own with a fresh draw key per step
      (optimize's default), one warm-up and 5 timed: the median step,
      rays/s, K3's launches per step, the peak memory and the step's time
-     outside K3's launches;
+     outside K3's launches; then one more step (a fresh key) inside
+     utils/profiling.py::device_trace (torch.profiler, a Chrome trace in a
+     temporary directory): the 15 ops (by input shapes) and the 15
+     kernels with the most device time, with their counts, and the step's
+     device time split into K3, the autograd pass, the stack and the lights
+     (the integrator's wavefront.stack and wavefront.lights ranges), the
+     other gathers and scatters, and the other (elementwise) ops, beside
+     the timed step;
  30. the wavefront's forward route: render_camera on that scene at depth
      12 (above the megakernel's 10, so mega_missing routes it to the
      wavefront), 800x800: one warm-up frame at 1 spp, then one timed frame
@@ -229,7 +237,26 @@ Phases, each printing one JSON line:
      depth-4 scene's 1-spp frame through the wavefront against K1d
      (render_camera's megakernel route); and one BVH-strategy closest-hit
      query's time on 65,536 camera rays of scenes/whitted_conductors.xml
-     (32,768 faces: the plain-torch walk of ops/traverse.py).
+     (32,768 faces: the plain-torch walk of ops/traverse.py);
+ 31. K4 (csrc/bigtex_gather.cu, the big-texture probe's gather-sum)
+     against its plain version (ops/bigtex_gather.py::gather_sum_ref), bit
+     for bit, on the two configurations the JAX probe asserts (512 rows,
+     taps 1, spread 4, 64 blocks; 8,192 rows, taps 4, spread 16, 512
+     blocks), on the frame-size one (tools/probe_bigtex.py::FRAME:
+     10,240,000 lanes, taps 4, spread 64, 393,216 rows) and on edge lanes
+     (index 0, the last index, a tap repeated in a lane, indices outside
+     the table: NaN in both); at the frame size K4's time per launch with
+     L2 flushed (a 256 MB write before each of 64 launches, CUDA events,
+     the median), embedding_bag's (the same PyTorch function in one call)
+     time the same way and its error, the plain version's time on the card,
+     and the bound (the indices, the output and each touched 32-byte
+     table sector, moved once);
+ 32. the slice's main path: the port's tools/probe_bigtex.py::run on the
+     card for the JAX probe's __main__ configurations (the two asserted,
+     the sweep over spread 8, 64, 256) and the frame-size one — with every
+     counter at 0 before it, K4 must launch 1 + 1 + iters times per
+     configuration (the check, the warm-up, the timed loop) and nothing
+     else; each err within the JAX probe's asserts (1e-6, 1e-5).
 Every phase line carries t_s, the seconds since the script started.
 Then the kernels line (each entry with its rays and the plain version's
 stride over them), the card line and, last, the result line.  Any
@@ -265,9 +292,10 @@ REPLACES_K2 = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:428"
 # K2c: the texel cotangents of the same kernel (megabwd.py:1484-1564)
 REPLACES_K2C = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:1484"
 REPLACES_K3 = "advanced_cpu_raytracing_tpu/ops/pallas/tri_intersect.py:39"
-# registers of the K1a-K1d and K2a kernels since they were first measured;
-# the later variants' policies (motion, textures, the tree, K2b's template
-# flag) must not change their code
+REPLACES_K4 = "tools/probe_bigtex.py:31"
+# registers of the K1a-K1d, K2, K3 and K4 kernels since they were first
+# measured; the later variants' policies (motion, textures, the tree, K2b's
+# template flag) must not change their code
 KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
                   "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90,
                   "mega_tex_kernel": 123, "mega_tex_motion_kernel": 128,
@@ -275,7 +303,8 @@ KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
                   "mega_bwd_primal_tree_kernel": 72, "mega_bwd_tree_kernel": 128,
                   "mega_bwd_primal_pt_kernel": 80, "mega_bwd_pt_kernel": 152,
                   "mega_bwd_primal_pt_tree_kernel": 80,
-                  "mega_bwd_pt_tree_kernel": 154, "tri_intersect_kernel": 40}
+                  "mega_bwd_pt_tree_kernel": 154, "tri_intersect_kernel": 40,
+                  "bigtex_gather_kernel": 27}
 KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_ext_motion_kernel", "mega_tex_kernel",
                   "mega_tex_motion_kernel", "mega_whitted_tree_kernel",
@@ -290,7 +319,8 @@ KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_bwd_tex_tree_kernel", "mega_bwd_primal_pt_tex_kernel",
                   "mega_bwd_pt_tex_kernel",
                   "mega_bwd_primal_pt_tex_tree_kernel",
-                  "mega_bwd_pt_tex_tree_kernel", "tri_intersect_kernel")
+                  "mega_bwd_pt_tex_tree_kernel", "tri_intersect_kernel",
+                  "bigtex_gather_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -462,6 +492,88 @@ def registers(ptxas: str) -> dict:
     return out
 
 
+# ops whose kernels read or write at computed indices (the gathers and
+# scatters of the shading's table lookups; the stack's own are under its
+# range)
+GATHER_OPS = frozenset((
+    "aten::index", "aten::index_select", "aten::gather", "aten::take",
+    "aten::take_along_dim", "aten::scatter", "aten::scatter_",
+    "aten::scatter_add", "aten::scatter_add_", "aten::index_put",
+    "aten::index_put_", "aten::_index_put_impl_", "aten::index_add",
+    "aten::index_add_", "aten::index_copy_", "aten::index_fill_",
+    "aten::masked_scatter_", "aten::masked_select", "aten::nonzero",
+    "aten::embedding"))
+SPLIT_PARTS = ("K3", "autograd pass", "stack (wavefront.stack)",
+               "lights (wavefront.lights)", "other gathers and scatters",
+               "elementwise and other ops", "other kernels")
+
+
+def device_split(prof) -> dict:
+    """A traced section's device time in ms by part, each kernel counted
+    once: K3's kernels; the kernels of ops under an autograd engine node
+    (the reverse pass); then, of the forward's ops, those inside the
+    integrator's ``wavefront.stack`` and ``wavefront.lights`` ranges, the
+    other gathers and scatters (GATHER_OPS and the ops under them), and the
+    rest (mostly elementwise); and kernels that no op launched."""
+    from torch.autograd import DeviceType
+
+    ms = dict.fromkeys(SPLIT_PARTS, 0.0)
+    kernels_us = 0.0
+    for e in prof.events():
+        if e.is_user_annotation:  # a range, not a kernel
+            continue
+        if e.device_type == DeviceType.CUDA:
+            kernels_us += e.device_time_total
+            if "tri_intersect" in e.name:
+                ms["K3"] += e.device_time_total / 1e3
+            continue
+        own = e.self_device_time_total - sum(
+            k.duration for k in e.kernels if "tri_intersect" in k.name)
+        if own <= 0:
+            continue
+        names, p = [], e
+        while p is not None:
+            names.append(p.name)
+            p = p.cpu_parent
+        if any(n.startswith("autograd::engine::evaluate_function")
+               for n in names):
+            part = "autograd pass"
+        elif "wavefront.stack" in names:
+            part = "stack (wavefront.stack)"
+        elif "wavefront.lights" in names:
+            part = "lights (wavefront.lights)"
+        elif any(n in GATHER_OPS for n in names):
+            part = "other gathers and scatters"
+        else:
+            part = "elementwise and other ops"
+        ms[part] += own / 1e3
+    ms["other kernels"] = kernels_us / 1e3 - sum(ms.values())
+    return {"total_device_ms": kernels_us / 1e3, "parts_ms": ms}
+
+
+def top_device(prof, n: int = 15) -> dict:
+    """The ``n`` ops (by the device time of their own kernels, per input
+    shapes) and the ``n`` kernels with the most device time, with their
+    counts."""
+    from torch.autograd import DeviceType
+
+    ops = sorted((r for r in prof.key_averages(group_by_input_shape=True)
+                  if r.device_type == DeviceType.CPU
+                  and r.self_device_time_total > 0),
+                 key=lambda r: -r.self_device_time_total)[:n]
+    kern = sorted((r for r in prof.key_averages()
+                   if r.device_type == DeviceType.CUDA
+                   and not r.is_user_annotation),
+                  key=lambda r: -r.device_time_total)[:n]
+    return {"ops": [{"op": r.key[:100], "shapes": str(r.input_shapes)[:160],
+                     "count": r.count,
+                     "device_ms": r.self_device_time_total / 1e3}
+                    for r in ops],
+            "kernels": [{"kernel": r.key[:100], "count": r.count,
+                         "device_ms": r.device_time_total / 1e3}
+                        for r in kern]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -477,6 +589,7 @@ def main() -> int:
     from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
     from advanced_cpu_raytracing_tpu_torch.ops import megakernel as mk
     from advanced_cpu_raytracing_tpu_torch.ops import rng as wrng
+    from advanced_cpu_raytracing_tpu_torch.ops import bigtex_gather as k4
     from advanced_cpu_raytracing_tpu_torch.ops import traverse
     from advanced_cpu_raytracing_tpu_torch.ops import tri_intersect as k3
     from advanced_cpu_raytracing_tpu_torch.ops.rng import philox_table
@@ -510,7 +623,8 @@ def main() -> int:
     from advanced_cpu_raytracing_tpu_torch.scene.synth import terrain_scene
     from advanced_cpu_raytracing_tpu_torch.scene.types import SceneConfig
     from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
-    from advanced_cpu_raytracing_tpu_torch.tools import inverse_render
+    from advanced_cpu_raytracing_tpu_torch.tools import inverse_render, probe_bigtex
+    from advanced_cpu_raytracing_tpu_torch.utils import profiling
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -526,18 +640,19 @@ def main() -> int:
          device_count=torch.cuda.device_count())
 
     def reset_counts():
-        for table in (mk.LAUNCHES, mb.LAUNCHES, k3.LAUNCHES):
+        for table in (mk.LAUNCHES, mb.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES):
             for k in table:
                 table[k] = 0
 
     def counts() -> dict:
-        """Every kernel's launches since ``reset_counts``: K1's, K2's and
-        K3's."""
-        return {**mk.LAUNCHES, **mb.LAUNCHES, **k3.LAUNCHES}
+        """Every kernel's launches since ``reset_counts``: K1's, K2's, K3's
+        and K4's."""
+        return {**mk.LAUNCHES, **mb.LAUNCHES, **k3.LAUNCHES, **k4.LAUNCHES}
 
     # 2. build every source in parallel
     t0 = time.perf_counter()
-    libs = sorted(set(mk.LIBRARY.values()) | {mb.LIBRARY, k3.LIBRARY})
+    libs = sorted(set(mk.LIBRARY.values())
+                  | {mb.LIBRARY, k3.LIBRARY, k4.LIBRARY})
     _build.build_all(libs)
     regs = {}
     for name in libs:
@@ -2269,8 +2384,28 @@ def main() -> int:
         if i:
             step_s.append(time.perf_counter() - t1)
     peak29 = torch.cuda.max_memory_allocated()
+    # one more step (a fresh key) in a profiler trace: where the device time
+    # goes, op by op, beside the timed steps
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        with profiling.device_trace(tdir) as prof:
+            adam.zero_grad(set_to_none=True)
+            wavefront_value_and_grad(
+                pack_d1, cam_d1, px29, py29, w_opts, target29, params,
+                wrng.PhiloxDraws(0, sample=6, device=dev))
+            adam.step()
+            torch.cuda.synchronize()
+        trace_files = [f.stat().st_size for f in Path(tdir).iterdir()]
     del params, adam
     step_med = sorted(step_s)[len(step_s) // 2]
+    split29 = device_split(prof)
+    if len(trace_files) != 1 or not split29["parts_ms"]["K3"] > 0:
+        raise AssertionError(f"profiled step: trace files {trace_files}, "
+                             f"split {split29}")
+    emit("profiled_step", scene="slice D1", top=top_device(prof),
+         **split29, device_busy_frac_of_timed_step=(
+             split29["total_device_ms"] / (step_med * 1e3)),
+         trace_mb=trace_files[0] / 1e6, card=card)
+    del prof
     k3_step_ms = k3_per_step[-1] * k3_ms  # its launches at phase 28's time
     emit("main_path", kernel="tri_intersect (wavefront, torch autograd)",
          scene="slice D1: feat_pt.xml + 1,920-face torus + sky.hdr env "
@@ -2357,6 +2492,113 @@ def main() -> int:
         "tri_intersect", k3_launches, k3_ms, k3_plain_ms, bd28,
         {"max_abs_err": err28}, n29, 1, library=k3.LIBRARY,
         replaces=REPLACES_K3), "items": w28})
+
+    # 31. K4 against its plain version, bit for bit (NaN lanes alike): the
+    # JAX probe's two asserted configurations, the frame-size one and edge
+    # lanes; at the frame size K4's, embedding_bag's and the plain version's
+    # times with L2 flushed, and the bound
+    def k4_check(what, idx, tab):
+        got = k4.gather_sum(idx, tab)
+        ref = k4.gather_sum_ref(idx, tab)
+        torch.cuda.synchronize()
+        ok = ~torch.isnan(ref)
+        if not (torch.equal(torch.isnan(got), ~ok)
+                and torch.equal(got[ok], ref[ok])):
+            raise AssertionError(f"K4 on {what}: differs from its plain "
+                                 f"version")
+        return {"lanes": got.numel(), "taps": int(idx.shape[0]),
+                "nan_lanes": int((~ok).sum()),
+                "max_abs_err": float((got[ok] - ref[ok]).abs().max())}
+
+    def k4_inputs(cfg):
+        return probe_bigtex.make_inputs(
+            cfg["n_rows"], cfg["taps"], cfg["spread"], cfg["blocks"], seed=31,
+            device=dev)
+
+    checks31 = {}
+    for (cfg, _), what in zip(probe_bigtex.ASSERTED,
+                              ("JAX asserted 1", "JAX asserted 2")):
+        checks31[what] = k4_check(what, *k4_inputs(cfg))
+    idx31, tab31 = k4_inputs(probe_bigtex.ASSERTED[0][0])
+    n31 = tab31.numel()
+    edge31 = torch.tensor(
+        [[0, n31 - 1, 5, 5, 3, -1, n31, 2**31 - 1, -2**31, 9],
+         [0, n31 - 1, 5, 5, 3, 4, 7, 1, 2, n31 + 5],
+         [0, n31 - 1, 5, 9, 3, 4, 7, 1, 2, 0]], dtype=torch.int32, device=dev)
+    checks31["edge lanes"] = k4_check("the edge lanes", edge31, tab31)
+    if checks31["edge lanes"]["nan_lanes"] != 5:
+        raise AssertionError(f"K4 edge lanes: {checks31['edge lanes']}")
+    frame = probe_bigtex.FRAME
+    idx31, tab31 = k4_inputs(frame)
+    checks31["frame size"] = k4_check("the frame-size configuration", idx31,
+                                      tab31)
+    taps31, lanes31 = idx31.shape[0], idx31[0].numel()
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+
+    def flushed_ms(fn, reps):
+        """Median time of one call after a 256 MB write (L2 is 50 MB)."""
+        fn()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for i, (a, b) in enumerate(ev):
+            flush.fill_(float(i))
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        return sorted(a.elapsed_time(b) for a, b in ev)[reps // 2]
+
+    k4_ms = flushed_ms(lambda: k4.gather_sum(idx31, tab31), 64)
+    k4_plain_ms = flushed_ms(lambda: k4.gather_sum_ref(idx31, tab31), 16)
+    bags31 = idx31.reshape(taps31, -1).T.contiguous()
+    col31 = tab31.reshape(-1, 1)
+
+    def embedding_bag():
+        return torch.nn.functional.embedding_bag(bags31, col31, mode="sum")
+
+    lib_ms = flushed_ms(embedding_bag, 64)
+    ref31 = k4.gather_sum_ref(idx31, tab31).reshape(-1)
+    lib_err = float((embedding_bag()[:, 0] - ref31).abs().max())
+    # the indices and the output moved once, and each touched 32-byte
+    # sector of the table read once, at PEAK_BYTES_S
+    bd31 = probe_bigtex.traffic(idx31)
+    emit("k4_check", kernel="bigtex_gather", checks=checks31,
+         frame=dict(frame), ms=k4_ms, plain_ms=k4_plain_ms,
+         embedding_bag_ms=lib_ms, embedding_bag_max_abs_err=lib_err,
+         bound=bd31, frac_of_bound=bd31["bound_ms"] / k4_ms,
+         timing="one call after a 256 MB write, CUDA events, median of 64 "
+                "(plain: 16)", card=card)
+    del idx31, tab31, bags31, col31, ref31, flush
+
+    # 32. the slice's main path: the port's probe tool on the card, the JAX
+    # probe's __main__ configurations and the frame-size one
+    runs32, lines32 = [], []
+    reset_counts()
+    for cfg, tol in probe_bigtex.CONFIGS:
+        before = k4.LAUNCHES["bigtex_gather"]
+        res = probe_bigtex.run(**cfg, device=dev, log=lines32.append)
+        launched = k4.LAUNCHES["bigtex_gather"] - before
+        if launched != 2 + res["iters"]:
+            raise AssertionError(f"probe {cfg}: K4 launched {launched} times, "
+                                 f"expected {2 + res['iters']}")
+        if not res["err"] < (1e-5 if tol is None else tol):
+            raise AssertionError(f"probe {cfg}: err {res['err']}")
+        runs32.append(res)
+    launches32 = counts()
+    if any(v for k, v in launches32.items() if k != "bigtex_gather"):
+        raise AssertionError(f"probe: launches {launches32}")
+    emit("main_path", kernel="bigtex_gather (tools/probe_bigtex.py)",
+         runs=runs32, lines=lines32,
+         launches={k: v for k, v in launches32.items() if v}, card=card)
+    kernels.append({
+        "name": "bigtex_gather", "route": "cuda",
+        "source": f"advanced_cpu_raytracing_tpu_torch/csrc/{k4.LIBRARY}.cu",
+        "replaces": REPLACES_K4, "launches": launches32["bigtex_gather"],
+        "max_abs_err": checks31["frame size"]["max_abs_err"], "ms": k4_ms,
+        "plain_ms": k4_plain_ms, "bound_ms": bd31["bound_ms"],
+        "bound_by": bd31["bound_by"], "library_ms": lib_ms,
+        "library": "torch.nn.functional.embedding_bag(mode='sum')",
+        "lanes": lanes31, "taps": taps31, "l2_flushed": True})
 
 
     print(json.dumps({"kernels": kernels}), flush=True)

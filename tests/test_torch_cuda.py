@@ -712,3 +712,43 @@ def test_optimize_goes_through_k3(cuda, tmp_path):
         launched = k3.LAUNCHES["tri_intersect"] - before[2]
         assert launched > 0 if dev.type == "cuda" else launched == 0
     np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-3)
+
+
+# ---- K4, the big-texture gather probe's gather-sum (slice E1) ----
+
+
+@pytest.mark.parametrize("taps,spread,n_rows,blocks",
+                         [(1, 4, 512, 64), (4, 16, 8192, 512), (4, 256, 8192, 7)])
+def test_k4_kernel_matches_plain_version(cuda, taps, spread, n_rows, blocks):
+    """Bit for bit: the same sums in the same tap order; lanes with an
+    index outside the table NaN in both."""
+    from advanced_cpu_raytracing_tpu_torch.ops import bigtex_gather as k4
+    from advanced_cpu_raytracing_tpu_torch.tools.probe_bigtex import make_inputs
+
+    idx, tab = make_inputs(n_rows, taps, spread, blocks, seed=taps, device=cuda)
+    n = tab.numel()
+    edge = idx.reshape(taps, -1)
+    edge[:, :4] = torch.tensor([0, n - 1, -1, n], dtype=torch.int32,
+                               device=cuda)[None]
+    before = k4.LAUNCHES["bigtex_gather"]
+    got = k4.gather_sum(idx, tab)
+    ref = k4.gather_sum_ref(idx, tab)
+    assert k4.LAUNCHES["bigtex_gather"] == before + 1
+    assert got.shape == (blocks, 8, 128)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    ok = ~torch.isnan(ref)
+    assert torch.equal(got[ok], ref[ok])
+    assert int(torch.isnan(ref).sum()) == 2
+    with pytest.raises(ValueError, match="int32"):
+        k4.gather_sum(idx.long(), tab)
+
+
+def test_probe_goes_through_k4(cuda):
+    from advanced_cpu_raytracing_tpu_torch.ops import bigtex_gather as k4
+    from advanced_cpu_raytracing_tpu_torch.tools import probe_bigtex
+
+    before = k4.LAUNCHES["bigtex_gather"]
+    res = probe_bigtex.run(n_rows=512, taps=2, spread=8, blocks=16, iters=3,
+                           device=cuda, log=lambda s: None)
+    assert k4.LAUNCHES["bigtex_gather"] == before + 1 + 1 + 3
+    assert res["err"] == 0.0 and res["device"].startswith("cuda")

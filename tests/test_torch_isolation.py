@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing every module of it loads
 neither JAX nor the JAX package, needs neither triton nor a CUDA card, and
 its entry points (the renderer, the differentiable render's ``optimize``,
-``make_diff_render`` and ``mega_bwd_trace``, K3's ``tri_closest_hit`` and
-the inverse-rendering tool) refuse to fall back to the CPU when no card is
+``make_diff_render`` and ``mega_bwd_trace``, K3's ``tri_closest_hit``, the
+inverse-rendering tool and the big-texture probe) refuse to fall back to the CPU when no card is
 there."""
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ bad = sorted(k for k in sys.modules
              or k == "advanced_cpu_raytracing_tpu"
              or k.startswith("advanced_cpu_raytracing_tpu."))
 assert not bad, bad
-# the modules of slices C3 and D1 (the wavefront and K3) among them
+# the modules of slices C3, D1 (the wavefront and K3) and E1 (K4, the
+# probe and the profiling helpers) among them
 assert {"advanced_cpu_raytracing_tpu_torch.tools.inverse_render",
         "advanced_cpu_raytracing_tpu_torch.scene.feature_scenes",
         "advanced_cpu_raytracing_tpu_torch.ops.megabwd",
@@ -40,7 +41,10 @@ assert {"advanced_cpu_raytracing_tpu_torch.tools.inverse_render",
         "advanced_cpu_raytracing_tpu_torch.ops.traverse",
         "advanced_cpu_raytracing_tpu_torch.render.shading",
         "advanced_cpu_raytracing_tpu_torch.render.lights",
-        "advanced_cpu_raytracing_tpu_torch.render.integrator"} <= set(names)
+        "advanced_cpu_raytracing_tpu_torch.render.integrator",
+        "advanced_cpu_raytracing_tpu_torch.tools.probe_bigtex",
+        "advanced_cpu_raytracing_tpu_torch.ops.bigtex_gather",
+        "advanced_cpu_raytracing_tpu_torch.utils.profiling"} <= set(names)
 
 import dataclasses
 from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
@@ -52,7 +56,7 @@ from advanced_cpu_raytracing_tpu_torch.render.renderer import (
 )
 from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
 from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
-from advanced_cpu_raytracing_tpu_torch.tools import inverse_render
+from advanced_cpu_raytracing_tpu_torch.tools import inverse_render, probe_bigtex
 cfg = load_scene(sys.argv[1])
 cpu_pack = pack_scene(cfg, device="cpu")
 opts = options_for_camera(cfg, cfg.cameras[0])
@@ -72,7 +76,9 @@ for call in (lambda: pack_scene(cfg),
                               [0.5], [0.5], opts, [[0, 0, 0]],
                               ("mat_diffuse",), steps=1),
              lambda: render_camera(cpu_pack, cfg, cfg.cameras[0], tile_size=8),
-             lambda: inverse_render.main(["--texture", "--steps", "1"])):
+             lambda: inverse_render.main(["--texture", "--steps", "1"]),
+             lambda: probe_bigtex.run(n_rows=64, blocks=1, iters=1),
+             lambda: probe_bigtex.main(["--n-rows", "64", "--blocks", "1"])):
     try:
         call()
     except RuntimeError as e:
