@@ -12,7 +12,7 @@ SoA node table:
 
 Interior nodes have count == 0 (mesh.cpp:125).  The face permutation makes
 consecutive faces spatially coherent, which the megakernel's 128-face chunk
-culls and its tree's 16-row leaves rely on.
+culls and its tree's leaves of consecutive rows rely on.
 
 From ``NATIVE_MIN_FACES`` faces, as in the JAX package (its accel/bvh.py),
 the build runs in ``native/bvh_builder.cpp``: compiled with g++ at first use

@@ -14,22 +14,34 @@
 // before the test, as the TPU kernel does (lines 1379-1382, 1421-1425).
 //
 // They take the geometry as a type too.  FlatChunks sweeps the 128-face
-// chunks in table order, for scenes up to 98,304 faces.  ChunkTree (K1e)
-// replaces the TPU kernel's streamed two-level sweep over larger tables
-// (chunk_sweep's stream_geo branch, lines 1481-1526, its DMA from HBM at
-// 2725-2777): each thread walks a BVH over leaves of at most 16 consecutive
-// rows (ops/megakernel.py::_tree_table) with a stack of TREE_STACK node
-// indices in local memory, nearer child first, culled by slab tests that
-// keep a box whose face plane the ray runs in.  The walk visits faces out
-// of row order, so the closest hit keeps a node while its entry is <=
-// t_best and takes a face at t < t_best, or at t == t_best from a lower
-// row: the sequential sweep's winner, the lowest row among the closest
-// faces.  Bound: on the 524,288-face terrain the bytes of its tables, each
-// read once (tri_tab 33.5 MB, the tree 2 MB), just above the FP32 work of
-// the nodes and faces the walks visit (ops/megakernel.py::TreeWalker counts
-// them); a query reads only its path's nodes and leaves, so the table need
-// not fit the 50 MB L2, but the walks diverge and each node load waits on
-// the last.
+// chunks in table order: the TPU kernel's layout, which keeps at most
+// 98,304 faces in VMEM and sweeps a chunk across its 128 lanes.  On the
+// card that sweep slab-tests every chunk box of the table for every query
+// and runs all 128 face tests of each chunk the ray enters below t_best,
+// in table order, so a closest hit cannot stop early and the lanes of a
+// warp wait for the one that entered the most boxes: on the 32,768-face
+// torus scenes of K1a and K1c it ran at 2.6-3.2% of its FP32 bound
+// (PERF.md).  ChunkTree (K1e) walks a BVH instead, and the forward route
+// takes it for every scene past one chunk (ops/megakernel.py::
+// FWD_FLAT_MAX_FACES); FlatChunks stays for a scene of one chunk, whose
+// sweep is one brute loop, and for K2's tables below 98,304 faces.  The
+// tree (ops/megakernel.py::_tree_table) has leaves of at most 4
+// consecutive rows and nodes of NODE_W = 4 children: a node is its
+// children's boxes SoA and their references, 128 bytes, one cache line
+// read as eight 16-byte loads, so a step costs one line where a binary
+// node cost four dependent loads, and the tree is half as deep.  Each
+// thread walks it with a stack of TREE_STACK entries in local memory
+// (the host checks the tree's need: the most its walk can push); the
+// children in reach are visited nearest first by entry distance.  The
+// slab test keeps a box whose face plane the ray runs in.  The walk visits
+// faces out of row order, so the closest hit keeps a child while its entry
+// is <= t_best and takes a face at t < t_best, or at t == t_best from a
+// lower row: the sequential sweep's winner, the lowest row among the
+// closest faces, bit for bit.  Bound: the FP32 work of the box and face
+// tests the walk does (ops/megakernel.py::TreeWalker counts them, 22 per
+// box and 38 per face) above the bytes of what it reads once (the lines of
+// the nodes visited, the vertices of the rows tested, the winners' rows);
+// the walks of a warp still diverge, and each node load waits on the last.
 
 #pragma once
 
@@ -49,11 +61,15 @@ constexpr int MAT_MIRROR = 1, MAT_DIELECTRIC = 2, MAT_CONDUCTOR = 3,
               MAT_EMISSIVE = 4;
 constexpr int FLAG_MIRROR = 1, FLAG_DIELECTRIC = 2, FLAG_CONDUCTOR = 4;
 constexpr int THREADS = 128;
-constexpr int NODE_COLS = 8;     // tree node: min xyz, max xyz, then two
-                                 // int32: interior: second child (the first
-                                 // is the next node), 0; leaf: first row,
-                                 // row count (1..16)
-constexpr int TREE_STACK = 64;   // the walk's stack; the host checks depth
+constexpr int NODE_W = 4;        // children per tree node
+constexpr int NODE_COLS = 8 * NODE_W;  // a tree node, 128 bytes: its
+                                 // children's boxes SoA (min x, y, z, max x,
+                                 // y, z: NODE_W f32 each), then per child an
+                                 // int32 code (a node's row; ~(first row << 5
+                                 // | row count) for a leaf; 0: no child) and
+                                 // the row count the host reads
+constexpr int TREE_STACK = 64;   // the walk's stack entries; the host checks
+                                 // the tree's need
 
 struct Params {
   const float* tri;
@@ -353,8 +369,8 @@ __device__ __forceinline__ bool slab(const float* box, float px, float py,
   return tmax > 0.0f && tmax >= tmin && tmin < t_b;
 }
 
-// The geometry of trace and shadow: the 128-face chunks in table order
-// (K1a-K1d), or the tree over 16-row leaves (K1e).
+// The geometry of trace and shadow: the 128-face chunks in table order,
+// or the tree (K1e).
 struct FlatChunks {
   static constexpr bool kTree = false;
 };
@@ -362,42 +378,51 @@ struct ChunkTree {
   static constexpr bool kTree = true;
 };
 
-// The slab test of a node's box (lo: min xyz, max x; hi: max yz): the
-// ray's entry distance, or +inf where the ray misses the box.
-__device__ __forceinline__ float slab_entry(const float4 lo, const float4 hi,
+// The slab test of one child's box (its six planes): the ray's entry
+// distance, or +inf where the ray misses the box.
+__device__ __forceinline__ float slab_entry(float lox, float loy, float loz,
+                                            float hix, float hiy, float hiz,
                                             float px, float py, float pz,
                                             float ivx, float ivy, float ivz) {
   float tmin, tmax, t_in, t_out;
-  slab_axis(lo.x, lo.w, px, ivx, tmin, tmax);
-  slab_axis(lo.y, hi.x, py, ivy, t_in, t_out);
+  slab_axis(lox, hix, px, ivx, tmin, tmax);
+  slab_axis(loy, hiy, py, ivy, t_in, t_out);
   tmin = fmaxf(tmin, t_in);
   tmax = fminf(tmax, t_out);
-  slab_axis(lo.z, hi.y, pz, ivz, t_in, t_out);
+  slab_axis(loz, hiz, pz, ivz, t_in, t_out);
   tmin = fmaxf(tmin, t_in);
   tmax = fminf(tmax, t_out);
   return tmax > 0.0f && tmax >= tmin ? tmin : __int_as_float(0x7f800000);
 }
 
+// Word j of a 16-byte load (j known at compile time)
+__device__ __forceinline__ float lane(const float4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ int lane(const int4 v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
 // The tree walk (K1e).  kAny: any face hit below tb (the shadow limit),
 // skipping emissive faces with kSkipEmissive; returns at the first.  Else
 // the closest hit: tb and best become the lowest row among the closest
-// faces, as the sequential sweep finds it.
+// faces, as the sequential sweep finds it.  A node is one 128-byte line:
+// its children's boxes, tested together, and those in reach visited
+// nearest first (the others pushed, the farthest deepest).
 template <bool kAny, bool kSkipEmissive, class M>
 __device__ bool tree_walk(const Params& P, const M& mo, float px, float py,
                           float pz, float vx, float vy, float vz, float& tb,
                           int& best) {
   const float ivx = 1.0f / vx, ivy = 1.0f / vy, ivz = 1.0f / vz;
-  int stack[TREE_STACK];
-  float stack_t[TREE_STACK];
+  const float inf = __int_as_float(0x7f800000);
+  // the stack: a child's code and its entry distance
+  int2 stk[TREE_STACK];
   int sp = 0;
-  int node = 0;
-  float4 lo = ld4(P.nodes), hi = ld4(P.nodes + 4);
-  float t_in = slab_entry(lo, hi, px, py, pz, ivx, ivy, ivz);
-  if (kAny ? !(t_in < tb) : !(t_in <= tb)) return false;
+  // in hand: node ref (cnt 0), or the leaf of rows ref .. ref + cnt - 1
+  int ref = 0, cnt = 0;
   while (true) {
-    const int a = __float_as_int(hi.z), cnt = __float_as_int(hi.w);
-    if (cnt > 0) {  // a leaf: rows a .. a + cnt - 1
-      for (int f = a; f < a + cnt; ++f) {
+    if (cnt > 0) {
+      for (int f = ref; f < ref + cnt; ++f) {
         const float* r = P.tri + f * TRI_COLS;
         float t;
         if constexpr (kAny) {
@@ -415,41 +440,67 @@ __device__ bool tree_walk(const Params& P, const M& mo, float px, float py,
           }
         }
       }
-    } else {  // interior: children node + 1 and a, the nearer one first
-      const float* nl = P.nodes + (node + 1) * NODE_COLS;
-      const float* nr = P.nodes + a * NODE_COLS;
-      const float4 llo = ld4(nl), lhi = ld4(nl + 4);
-      const float4 rlo = ld4(nr), rhi = ld4(nr + 4);
-      const float tl = slab_entry(llo, lhi, px, py, pz, ivx, ivy, ivz);
-      const float tr = slab_entry(rlo, rhi, px, py, pz, ivx, ivy, ivz);
-      const bool hl = kAny ? tl < tb : tl <= tb;
-      const bool hr = kAny ? tr < tb : tr <= tb;
-      if (hl && hr) {
-        const bool right_first = tr < tl;
-        stack[sp] = right_first ? node + 1 : a;
-        stack_t[sp] = right_first ? tl : tr;
-        ++sp;
-        node = right_first ? a : node + 1;
-        lo = right_first ? rlo : llo;
-        hi = right_first ? rhi : lhi;
-        continue;
+    } else {
+      const float4* nd =
+          reinterpret_cast<const float4*>(P.nodes + ref * NODE_COLS);
+      const int4* ni = reinterpret_cast<const int4*>(nd);
+      constexpr int Q4 = NODE_W / 4;  // 16-byte words per component
+      float t[NODE_W];
+      int r[NODE_W];  // the children's codes
+#pragma unroll
+      for (int q = 0; q < Q4; ++q) {
+        const float4 lx = __ldg(nd + q), ly = __ldg(nd + Q4 + q),
+                     lz = __ldg(nd + 2 * Q4 + q), hx = __ldg(nd + 3 * Q4 + q),
+                     hy = __ldg(nd + 4 * Q4 + q), hz = __ldg(nd + 5 * Q4 + q);
+        const int4 cr = __ldg(ni + 6 * Q4 + q);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          t[4 * q + j] = slab_entry(lane(lx, j), lane(ly, j), lane(lz, j),
+                                    lane(hx, j), lane(hy, j), lane(hz, j), px,
+                                    py, pz, ivx, ivy, ivz);
+          r[4 * q + j] = lane(cr, j);
+        }
       }
-      if (hl || hr) {
-        node = hl ? node + 1 : a;
-        lo = hl ? llo : rlo;
-        hi = hl ? lhi : rhi;
+#pragma unroll
+      for (int k = 0; k < NODE_W; ++k)
+        if (r[k] == 0 || (kAny ? !(t[k] < tb) : !(t[k] <= tb))) t[k] = inf;
+      // nearest first: an insertion sort, stable on equal entries
+#pragma unroll
+      for (int k = 1; k < NODE_W; ++k) {
+#pragma unroll
+        for (int j = k; j > 0; --j) {
+          if (t[j] < t[j - 1]) {
+            const float tt = t[j];
+            const int rr = r[j];
+            t[j] = t[j - 1];
+            r[j] = r[j - 1];
+            t[j - 1] = tt;
+            r[j - 1] = rr;
+          }
+        }
+      }
+      if (t[0] < inf) {
+#pragma unroll
+        for (int k = NODE_W - 1; k > 0; --k) {
+          if (t[k] < inf) {
+            stk[sp] = make_int2(r[k], __float_as_int(t[k]));
+            ++sp;
+          }
+        }
+        ref = r[0] < 0 ? ~r[0] >> 5 : r[0];
+        cnt = r[0] < 0 ? ~r[0] & 31 : 0;
         continue;
       }
     }
-    // pop the next node still in reach
+    // pop the next entry still in reach
+    int2 e;
     do {
       if (sp == 0) return false;
-      --sp;
-      t_in = stack_t[sp];
-    } while (kAny ? !(t_in < tb) : !(t_in <= tb));
-    node = stack[sp];
-    lo = ld4(P.nodes + node * NODE_COLS);
-    hi = ld4(P.nodes + node * NODE_COLS + 4);
+      e = stk[--sp];
+    } while (kAny ? !(__int_as_float(e.y) < tb)
+                  : !(__int_as_float(e.y) <= tb));
+    ref = e.x < 0 ? ~e.x >> 5 : e.x;
+    cnt = e.x < 0 ? ~e.x & 31 : 0;
   }
 }
 

@@ -42,8 +42,9 @@
 // the roughness pair (megakernel.py:1548-2135, 2352-2374, 2383-2678).
 //
 // K1e (the *_tree_kernel entries) is each of these five over a tree in
-// place of the 128-face chunk sweep, for scenes past 98,304 faces: the
-// geometry policy ChunkTree of mega_common.cuh (FlatChunks for the others).
+// place of the 128-face chunk sweep, for every scene past one chunk on the
+// forward route (render_camera): the geometry policy ChunkTree of
+// mega_common.cuh (FlatChunks for the others).
 //
 // Design.  As K1a (mega_whitted.cu), whose scene tables and ray queries it
 // shares through mega_common.cuh: one thread per ray, 128 threads per

@@ -18,17 +18,23 @@
 // light, continue in place, push or pop), at most max_iters nodes.  The
 // K-slot one-hot stack of the TPU carry becomes a per-thread array of
 // K = max_depth + 2 entries (origin, direction, weight, absorption, medium,
-// depth).  The scene tables (16 f32 per face, one box per 128 faces,
-// spheres, materials, lights) are read from global memory through the
-// read-only path: the lanes of a warp sweep a chunk together, so a face row
-// is one broadcast load, and a 98,304-face table (6 MB) stays in the 50 MB
-// L2.  Past 98,304 faces mega_whitted_tree_kernel (K1e) walks a tree over
-// the table instead of the chunks (ChunkTree, mega_common.cuh).
+// depth).  The scene tables (16 f32 per face, spheres, materials, lights)
+// are read from global memory through the read-only path.  The TPU
+// kernel's geometry, 128-face chunks swept in table order behind box culls
+// (mega_whitted_kernel, FlatChunks), cost the 32,768-face scene 27.76 ms
+// for one sample's 640,000 rays on the card: every chunk box tested for
+// every query, 128 face tests per box entered, no early stop.  So a scene
+// past one chunk launches mega_whitted_tree_kernel, which walks a tree of
+// 4-wide, 128-byte nodes over 4-row leaves, nearest child first (ChunkTree,
+// mega_common.cuh), and gives the flat sweep's radiance bit for bit.
 //
 // Bound.  FP32 arithmetic on the CUDA cores: 38 operations per
 // ray x triangle test up to its t test (22 more for the barycentrics of a
-// candidate), 22 per chunk slab test, 66 per sphere test, against 36 bytes
-// of rays in and out per ray — operations, not bytes, bound it.  Everything is f32
+// candidate), 22 per box slab test, 66 per sphere test, against the bytes
+// the walk reads once (node lines, the tested rows' vertices, the winners'
+// rows) and 36 bytes of rays in and out per ray — operations, not bytes,
+// bound it; ops/megakernel.py::TreeWalker counts the walk's tests (PERF.md
+// gives the bound and the time).  Everything is f32
 // with IEEE division and sqrtf (no fast math) and, built with -fmad=false,
 // in the order the plain version computes it: on the same rays the two
 // differ only where libdevice's expf/logf round otherwise.

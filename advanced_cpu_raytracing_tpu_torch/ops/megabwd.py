@@ -311,7 +311,11 @@ def build_bwd_consts(pack, opts, device=None) -> BwdConsts:
         raise NotImplementedError(
             "scene outside the differentiable kernels K2a, K2b and K2c: "
             + ", ".join(missing))
-    mc, tri_tab, chunk_tab = mk.build_mega(pack, opts, device=dev)
+    # K2 keeps the tree past FLAT_MAX_FACES only (build_mega's default), over
+    # leaves of BWD_LEAF_ROWS: K2a moves vertices under boxes built once,
+    # and tighter boxes would drop a moved face sooner (ROADMAP Queue 3)
+    mc, tri_tab, chunk_tab = mk.build_mega(pack, opts, device=dev,
+                                           leaf_rows=mk.BWD_LEAF_ROWS)
     w = st.n_work_items
     ent = pack.ent_fwd.to(dev)[pack.wi_ent[:w].to(dev).long()]  # (W,3,4)
     # each mesh-light face's row and weight, in build_mega's ml_faces order
@@ -1138,8 +1142,8 @@ def mega_bwd_trace(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
                 mk._check(f"draws.{name}", getattr(dr, name), (n, r))
     if gbar is not None:
         mk._check("gbar", gbar, (r, 3))
-    if mc.tree is not None and mc.tree_depth > mk.TREE_STACK:
-        raise ValueError(f"tree depth {mc.tree_depth} > {mk.TREE_STACK}")
+    if mc.tree is not None and mc.tree_stack > mk.TREE_STACK:
+        raise ValueError(f"tree stack {mc.tree_stack} > {mk.TREE_STACK}")
     if depth > mk.MAX_DEPTH + 1 + mk.RR_DEPTH_FLOOR:
         raise ValueError(f"depth {depth} segments > "
                          f"{mk.MAX_DEPTH + 1 + mk.RR_DEPTH_FLOOR}")

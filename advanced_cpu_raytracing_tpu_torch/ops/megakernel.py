@@ -20,10 +20,12 @@ every decal mode, normal and bump maps, sphere textures, the background
 texture and the spherical environment light (raytracer.cpp:49-62, 87-89,
 741-755; mesh.cpp:264-357; sphere.cpp:116-169) — K1d, its ``mega_tex``
 instantiation with ``csrc/mega_tex.cuh``, over one texel pool.  Past
-``FLAT_MAX_FACES`` work items each of them walks a BVH over 16-row leaves of
-the triangle table (``_tree_table``) in place of the 128-face chunk sweep —
-K1e, the ``*_tree`` instantiations, in place of the TPU kernel's
-HBM-streamed two-level sweep.
+``FLAT_MAX_FACES`` work items each of them walks a BVH of 4-wide nodes over
+leaves of consecutive rows of the triangle table (``_tree_table``) in place
+of the 128-face chunk sweep — K1e, the ``*_tree`` instantiations, in place
+of the TPU kernel's HBM-streamed two-level sweep; the forward route
+(``render_camera``) takes them past one chunk (``FWD_FLAT_MAX_FACES``), over
+leaves of ``LEAF_ROWS`` rows.
 
 Scene constants travel as small f32 tensors (spheres, materials, lights,
 mesh-light faces) that the kernels read at run time, so one build serves
@@ -64,10 +66,28 @@ from advanced_cpu_raytracing_tpu_torch.utils.math3d import div as _div
 BIG = 3.0e37  # "no hit" distance
 CHUNK = 128  # faces per culling chunk (BVH depth-first order)
 # past this many work items build_mega adds the tree and the kernels walk it
-# (K1e): the JAX kernel's _VMEM_MAX_FACES, past which it streams geometry
+# (K1e) unless its caller names another threshold: the JAX kernel's
+# _VMEM_MAX_FACES, past which it streams geometry.  K2's build
+# (ops/megabwd.py::build_bwd_consts) keeps it.
 FLAT_MAX_FACES = 98304
-LEAF_ROWS = 16  # consecutive tri_tab rows per tree leaf (the JAX STREAM_FINE)
-TREE_STACK = 64  # the tree walk's stack (csrc/mega_common.cuh)
+# the forward route's threshold (render_camera, through
+# render/renderer.py::_mega_build_cached): a scene of more than one chunk
+# walks the tree, whose culls the flat sweep's table-order chunks lack; a
+# scene of one chunk keeps the flat instantiation's brute loop
+FWD_FLAT_MAX_FACES = CHUNK
+# consecutive tri_tab rows per tree leaf (at most 31), build_mega's default:
+# 4 ran the forward main paths fastest on the card, of 4, 8 and 16
+# (tools/tree_design.py)
+LEAF_ROWS = 4
+# K2's leaves (ops/megabwd.py::build_bwd_consts), four times LEAF_ROWS: K2a
+# moves vertices under boxes built once, and a tighter leaf box drops a
+# moved face sooner (ROADMAP Queue 3)
+BWD_LEAF_ROWS = 16
+TREE_WIDTH = 4  # children per tree node (csrc/mega_common.cuh NODE_W)
+# the walk's stack in entries (csrc/mega_common.cuh TREE_STACK), 8 bytes
+# each in local memory; _tree_table raises for a tree that needs more (the
+# 2,097,152-face terrain needs 39)
+TREE_STACK = 64
 # rows per step of the plain version's brute force over a scene with a tree
 # (the same closest hit as 128 at a time, in fewer, larger steps)
 TREE_GROUP = 1024
@@ -124,9 +144,13 @@ TEXI_COLS = 7  # per texture (int32): kind 0 (0 image, 1 Perlin), interp 1
 #                (0 nearest, 1 bilinear), blend_kd 2, Perlin absval 3,
 #                width 4, height 5, first texel in the pool 6
 TEXR_COLS = 2  # per texture (f32): bump factor 0, noise scale 1
-NODE_COLS = 8  # per tree node: min 0:3, max 3:6, then two int32 bit views:
-#                interior: second child 6 (the first is the next row), 0 7;
-#                leaf: first tri_tab row 6, row count 7 (1..LEAF_ROWS)
+# per tree node, its TREE_WIDTH children's boxes SoA, one 128-byte line:
+# min x, y, z, max x, y, z (each TREE_WIDTH f32), then two int32 bit views
+# per child: its code, which the kernels read (a node's row; ~(first
+# tri_tab row << 5 | row count) for a leaf; 0: no child, as the root is
+# no one's child), and its row count (0: a node; 1..31, at most the
+# build's leaf rows: a leaf; -1: no child)
+NODE_COLS = 8 * TREE_WIDTH
 ENV_DRAWS = 48  # env rejection candidates: 16 x 3 draws per node
 
 
@@ -198,9 +222,11 @@ class MegaConsts:
     bg_tex: int = -1  # the replace_background texture, or -1
     env: tuple = ()  # (width, height, first texel) of the env map, or ()
     tex_images: tuple = ()  # ((image, height, width), ...) in the pool's order
-    # ---- the tree over the work items past FLAT_MAX_FACES (K1e) ----
+    # ---- the tree over the work items (K1e; build_mega's flat_max) ----
     tree: torch.Tensor | None = None  # (N, NODE_COLS), depth-first
-    tree_depth: int = 0
+    tree_depth: int = 0  # levels of nodes
+    tree_stack: int = 0  # the most stack entries its walk can hold
+    tree_leaf_rows: int = 0  # rows per leaf, at most (0: no tree)
 
     @property
     def kernel(self) -> str:
@@ -330,7 +356,7 @@ def _sizing(st, opts):
     return max_iters, stack_k, n_draws
 
 
-def build_mega(pack, opts, device=None):
+def build_mega(pack, opts, device=None, flat_max=None, leaf_rows=None):
     """(MegaConsts, tri_tab (max(W,1), 16) f32, chunk_tab (n_chunks, 8) f32)
     on ``device`` (default ``cuda``), as the JAX ``build_mega`` builds them
     for a scene inside the envelope: tri table columns 0:16, one AABB
@@ -338,9 +364,11 @@ def build_mega(pack, opts, device=None):
     of the motion in motion scenes, and in tables of their own what the
     TPU kernel bakes in as constants or keeps in wider tri-table columns:
     mesh-light faces, spot and area lights, the materials' roughness and
-    BRDF, per-face and per-sphere motion.  Past ``FLAT_MAX_FACES`` work
-    items ``mc.tree`` holds the tree over the rows (``_tree_table``) that
-    replaces the JAX kernel's streamed fine and coarse boxes."""
+    BRDF, per-face and per-sphere motion.  Past ``flat_max`` work items
+    (``FLAT_MAX_FACES`` if None) ``mc.tree`` holds the tree over leaves of
+    ``leaf_rows`` rows (``LEAF_ROWS`` if None; ``_tree_table``) that
+    replaces the JAX kernel's streamed fine and coarse boxes and the chunk
+    sweep."""
     dev = resolve_device(device)
     st = pack.static
     w = st.n_work_items
@@ -469,8 +497,13 @@ def build_mega(pack, opts, device=None):
 
     max_iters, stack_k, n_draws = _sizing(st, opts)
     tx = _texture_tables(pack, tab)
-    tree, tree_depth = (_tree_table(tab, tmo if st.has_motion else None, w)
-                        if w > FLAT_MAX_FACES else (None, 0))
+    if flat_max is None:
+        flat_max = FLAT_MAX_FACES
+    if leaf_rows is None:
+        leaf_rows = LEAF_ROWS
+    tree, tree_depth, tree_stack = (
+        _tree_table(tab, tmo if st.has_motion else None, w, leaf_rows)
+        if w > flat_max else (None, 0, 0))
 
     def tens(a):
         return torch.as_tensor(a, device=dev)
@@ -505,67 +538,122 @@ def build_mega(pack, opts, device=None):
         bg_tex=int(st.bg_tex) if st.n_textures else -1, env=tx["env"],
         tex_images=tx["images"],
         tree=None if tree is None else tens(tree), tree_depth=tree_depth,
+        tree_stack=tree_stack,
+        tree_leaf_rows=0 if tree is None else leaf_rows,
     )
     return mc, tens(tab), tens(ctab)
 
 
-def _tree_table(tab, tmo, w):
-    """(nodes (N, NODE_COLS) f32, depth): the K1e tree over the first ``w``
-    rows of ``tab``.  Its leaves are runs of at most LEAF_ROWS consecutive
-    rows (the row order does not change), their boxes swept over both ends
-    of the motion ``tmo`` as the chunk boxes are; a BVH over the leaf boxes
-    by the midpoint builder (``accel/bvh.py``), where a builder leaf of
-    several runs becomes a balanced subtree of them; flattened depth-first,
-    so an interior node's first child is the next row.  Raises where the
-    tree is deeper than the kernel's stack."""
+def _tree_table(tab, tmo, w, leaf_rows):
+    """(nodes (N, NODE_COLS) f32, depth, stack): the K1e tree over the first
+    ``w`` rows of ``tab``.  Its leaves are runs of at most ``leaf_rows``
+    consecutive rows (the row order does not change), their boxes swept
+    over both ends of the motion ``tmo`` as the chunk boxes are.  A binary
+    BVH over the leaf boxes by the midpoint builder (``accel/bvh.py``),
+    where a builder leaf of several runs becomes a balanced subtree of
+    them, is collapsed into nodes of up to TREE_WIDTH children, each node
+    taking in turn its largest child's two children in place of it;
+    flattened depth-first from the root, row 0.  ``depth`` counts the
+    levels of nodes, ``stack`` the most entries the walk can hold: the
+    largest sum over a path from the root of each node's children less
+    one.  Raises where that exceeds the kernels' stack."""
+    if not 0 < leaf_rows < 32:
+        raise ValueError(f"leaf_rows {leaf_rows}: a leaf holds 1..31 rows")
     vs = tab[:w, 0:9].reshape(w, 3, 3)
     fmin, fmax = vs.min(axis=1), vs.max(axis=1)
     if tmo is not None:
         moved = vs - tmo[:w, None]
         fmin = np.minimum(fmin, moved.min(axis=1))
         fmax = np.maximum(fmax, moved.max(axis=1))
-    starts = np.arange(0, w, LEAF_ROWS)
+    starts = np.arange(0, w, leaf_rows)
     lmin = np.minimum.reduceat(fmin, starts, axis=0)
     lmax = np.maximum.reduceat(fmax, starts, axis=0)
     bvh = build_bvh(lmin, lmax, (lmin + lmax) * np.float32(0.5))
     order = bvh.order.tolist()
-    boxes, ints = [], []
-    depth = 0
-    # (builder node or None, runs, depth, node whose second child this is)
-    todo = [(0, None, 1, -1)]
-    while todo:
-        bn, runs, dep, parent = todo.pop()
-        at = len(boxes)
-        depth = max(depth, dep)
-        if parent >= 0:
-            ints[parent][0] = at
-        if runs is None and bvh.node_count[bn] == 0:
-            boxes.append(np.concatenate((bvh.node_min[bn], bvh.node_max[bn])))
-            ints.append([0, 0])
-            kids = [(int(bvh.node_right[bn]), None), (int(bvh.node_left[bn]), None)]
-        else:
-            if runs is None:
-                first = int(bvh.node_first[bn])
-                runs = order[first:first + int(bvh.node_count[bn])]
-            boxes.append(np.concatenate((lmin[runs].min(axis=0),
-                                         lmax[runs].max(axis=0))))
-            if len(runs) == 1:
-                ints.append([int(starts[runs[0]]),
-                             min(LEAF_ROWS, w - int(starts[runs[0]]))])
-                continue
-            ints.append([0, 0])
-            half = len(runs) // 2
-            kids = [(None, runs[half:]), (None, runs[:half])]
-        # the second child first onto the stack, so the first is emitted next
-        todo.append((*kids[0], dep + 1, at))
-        todo.append((*kids[1], dep + 1, -1))
-    if depth > TREE_STACK:
-        raise ValueError(f"the tree over {w:,} faces is {depth} deep; the "
-                         f"kernels' stack holds {TREE_STACK} levels")
-    nodes = np.zeros((len(boxes), NODE_COLS), np.float32)
-    nodes[:, 0:6] = boxes
-    nodes.view(np.int32)[:, 6:8] = ints
-    return nodes, depth
+    b_left, b_right = bvh.node_left.tolist(), bvh.node_right.tolist()
+    b_first, b_count = bvh.node_first.tolist(), bvh.node_count.tolist()
+    # the binary tree: each node's children (or None) and run (-1), and
+    # where its box comes from: a builder node, a run, or boxes of its own
+    kids, run, from_node, from_run, own = [], [], [], [], []
+
+    def binary(bn, runs):
+        at = len(kids)
+        kids.append(None)
+        run.append(-1)
+        if runs is None and b_count[bn] == 0:
+            from_node.append((at, bn))
+            kids[at] = (binary(b_left[bn], None), binary(b_right[bn], None))
+            return at
+        if runs is None:
+            runs = order[b_first[bn]:b_first[bn] + b_count[bn]]
+        if len(runs) == 1:
+            from_run.append((at, runs[0]))
+            run[at] = runs[0]
+            return at
+        own.append((at, lmin[runs].min(axis=0), lmax[runs].max(axis=0)))
+        half = len(runs) // 2
+        kids[at] = (binary(None, runs[:half]), binary(None, runs[half:]))
+        return at
+
+    root = binary(0, None)
+    bmin = np.empty((len(kids), 3), np.float32)
+    bmax = np.empty((len(kids), 3), np.float32)
+    for src, tab_min, tab_max in ((from_node, bvh.node_min, bvh.node_max),
+                                  (from_run, lmin, lmax)):
+        if src:
+            at, i = np.asarray(src).T
+            bmin[at], bmax[at] = tab_min[i], tab_max[i]
+    for at, lo, hi in own:
+        bmin[at], bmax[at] = lo, hi
+    ext = bmax.astype(np.float64) - bmin
+    area = (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+            + ext[:, 2] * ext[:, 0]).tolist()
+    # per node, its children: (slot, binary node, reference, row count)
+    slots = []
+
+    def wide(b):
+        """Emit the node whose children collapse binary node ``b``: (its
+        row, its depth, its stack need)."""
+        ch = list(kids[b]) if kids[b] is not None else [b]
+        while len(ch) < TREE_WIDTH:
+            inner = [i for i, c in enumerate(ch) if kids[c] is not None]
+            if not inner:
+                break
+            i = max(inner, key=lambda i: area[ch[i]])
+            ch[i:i + 1] = kids[ch[i]]
+        at = len(slots)
+        slots.append(None)
+        ents, depth, need = [], 1, 0
+        for c in ch:
+            if kids[c] is None:
+                first = run[c] * leaf_rows
+                n = min(leaf_rows, w - first)
+                ents.append((c, ~(first << 5 | n), n))
+            else:
+                row, dep, nd = wide(c)
+                ents.append((c, row, 0))
+                depth, need = max(depth, dep + 1), max(need, nd)
+        slots[at] = ents
+        return at, depth, need + len(ch) - 1
+
+    _, depth, stack = wide(root)
+    if stack > TREE_STACK:
+        raise ValueError(f"the tree over {w:,} faces needs {stack} stack "
+                         f"entries ({depth} levels); the kernels' stack "
+                         f"holds {TREE_STACK}")
+    wd = TREE_WIDTH
+    nodes = np.zeros((len(slots), NODE_COLS), np.float32)
+    ints = nodes.view(np.int32)
+    ints[:, 7 * wd:8 * wd] = -1
+    at, k, c, code, cnt = np.asarray(
+        [(i, k, *e) for i, ents in enumerate(slots)
+         for k, e in enumerate(ents)], np.int64).T
+    for comp in range(3):
+        nodes[at, comp * wd + k] = bmin[c, comp]
+        nodes[at, (3 + comp) * wd + k] = bmax[c, comp]
+    ints[at, 6 * wd + k] = code
+    ints[at, 7 * wd + k] = cnt
+    return nodes, depth, stack
 
 
 def _unit_rows(v):
@@ -829,23 +917,31 @@ def _slab_enter(box, px, py, pz, ivx, ivy, ivz, t_b):
 
 class TreeWalker:
     """The kernels' tree walk (``ChunkTree``, csrc/mega_common.cuh) over the
-    same tables, on their device, the rays of a query in lockstep: the
-    nearer child first, a node kept while its entry is <= t_best (< the
-    limit in a shadow query), a face taken at t < t_best or at t == t_best
-    from a lower row.  It counts each ray's node boxes and face tests, and
-    marks in ``reads`` what the kernels read, across its calls: the node
-    boxes (``nodes``), the rows whose vertices they test (``rows``) and the
-    closest hits' rows (``won``).  Tests hold its hits to the brute force,
-    and the plain version's ``stats`` count a tree scene's kernel work with
-    it.  The render path never calls it."""
+    same tables, on their device, the rays of a query in lockstep: a node's
+    children in reach visited nearest first (a stable sort on their entry
+    distances; the others pushed, the farthest deepest), a child kept while
+    its entry is <= t_best (< the limit in a shadow query), a face taken at
+    t < t_best or at t == t_best from a lower row.  It counts each ray's
+    child box and face tests, and marks in ``reads`` what the kernels read,
+    across its calls: the nodes (``nodes``, a 128-byte line each), the rows
+    whose vertices they test (``rows``) and the closest hits' rows
+    (``won``).  Tests hold its hits to the brute force, and the plain
+    version's ``stats`` count a tree scene's kernel work with it.  The
+    render path never calls it."""
 
     def __init__(self, mc: MegaConsts, tri_tab, reads: dict | None = None):
         dev = tri_tab.device
         nodes = mc.tree.to(dev)
-        self.box = nodes[:, 0:6].contiguous()
+        wd = nodes.shape[1] // 8
+        # (N, W, 6) child boxes: min xyz, max xyz
+        self.box = nodes[:, :6 * wd].reshape(-1, 6, wd).transpose(1, 2).contiguous()
         ints = nodes.view(torch.int32)
-        self.a, self.cnt = ints[:, 6].long(), ints[:, 7].long()
-        self.width = int(self.cnt.max())
+        code = ints[:, 6 * wd:7 * wd].long()
+        self.cnt = ints[:, 7 * wd:8 * wd].long()
+        # a node's row, or a leaf's first row
+        self.ref = torch.where(code < 0, (~code) >> 5, code)
+        self.width = max(int(self.cnt.max()), 1)  # rows per leaf, at most
+        self.stack_size = mc.tree_stack
         self.tri = tri_tab
         self.motion = mc.tri_motion.to(dev) if mc.faces_move else None
         self.moving = (None if self.motion is None
@@ -857,12 +953,13 @@ class TreeWalker:
                                                    device=dev))
 
     def _entry(self, node, p, iv):
-        """``slab_entry`` of the boxes ``node`` (R,) for rays (R,3): the
-        entry distance, +inf on a miss; a NaN (a ray in a face plane of the
-        box) does not limit the ray."""
+        """``slab_entry`` of the children's boxes of ``node`` (R,) for rays
+        (R,3): (R, W) entry distances, +inf on a miss; a NaN (a ray in a
+        face plane of the box) does not limit the ray."""
         box = self.box[node]
-        t_in, t_out = _slab_axis(box[:, 0:3], box[:, 3:6], p, iv)
-        tmin, tmax = t_in.amax(dim=1), t_out.amin(dim=1)
+        t_in, t_out = _slab_axis(box[..., 0:3], box[..., 3:6], p[:, None],
+                                 iv[:, None])
+        tmin, tmax = t_in.amax(dim=2), t_out.amin(dim=2)
         return torch.where((tmax > 0) & (tmax >= tmin), tmin,
                            torch.full_like(tmin, float("inf")))
 
@@ -871,7 +968,8 @@ class TreeWalker:
         closest hits (``t``, ``row``; BIG and -1 on a miss), or with
         ``limit`` (R,) shadow queries (``blocked``), each with the rays'
         counts ``slab_tests``, ``tri_tests`` and ``tri_motion_tests``
-        (R,)."""
+        (R,), and ``stack_peak`` (R,), the most entries each ray's stack
+        held."""
         dev, f32 = self.tri.device, torch.float32
         p = torch.as_tensor(o, dtype=f32, device=dev).reshape(-1, 3)
         v = torch.as_tensor(d, dtype=f32, device=dev).reshape(-1, 3)
@@ -886,35 +984,34 @@ class TreeWalker:
         blocked = torch.zeros(r, dtype=torch.bool, device=dev)
         n = {k: torch.zeros(r, dtype=torch.long, device=dev)
              for k in ("slab_tests", "tri_tests", "tri_motion_tests")}
-        stack = torch.zeros((r, TREE_STACK), dtype=torch.long, device=dev)
-        stack_t = torch.zeros((r, TREE_STACK), dtype=f32, device=dev)
+        size = max(self.stack_size, 1)
+        stack_ref = torch.zeros((r, size), dtype=torch.long, device=dev)
+        stack_cnt = torch.zeros((r, size), dtype=torch.long, device=dev)
+        stack_t = torch.zeros((r, size), dtype=f32, device=dev)
         sp = torch.zeros(r, dtype=torch.long, device=dev)
+        peak = torch.zeros(r, dtype=torch.long, device=dev)
         cols = torch.arange(self.width, device=dev)
 
         def reach(t_in, lim):
             return t_in < lim if shadow else t_in <= lim
 
-        # node: the node a ray visits next; -1 pops its stack, -2 is done
-        root = torch.zeros(r, dtype=torch.long, device=dev)
-        n["slab_tests"] += 1
-        if r:
-            self.reads["nodes"][0] = True
-        node = torch.where(reach(self._entry(root, p, iv), tb), root, -2)
-        while bool((node != -2).any()):
-            pop = torch.nonzero(node == -1).squeeze(1)
+        # in hand: node ref (cnt 0) or the leaf of rows ref .. ref + cnt - 1;
+        # cnt -1 pops the ray's stack, -2 is done
+        ref = torch.zeros(r, dtype=torch.long, device=dev)
+        cnt = torch.zeros(r, dtype=torch.long, device=dev)
+        while bool((cnt != -2).any()):
+            pop = torch.nonzero(cnt == -1).squeeze(1)
             if len(pop):
                 empty = sp[pop] == 0
-                node[pop[empty]] = -2
+                cnt[pop[empty]] = -2
                 pop = pop[~empty]
                 sp[pop] -= 1
                 back = pop[reach(stack_t[pop, sp[pop]], tb[pop])]
-                node[back] = stack[back, sp[back]]
-            live = torch.nonzero(node >= 0).squeeze(1)
-            at = node[live]
-            a, cnt = self.a[at], self.cnt[at]
-            leaf = cnt > 0
-            lv, a_l, cnt_l = live[leaf], a[leaf], cnt[leaf]
-            if len(lv):  # leaves: rows a .. a + cnt - 1
+                ref[back] = stack_ref[back, sp[back]]
+                cnt[back] = stack_cnt[back, sp[back]]
+            lv = torch.nonzero(cnt > 0).squeeze(1)
+            if len(lv):  # leaves: rows a .. a + c - 1
+                a_l, cnt_l = ref[lv], cnt[lv]
                 inside = cols < cnt_l[:, None]
                 rows = torch.where(inside, a_l[:, None] + cols, a_l[:, None])
                 tri = self.tri[rows]
@@ -936,7 +1033,7 @@ class TreeWalker:
                     k = torch.where(stop, hits.to(torch.int8).argmax(dim=1) + 1,
                                     cnt_l)
                     blocked[lv] = stop
-                    node[lv] = torch.where(stop, -2, -1)
+                    cnt[lv] = torch.where(stop, -2, -1)
                 else:
                     k = cnt_l
                     t_c, i_c = t.min(dim=1)  # the lowest row on a tie
@@ -944,37 +1041,43 @@ class TreeWalker:
                     better = (t_c < tb[lv]) | ((t_c == tb[lv]) & (row < best[lv]))
                     tb[lv] = torch.where(better, t_c, tb[lv])
                     best[lv] = torch.where(better, row, best[lv])
-                    node[lv] = -1
+                    cnt[lv] = -1
                 tested = cols < k[:, None]
                 n["tri_tests"][lv] += k
                 self.reads["rows"][rows[tested]] = True
                 if self.moving is not None:
                     n["tri_motion_tests"][lv] += (self.moving[rows]
                                                   & tested).sum(dim=1)
-            inner, at, a_i = live[~leaf], at[~leaf], a[~leaf]
-            if len(inner):  # interior: children node + 1 and a, the nearer first
-                left = at + 1
-                n["slab_tests"][inner] += 2
-                self.reads["nodes"][left] = True
-                self.reads["nodes"][a_i] = True
-                tl = self._entry(left, p[inner], iv[inner])
-                tr = self._entry(a_i, p[inner], iv[inner])
-                hl, hr = reach(tl, tb[inner]), reach(tr, tb[inner])
-                right_first = tr < tl
-                both = torch.nonzero(hl & hr).squeeze(1)
-                pushed = inner[both]
-                stack[pushed, sp[pushed]] = torch.where(
-                    right_first, left, a_i)[both]
-                stack_t[pushed, sp[pushed]] = torch.where(
-                    right_first, tl, tr)[both]
-                sp[pushed] += 1
-                node[inner] = torch.where(
-                    hl & hr, torch.where(right_first, a_i, left),
-                    torch.where(hl, left, torch.where(hr, a_i, -1)))
+            inner = torch.nonzero(cnt == 0).squeeze(1)
+            if len(inner):  # nodes: the children in reach, nearest first
+                at = ref[inner]
+                self.reads["nodes"][at] = True
+                c_ref, c_cnt = self.ref[at], self.cnt[at]
+                real = c_cnt >= 0
+                n["slab_tests"][inner] += real.sum(dim=1)
+                t = self._entry(at, p[inner], iv[inner])
+                t = torch.where(real & reach(t, tb[inner][:, None]), t,
+                                torch.full_like(t, float("inf")))
+                t, order = torch.sort(t, dim=1, stable=True)
+                c_ref = torch.gather(c_ref, 1, order)
+                c_cnt = torch.gather(c_cnt, 1, order)
+                kept = t < float("inf")
+                # push all but the nearest, the farthest first
+                for k in range(t.shape[1] - 1, 0, -1):
+                    push = inner[kept[:, k]]
+                    if len(push):
+                        sel = kept[:, k]
+                        stack_ref[push, sp[push]] = c_ref[sel, k]
+                        stack_cnt[push, sp[push]] = c_cnt[sel, k]
+                        stack_t[push, sp[push]] = t[sel, k]
+                        sp[push] += 1
+                peak[inner] = torch.maximum(peak[inner], sp[inner])
+                ref[inner] = torch.where(kept[:, 0], c_ref[:, 0], ref[inner])
+                cnt[inner] = torch.where(kept[:, 0], c_cnt[:, 0], -1)
         if shadow:
-            return {"blocked": blocked, **n}
+            return {"blocked": blocked, "stack_peak": peak, **n}
         self.reads["won"][best[best >= 0]] = True
-        return {"t": tb, "row": best, **n}
+        return {"t": tb, "row": best, "stack_peak": peak, **n}
 
 
 class _Geometry:
@@ -2124,8 +2227,8 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             _check("pix_uv", pix_uv, (r, 2))
     if mc.tree is not None:
         tables.append("tree")
-        if mc.tree_depth > TREE_STACK:
-            raise ValueError(f"tree depth {mc.tree_depth} > {TREE_STACK}")
+        if mc.tree_stack > TREE_STACK:
+            raise ValueError(f"tree stack {mc.tree_stack} > {TREE_STACK}")
     for t in tables:
         _check(t, getattr(mc, t))
     if mc.tree is not None and mc.tree.shape[1] != NODE_COLS:

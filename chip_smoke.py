@@ -11,23 +11,31 @@ Phases, each printing one JSON line:
      twins), csrc/tri_intersect.cu (K3, the wavefront's dense closest
      hit) and csrc/bigtex_gather.cu (K4, the big-texture probe's
      gather-sum), with ptxas's register, frame and spill lines per kernel
-     (kept beside a cached library); K1a must keep its 72 registers, K1b
-     its 77, K1c its 84 (90 with motion), K1d its 123 (128 with motion),
-     K2a its 72 (primal) and 128 (fwd+bwd), K2b its 80 (primal) and 152 /
-     154 (fwd+bwd, flat / tree), K3 its 40 and K4 its 27, and each K1
-     and K2 kernel has a tree instantiation (K1e);
+     (kept beside a cached library); the flat instantiations must keep
+     their registers: K1a 72, K1b 77, K1c 84 (90 with motion), K1d 123
+     (128 with motion), K2a 72 (primal) and 128 (fwd+bwd), K2b 80
+     (primal) and 152 (fwd+bwd), K3 40 and K4 27; K2's tree twins, which
+     inline the walk of csrc/mega_common.cuh, KEPT_REGISTERS' counts; and
+     each K1 and K2 kernel has a tree instantiation (K1e);
   3. K1a against its plain torch version on 65,536 primary rays of
      scenes/whitted_conductors.xml (1 spp, no DoF), and on a ray along -z
-     in the plane y = -10 of the first chunk's box (the room's floor), which
-     the chunk cull must keep to reach the back wall;
+     in the plane y = -10 of the first chunk's box and of leaf boxes (the
+     room's floor), which the walk must keep to reach the back wall; the
+     scene (32,768 faces, past one 128-face chunk) routes to K1a's tree
+     instantiation (render/renderer.py::_mega_build_cached), and the flat
+     chunk sweep (the tables of FLAT_MAX_FACES, K2's threshold) is held to
+     the same plain version on the same rays;
   4. the Whitted main path: render_camera on scenes/whitted_conductors.xml
      at 800x800, 16 spp, depth 6, u8 clamp on the device — with the launch
-     counters set to 0 before it, K1a must launch 16 times and the others
-     never; the PNG goes to a temporary directory; one warm-up frame, then
-     the median of 3 timed frames (Mpaths/s, paths = w*h*spp);
+     counters set to 0 before it, K1a's tree instantiation must launch 16
+     times and the others never; the PNG goes to a temporary directory; one
+     warm-up frame, then the median of 3 timed frames (Mpaths/s, paths =
+     w*h*spp);
   5. K1a at its main path's shape (the 640,000 rays of one sample): time
-     per launch, the plain version's time and error on the same rays, and
-     the least time the card needs for the counted FP32 work;
+     per launch, the plain version's time and error on every 8th ray, and
+     the least time the card needs for the FP32 work of the walk's box and
+     face tests, counted by ops/megakernel.py::TreeWalker on those rays
+     (times 8);
   6. K1b against its plain version on 65,536 primary rays in both draw
      modes (a table from a torch.Generator, and Philox) on
      scenes/feat_pt.xml, feat_pt_rr.xml, feat_pt_spec.xml and feat_pt.xml
@@ -48,16 +56,19 @@ Phases, each printing one JSON line:
      scenes/feat_spotareaml.xml as Whitted and as path tracing with a rough
      glass sphere) and on scenes/feat_lights_brdf.xml as Whitted and as
      path tracing (NEE + importance sampling, by substitution; on every
-     2nd of the rays);
+     2nd of the rays), through the tree instantiation where the scene has
+     more than one chunk, and on feat_lights_brdf.xml the flat chunk sweep
+     too, held to the same plain version;
  10. the K1c main path: render_camera on scenes/feat_lights_brdf.xml at
      800x800, 16 spp, depth 4, DoF, u8 clamp on the device — with the
-     counters set to 0 before it, K1c must launch 16 times and K1a and K1b
-     never; one warm-up frame, then the median of 3 timed frames; then one
-     unwarmed 16-spp frame of its path-tracing variant;
+     counters set to 0 before it, K1c's tree instantiation must launch 16
+     times and the others never; one warm-up frame, then the median of 3
+     timed frames; then one unwarmed 16-spp frame of its path-tracing
+     variant;
  11. K1c at its main path's shape (640,000 rays of one sample through
-     the lens, Philox):
-     time per launch, the plain version's time and error on the same rays
-     and draws, and the bound of the counted FP32 work;
+     the lens, Philox): time per launch, the plain version's time and
+     error on every 8th ray and its draws, and the bound of the FP32 work
+     counted by TreeWalker on those rays (times 8);
  12. K1d (mega_tex) against its plain version on 65,536 primary rays in
      both draw modes on the K1d scenes of
      advanced_cpu_raytracing_tpu_torch/scene/feature_scenes.py (Perlin,
@@ -69,17 +80,19 @@ Phases, each printing one JSON line:
      as Whitted and as path tracing at its depth 4 (NEE + importance
      sampling, by substitution; the plain version on every 4th of the
      65,536 rays); scenes without draws are held to K1a's bound, the others
-     to K1c's;
+     to K1c's; feat_textures.xml walks the tree, and its flat chunk sweep
+     is held to the same plain version;
  13. the K1d main path: render_camera on scenes/feat_textures.xml at
      800x800, 16 spp, depth 4, u8 clamp on the device — with the counters
-     set to 0 before it, K1d must launch 16 times and the others never;
+     set to 0 before it, K1d's tree instantiation must launch 16 times and
+     the others never;
      one warm-up frame, then the median of 3 timed frames; then one
      unwarmed 16-spp frame of its path-tracing variant;
  14. K1d at its main path's shape (640,000 rays of one sample, Philox):
      time per launch, the plain version's time and error on every 8th of
      those rays and their draws, and the bound of the counted FP32 work
      (the plain version's counts times 8), Perlin evaluations, texel taps
-     and env candidates included;
+     and env candidates included, the walk's tests counted by TreeWalker;
  15. K1e, the tree instantiations, against their plain version: K1a's and
      K1d's on 65,536 primary rays through the centres of every 4th pixel
      (where the grid's shared edges make ties) of the 524,288-face terrain
@@ -88,8 +101,9 @@ Phases, each printing one JSON line:
      only) and with its winding reversed (lit by its point light, the
      texture showing; the plain version must show the light raising the
      mean radiance by more than 1 and the texture changing more than 20%
-     of the rays) (no draws: K1a's bound); then, with the tree threshold
-     (FLAT_MAX_FACES) set to 0 so every scene with faces walks a tree, K1b's
+     of the rays) (no draws: K1a's bound); then, with the forward route's
+     threshold (FWD_FLAT_MAX_FACES) set to 0 so every scene with faces walks
+     a tree, K1b's
      on the path-traced 2,048-face terrain, K1c's on the BRDF zoo, on the
      motion + roughness scene and on a moving 512-face terrain (swept leaf
      boxes), and K1d's on the normal and bump maps and on the env + motion
@@ -106,9 +120,14 @@ Phases, each printing one JSON line:
      the vertices of the rows it tests, the winners' rows of the per-face
      tables, the rays), both counted by ops/megakernel.py::TreeWalker on
      every ray; the faces-up terrain's time per launch on the same shape;
-     then each of the four flat main paths' scenes through its tree twin
-     (FLAT_MAX_FACES at 0) beside its flat kernel on one sample's rays:
-     time per launch and agreement;
+     then, on every ray of one sample of each of the four forward main
+     paths' scenes, the route's kernel beside the other geometry: the
+     tree instantiations of whitted_conductors.xml, feat_lights_brdf.xml
+     and feat_textures.xml beside the flat chunk sweep of the tables built
+     with FLAT_MAX_FACES (the earlier route), and feat_pt.xml's flat kernel
+     beside its tree twin (built with flat_max 0): time per launch of each,
+     and the tree's radiance equal to the flat sweep's bit for bit on every
+     ray (exact_frac_vs_flat 1.0, else the phase fails);
  18. K2a (csrc/mega_bwd.cu, the differentiable render's Whitted chain)
      against its plain version (ops/megabwd.py, autograd) on 16,384
      primary rays at full depth of the gauge scene (scenes/
@@ -295,15 +314,16 @@ REPLACES_K3 = "advanced_cpu_raytracing_tpu/ops/pallas/tri_intersect.py:39"
 REPLACES_K4 = "tools/probe_bigtex.py:31"
 # registers of the K1a-K1d, K2, K3 and K4 kernels since they were first
 # measured; the later variants' policies (motion, textures, the tree, K2b's
-# template flag) must not change their code
+# template flag) must not change their code; K2's tree twins as ptxas gave
+# them with the 4-wide walk
 KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
                   "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90,
                   "mega_tex_kernel": 123, "mega_tex_motion_kernel": 128,
                   "mega_bwd_primal_kernel": 72, "mega_bwd_kernel": 128,
                   "mega_bwd_primal_tree_kernel": 72, "mega_bwd_tree_kernel": 128,
                   "mega_bwd_primal_pt_kernel": 80, "mega_bwd_pt_kernel": 152,
-                  "mega_bwd_primal_pt_tree_kernel": 80,
-                  "mega_bwd_pt_tree_kernel": 154, "tri_intersect_kernel": 40,
+                  "mega_bwd_primal_pt_tree_kernel": 96,
+                  "mega_bwd_pt_tree_kernel": 168, "tri_intersect_kernel": 40,
                   "bigtex_gather_kernel": 27}
 KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_ext_motion_kernel", "mega_tex_kernel",
@@ -696,6 +716,16 @@ def main() -> int:
         tabs = renderer._mega_build_cached(pack, opts, dev)
         return cfg, pack, cam_cfg, tabs, build_camera(cam_cfg, device=dev)
 
+    def flat_tables(cfg, pack, cam_cfg):
+        """The flat chunk sweep's tables of a scene that routes to the
+        tree: build_mega with FLAT_MAX_FACES, K2's threshold (the forward
+        route's earlier threshold)."""
+        mc, tri, chunk = mk.build_mega(
+            pack, renderer.options_for_camera(cfg, cam_cfg), device=dev)
+        if mc.tree is not None:
+            raise AssertionError(f"{mc.variant}: not the flat sweep")
+        return mc, tri, chunk
+
     def primary_rays(cam_cfg, cam, n, seed=0):
         rng = np.random.default_rng(seed)
         px = torch.as_tensor(rng.uniform(0, cam_cfg.width, n).astype(np.float32),
@@ -840,7 +870,7 @@ def main() -> int:
         if not mc.n_draws:
             err = check_close(got, ref, what)
         else:
-            err = check_close_pt(got, ref, what, EXT_MEAN_REL if kernel in (
+            err = check_close_pt(got, ref, what, EXT_MEAN_REL if mc.kernel in (
                 "mega_ext", "mega_tex") else PT_MEAN_REL)
         bd = bound({k: v * count_stride for k, v in stats.items()},
                    n_rays * 9 * 4 + table_bytes(mc, (tri_tab, chunk_tab), reads))
@@ -861,35 +891,47 @@ def main() -> int:
     cfg, pack, cam_cfg, (mc, tri_tab, chunk_tab), cam = scene(WHITTED_SCENE)
 
     # 3. kernel vs plain on 65,536 primary rays (1 spp, no DoF), and on a
-    # ray along -z in the plane y = -10 of chunk 0's box, the room's floor:
-    # (lo - p) * inf = NaN there, and the cull must keep the box to reach
-    # the back wall's bottom edge at t = 35 (the JAX chunk_sweep drops it)
+    # ray along -z in the plane y = -10 of chunk 0's box and of leaf boxes,
+    # the room's floor: (lo - p) * inf = NaN there, and the walk must keep
+    # the boxes to reach the back wall's bottom edge at t = 35 (the JAX
+    # chunk_sweep drops such a box)
+    if mc.variant != "mega_whitted_tree":
+        raise AssertionError(f"the Whitted scene routed to {mc.variant}")
     o, d = primary_rays(cam_cfg, cam, 65536)
-    if float(chunk_tab[0, 1]) != -10.0:
+    if float(chunk_tab[0, 1]) != -10.0 or not bool(
+            (mc.tree[:, mk.TREE_WIDTH:2 * mk.TREE_WIDTH] == -10.0).any()):
         raise AssertionError(f"chunk 0's box: {chunk_tab[0].tolist()}")
     o = torch.cat([o, torch.tensor([[3.3, -10.0, 25.0]], device=dev)])
     d = torch.cat([d, torch.tensor([[0.0, 0.0, -1.0]], device=dev)])
     got = mk.mega_trace(mc, tri_tab, chunk_tab, o, d)
+    flat = mk.mega_trace(*flat_tables(cfg, pack, cam_cfg), o, d)
     torch.cuda.synchronize()
     ref = mk.mega_trace_ref(mc, tri_tab, chunk_tab, o, d)
     err = check_close(got, ref, "K1a, 65,536 primary rays")
-    plane = {"kernel": got[-1].tolist(), "plain": ref[-1].tolist()}
-    if not (got[-1] == ref[-1]).all() or float(ref[-1].sum()) <= 0.0:
-        raise AssertionError(f"K1a, the ray in chunk 0's face plane: {plane}")
-    emit("kernel_vs_plain", kernel="mega_whitted", scene=WHITTED_SCENE.name,
-         rays=o.shape[0], **err, in_plane_ray=plane, mean_tol=MEAN_TOL,
-         q999_tol=Q999_TOL)
+    err_flat = check_close(flat, ref, "K1a's flat sweep, 65,536 primary rays")
+    plane = {"kernel": got[-1].tolist(), "flat": flat[-1].tolist(),
+             "plain": ref[-1].tolist()}
+    if not ((got[-1] == ref[-1]).all() and (flat[-1] == ref[-1]).all()
+            and float(ref[-1].sum()) > 0.0):
+        raise AssertionError(f"K1a, the ray in the floor's plane: {plane}")
+    emit("kernel_vs_plain", kernel=mc.variant, scene=WHITTED_SCENE.name,
+         rays=o.shape[0], **err, flat_sweep=err_flat, in_plane_ray=plane,
+         mean_tol=MEAN_TOL, q999_tol=Q999_TOL)
+    del flat
 
     # 4. the Whitted main path
-    mp = main_path(pack, cfg, cam_cfg, "mega_whitted", "Whitted main path")
-    emit("main_path", kernel="mega_whitted", scene=WHITTED_SCENE.name, **mp)
+    mp = main_path(pack, cfg, cam_cfg, "mega_whitted_tree",
+                   "Whitted main path")
+    emit("main_path", kernel="mega_whitted_tree", scene=WHITTED_SCENE.name,
+         **mp)
 
-    # 5. K1a at the main path's shape: one sample's 640,000 rays
+    # 5. K1a at the main path's shape: one sample's 640,000 rays; the plain
+    # version and the walk's count on every 8th
     kernel_ms, plain_ms, bd, err, n_rays, stride = at_main_shape(
-        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_whitted",
-        "K1a, 640,000 rays of one sample")
-    kernels.append(kernel_entry("mega_whitted", mp["launches"], kernel_ms, plain_ms,
-                                bd, err, n_rays, stride))
+        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_whitted_tree",
+        "K1a, 640,000 rays of one sample", stride=8)
+    kernels.append(kernel_entry("mega_whitted_tree", mp["launches"], kernel_ms,
+                                plain_ms, bd, err, n_rays, stride))
 
     # ---- K1b: the path-tracing path ----
     # 6. kernel vs plain on 65,536 primary rays, both draw modes
@@ -971,9 +1013,11 @@ def main() -> int:
     (out_dir / "whitted_conductors_mesh.ply").symlink_to(
         SCENES / "whitted_conductors_mesh.ply")
     for label, src, name, stride in variants:
-        _, _, v_cam_cfg, (vmc, vtri, vchunk), vcam = scene(src, name)
+        v_cfg, v_pack, v_cam_cfg, (vmc, vtri, vchunk), vcam = scene(src, name)
         if vmc.kernel != "mega_ext":
             raise AssertionError(f"{label}: routed to {vmc.kernel}")
+        v_flat = (flat_tables(v_cfg, v_pack, v_cam_cfg)
+                  if vmc.tree is not None else None)
         o, d = (t[::stride].contiguous()
                 for t in primary_rays(v_cam_cfg, vcam, 65536, seed=2))
         rows = vmc.max_iters * vmc.n_draws
@@ -985,6 +1029,8 @@ def main() -> int:
                 ("philox", None)):
             got = mk.mega_trace(vmc, vtri, vchunk, o, d, draws=draws, seed=11,
                                 sample=4)
+            flat = (None if v_flat is None else mk.mega_trace(
+                *v_flat, o, d, draws=draws, seed=11, sample=4))
             torch.cuda.synchronize()
             if draws is None and rows:
                 draws = philox_table(11, 4, o.shape[0], vmc.max_iters,
@@ -992,7 +1038,11 @@ def main() -> int:
             ref = mk.mega_trace_ref(vmc, vtri, vchunk, o, d, draws=draws)
             err = check_close_pt(got, ref, f"K1c, {label}, {mode}",
                                  EXT_MEAN_REL)
-            emit("kernel_vs_plain", kernel="mega_ext", scene=label, draws=mode,
+            if flat is not None:
+                err["flat_sweep"] = check_close_pt(
+                    flat, ref, f"K1c's flat sweep, {label}, {mode}",
+                    EXT_MEAN_REL)
+            emit("kernel_vs_plain", kernel=vmc.variant, scene=label, draws=mode,
                  rays=o.shape[0], stride=stride, max_iters=vmc.max_iters,
                  stack_k=vmc.stack_k,
                  n_draws=vmc.n_draws, **err, atol=PT_ATOL, rtol=PT_RTOL,
@@ -1001,8 +1051,8 @@ def main() -> int:
 
     # 10. the K1c main path, then one frame of its path-tracing variant
     cfg, pack, cam_cfg, (mc, tri_tab, chunk_tab), cam = scene(LIGHTS_SCENE)
-    mp = main_path(pack, cfg, cam_cfg, "mega_ext", "K1c main path")
-    emit("main_path", kernel="mega_ext", scene=LIGHTS_SCENE.name, **mp)
+    mp = main_path(pack, cfg, cam_cfg, "mega_ext_tree", "K1c main path")
+    emit("main_path", kernel="mega_ext_tree", scene=LIGHTS_SCENE.name, **mp)
     v_cfg, v_pack, v_cam_cfg, _, _ = scene(variants[-1][1], variants[-1][2])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1015,16 +1065,18 @@ def main() -> int:
                              f"{np.isfinite(hdr).all()}, min {hdr.min()}, "
                              f"u8 mean {ldr.mean()}")
     write_png(str(out_dir / "mega_ext_feat_lights_brdf_pt.png"), ldr)
-    emit("frame", kernel="mega_ext", scene="feat_lights_brdf.xml, path tracing",
+    emit("frame", kernel="mega_ext_tree",
+         scene="feat_lights_brdf.xml, path tracing",
          spp=v_cam_cfg.num_samples, frame_s=frame_s, u8_mean=float(ldr.mean()),
          radiance_mean=float(hdr.mean()), card=card)
 
-    # 11. K1c at the main path's shape: one sample's 640,000 rays, Philox
+    # 11. K1c at the main path's shape: one sample's 640,000 rays, Philox;
+    # the plain version and the walk's count on every 8th
     kernel_ms, plain_ms, bd, err, n_rays, stride = at_main_shape(
-        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_ext",
-        "K1c, 640,000 rays of one sample")
-    kernels.append(kernel_entry("mega_ext", mp["launches"], kernel_ms, plain_ms,
-                                bd, err, n_rays, stride))
+        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_ext_tree",
+        "K1c, 640,000 rays of one sample", stride=8)
+    kernels.append(kernel_entry("mega_ext_tree", mp["launches"], kernel_ms,
+                                plain_ms, bd, err, n_rays, stride))
 
     # ---- K1d: textures and the environment light ----
     # 12. kernel vs plain on 65,536 primary rays, both draw modes
@@ -1046,9 +1098,11 @@ def main() -> int:
          main_dir / "feat_textures_pt.xml", 4)]
     for label, xml, sampled, path, stride in variants:
         path.write_text(xml)
-        _, _, v_cam_cfg, (vmc, vtri, vchunk), vcam = scene(path)
+        v_cfg, v_pack, v_cam_cfg, (vmc, vtri, vchunk), vcam = scene(path)
         if vmc.kernel != "mega_tex":
             raise AssertionError(f"{label}: routed to {vmc.kernel}")
+        v_flat = (flat_tables(v_cfg, v_pack, v_cam_cfg)
+                  if vmc.tree is not None else None)
         if sampled != (vmc.n_draws > 0):
             raise AssertionError(f"{label}: n_draws {vmc.n_draws}")
         rng = np.random.default_rng(4)
@@ -1069,21 +1123,30 @@ def main() -> int:
                 ("philox", None)):
             got = mk.mega_trace(vmc, vtri, vchunk, o, d, draws=draws, seed=13,
                                 sample=6, pix_uv=pix_uv)
+            flat = (None if v_flat is None else mk.mega_trace(
+                *v_flat, o, d, draws=draws, seed=13, sample=6, pix_uv=pix_uv))
             torch.cuda.synchronize()
             if draws is None and rows:
                 draws = philox_table(13, 6, o.shape[0], vmc.max_iters,
                                      vmc.n_draws, device=dev)
             ref = mk.mega_trace_ref(vmc, vtri, vchunk, o, d, draws=draws,
                                     pix_uv=pix_uv)
-            if rows:
-                err = check_close_pt(got, ref, f"K1d, {label}, {mode}",
-                                     EXT_MEAN_REL)
-                tol = dict(atol=PT_ATOL, rtol=PT_RTOL, frac_tol=PT_FRAC,
-                           mean_rel_tol=EXT_MEAN_REL)
-            else:
-                err = check_close(got, ref, f"K1d, {label}, {mode}")
-                tol = dict(mean_tol=MEAN_TOL, q999_tol=Q999_TOL)
-            emit("kernel_vs_plain", kernel="mega_tex", scene=label, draws=mode,
+            for kern, out in (("kernel", got), ("flat_sweep", flat)):
+                if out is None:
+                    continue
+                what = f"K1d{'' if kern == 'kernel' else ' flat'}, {label}, {mode}"
+                if rows:
+                    e = check_close_pt(out, ref, what, EXT_MEAN_REL)
+                    tol = dict(atol=PT_ATOL, rtol=PT_RTOL, frac_tol=PT_FRAC,
+                               mean_rel_tol=EXT_MEAN_REL)
+                else:
+                    e = check_close(out, ref, what)
+                    tol = dict(mean_tol=MEAN_TOL, q999_tol=Q999_TOL)
+                if kern == "kernel":
+                    err = e
+                else:
+                    err["flat_sweep"] = e
+            emit("kernel_vs_plain", kernel=vmc.variant, scene=label, draws=mode,
                  rays=o.shape[0], stride=stride, depth=vmc.max_depth,
                  max_iters=vmc.max_iters, stack_k=vmc.stack_k,
                  n_draws=vmc.n_draws, n_textures=vmc.n_textures,
@@ -1092,8 +1155,8 @@ def main() -> int:
 
     # 13. the K1d main path, then one frame of its path-tracing variant
     cfg, pack, cam_cfg, (mc, tri_tab, chunk_tab), cam = scene(TEXTURES_SCENE)
-    mp = main_path(pack, cfg, cam_cfg, "mega_tex", "K1d main path")
-    emit("main_path", kernel="mega_tex", scene=TEXTURES_SCENE.name, **mp)
+    mp = main_path(pack, cfg, cam_cfg, "mega_tex_tree", "K1d main path")
+    emit("main_path", kernel="mega_tex_tree", scene=TEXTURES_SCENE.name, **mp)
     v_cfg, v_pack, v_cam_cfg, _, _ = scene(main_dir / "feat_textures_pt.xml")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1106,17 +1169,18 @@ def main() -> int:
                              f"{np.isfinite(hdr).all()}, min {hdr.min()}, "
                              f"u8 mean {ldr.mean()}")
     write_png(str(out_dir / "mega_tex_feat_textures_pt.png"), ldr)
-    emit("frame", kernel="mega_tex", scene="feat_textures.xml, path tracing",
+    emit("frame", kernel="mega_tex_tree",
+         scene="feat_textures.xml, path tracing",
          spp=v_cam_cfg.num_samples, frame_s=frame_s, u8_mean=float(ldr.mean()),
          radiance_mean=float(hdr.mean()), card=card)
 
     # 14. K1d at the main path's shape: one sample's 640,000 rays, Philox;
     # the plain version on every 8th of them, to keep the script's time
     kernel_ms, plain_ms, bd, err, n_rays, stride = at_main_shape(
-        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_tex",
+        mc, tri_tab, chunk_tab, cam_cfg, cam, "mega_tex_tree",
         "K1d, 640,000 rays of one sample", stride=8)
-    kernels.append(kernel_entry("mega_tex", mp["launches"], kernel_ms, plain_ms,
-                                bd, err, n_rays, stride))
+    kernels.append(kernel_entry("mega_tex_tree", mp["launches"], kernel_ms,
+                                plain_ms, bd, err, n_rays, stride))
 
     # ---- K1e: large geometry through the tree ----
     def check_modes(label, kernel, src, rays, sampled_tol, name=None, seed=0,
@@ -1207,8 +1271,8 @@ def main() -> int:
     traced.cameras[0].renderer_params.next_event_estimation = True
     traced.cameras[0].renderer_params.importance_sampling = True
     k1c = k1c_scenes(SCENES)
-    flat_max = mk.FLAT_MAX_FACES
-    mk.FLAT_MAX_FACES = 0  # every scene with faces walks a tree
+    fwd_flat_max = mk.FWD_FLAT_MAX_FACES
+    mk.FWD_FLAT_MAX_FACES = 0  # every scene with faces walks a tree
     try:
         for label, kernel, src, name in (
                 ("terrain n=33, path tracing", "mega_pt", traced, None),
@@ -1221,7 +1285,7 @@ def main() -> int:
                  None)):
             check_modes(label, kernel, src, 65536, EXT_MEAN_REL, name, seed=5)
     finally:
-        mk.FLAT_MAX_FACES = flat_max
+        mk.FWD_FLAT_MAX_FACES = fwd_flat_max
 
     # 16. the K1e main path: render_scene on both terrains, then frames
     main_launches = {}
@@ -1266,8 +1330,12 @@ def main() -> int:
             mc, tri_tab, chunk_tab, cam_cfg, cam, kernel,
             f"K1e {kernel}, 307,200 rays of one sample", stride=16,
             count_chunk=76800)
-        kernels.append(kernel_entry(kernel, main_launches[kernel], kernel_ms,
-                                    plain_ms, bd, err, n_rays, stride))
+        # the same instantiations as K1a's and K1d's main paths, on the K1e
+        # path's terrain
+        kernels.append(kernel_entry(f"{kernel} (terrain)",
+                                    main_launches[kernel], kernel_ms,
+                                    plain_ms, bd, err, n_rays, stride,
+                                    library=mk.LIBRARY[kernel]))
         lit[textured].cameras[0].num_samples = cam_cfg.num_samples
         _, _, l_cam_cfg, (lmc, ltri, lchunk), lcam = scene(lit[textured])
         o, d = sample_rays(l_cam_cfg, lcam, l_cam_cfg.num_samples)
@@ -1277,28 +1345,36 @@ def main() -> int:
                  lmc, ltri, lchunk, o, d, seed=0, sample=0), 5),
              faces_down_ms=kernel_ms, card=card)
 
-    # the flat main paths' scenes through their tree twins (FLAT_MAX_FACES
-    # at 0) beside their flat kernels, on one sample's rays
+    # the forward route against the flat chunk sweep (the tables built with
+    # FLAT_MAX_FACES, K2's threshold) on every ray of one sample of each
+    # main path's scene: bit for bit; feat_pt.xml (one chunk) keeps the flat
+    # kernel, and is held to its tree twin (flat_max 0)
     for path in (WHITTED_SCENE, PT_SCENE, LIGHTS_SCENE, TEXTURES_SCENE):
-        _, _, f_cam_cfg, flat_tabs, f_cam = scene(path)
-        flat_max = mk.FLAT_MAX_FACES
-        mk.FLAT_MAX_FACES = 0
-        try:
-            tree_tabs = scene(path)[3]
-        finally:
-            mk.FLAT_MAX_FACES = flat_max
+        f_cfg, f_pack, f_cam_cfg, route_tabs, f_cam = scene(path)
+        f_opts = renderer.options_for_camera(f_cfg, f_cam_cfg)
+        other = mk.build_mega(f_pack, f_opts, device=dev,
+                              flat_max=mk.FLAT_MAX_FACES if
+                              route_tabs[0].tree is not None else 0)
         o, d = sample_rays(f_cam_cfg, f_cam, f_cam_cfg.num_samples)
         res = {}
-        for label, (m, tri, chunk) in (("flat", flat_tabs), ("tree", tree_tabs)):
+        for label, (m, tri, chunk) in (("route", route_tabs), ("other", other)):
             res[label] = mk.mega_trace(m, tri, chunk, o, d, seed=0, sample=0)
             res[label + "_ms"] = cuda_ms(lambda: mk.mega_trace(
                 m, tri, chunk, o, d, seed=0, sample=0), 5)
-        emit("tree_on_flat_scene", scene=path.name,
-             flat_kernel=flat_tabs[0].variant, tree_kernel=tree_tabs[0].variant,
-             rays=o.shape[0], flat_ms=res["flat_ms"], tree_ms=res["tree_ms"],
-             exact_frac_vs_flat=exact_frac(res["tree"], res["flat"]),
-             max_abs_diff=float((res["tree"] - res["flat"]).abs().max()),
-             card=card)
+        tree = "route" if route_tabs[0].tree is not None else "other"
+        flat = "other" if tree == "route" else "route"
+        line = dict(scene=path.name, route_kernel=route_tabs[0].variant,
+                    flat_kernel=(route_tabs, other)[flat == "other"][0].variant,
+                    tree_kernel=(route_tabs, other)[tree == "other"][0].variant,
+                    rays=o.shape[0], flat_ms=res[flat + "_ms"],
+                    tree_ms=res[tree + "_ms"],
+                    exact_frac_vs_flat=exact_frac(res[tree], res[flat]),
+                    max_abs_diff=float((res[tree] - res[flat]).abs().max()),
+                    card=card)
+        emit("route_vs_flat", **line)
+        if line["exact_frac_vs_flat"] != 1.0:
+            raise AssertionError(f"{path.name}: the tree and the flat sweep "
+                                 f"differ: {line}")
         del res
 
     # ---- K2a: the differentiable render (slice C1) ----

@@ -96,6 +96,69 @@ def k1c_scenes() -> dict:
     return feature_scenes.k1c_scenes(REPO / "scenes")
 
 
+def assert_tree_invariants(mc, tab) -> None:
+    """The K1e tree of ``mc`` over ``tab`` (``ops/megakernel.py::
+    _tree_table``): every row in exactly one leaf of at most
+    ``mc.tree_leaf_rows`` consecutive rows starting at a multiple of it; each leaf's box
+    holds its faces at both ends of the motion; each node child's box holds
+    the boxes of that node's children; every node reached once from the
+    root; the levels and the stack need (the largest sum over a path from
+    the root of each node's children less one) are the recorded ones, and
+    the need fits the kernels' stack."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megakernel as mk
+
+    w, wd = mc.n_tri, mk.TREE_WIDTH
+    nodes = mc.tree.numpy()
+    assert nodes.shape[1] == mk.NODE_COLS == 8 * wd
+    box = nodes[:, :6 * wd].reshape(-1, 6, wd).transpose(0, 2, 1)  # (N, W, 6)
+    code = nodes.view(np.int32)[:, 6 * wd:7 * wd]
+    cnt = nodes.view(np.int32)[:, 7 * wd:8 * wd]
+    real = cnt >= 0
+    leaf = cnt > 0
+    assert real.any(axis=1).all()
+    # the kernels' codes: a node's row (never the root's 0), ~(first row <<
+    # 5 | row count) for a leaf, 0 for no child
+    ref = np.where(code < 0, ~code >> 5, code)
+    assert (code[~real] == 0).all() and (code[real & ~leaf] > 0).all()
+    np.testing.assert_array_equal((~code[leaf]) & 31, cnt[leaf])
+    # every row in exactly one leaf of at most tree_leaf_rows consecutive rows
+    assert 0 < mc.tree_leaf_rows < 32
+    assert (cnt[leaf] <= mc.tree_leaf_rows).all()
+    assert (ref[leaf] % mc.tree_leaf_rows == 0).all()
+    rows = np.concatenate([np.arange(f, f + c)
+                           for f, c in zip(ref[leaf], cnt[leaf])])
+    np.testing.assert_array_equal(np.sort(rows), np.arange(w))
+    # leaf boxes hold their faces at both ends of the motion
+    verts = tab[:w, 0:9].numpy().reshape(w, 3, 3)
+    ends = (verts, verts - mc.tri_motion[:w].numpy()[:, None])
+    for i, k in zip(*np.where(leaf)):
+        for v in ends:
+            vs = v[ref[i, k]:ref[i, k] + cnt[i, k]].reshape(-1, 3)
+            assert (vs >= box[i, k, 0:3]).all(), (i, k)
+            assert (vs <= box[i, k, 3:6]).all(), (i, k)
+    # a node child's box holds its children's; every node reached once
+    seen = np.zeros(len(nodes), int)
+
+    def visit(i):
+        seen[i] += 1
+        depth, need = 1, 0
+        for k in np.where(real[i])[0]:
+            if leaf[i, k]:
+                continue
+            c = ref[i, k]
+            kids = box[c][real[c]]
+            assert (kids[:, 0:3] >= box[i, k, 0:3]).all(), (i, k)
+            assert (kids[:, 3:6] <= box[i, k, 3:6]).all(), (i, k)
+            dep, nd = visit(c)
+            depth, need = max(depth, dep + 1), max(need, nd)
+        return depth, need + int(real[i].sum()) - 1
+
+    depth, need = visit(0)
+    assert (seen == 1).all()
+    assert (depth, need) == (mc.tree_depth, mc.tree_stack)
+    assert need <= mk.TREE_STACK
+
+
 def test_committed_mesh_is_torus_mesh():
     assert SLICE_PLY.read_bytes() == ply_bytes(*torus_mesh(**FULL_TORUS))
 

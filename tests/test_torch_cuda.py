@@ -70,12 +70,15 @@ def test_kernel_matches_plain_version(cuda, tmp_path):
 
 
 def test_render_camera_launches_once_per_sample(cuda, tmp_path):
+    """The coarse slice (768 faces, past one chunk) through render_camera:
+    the tree instantiation of K1a launches once per sample, nothing else."""
     cfg, pack = _scene(tmp_path, cuda)
     jitter = torch.rand((4, 48 * 48, 2), generator=torch.Generator().manual_seed(3))
-    before = mk.LAUNCHES["mega_whitted"]
+    before = dict(mk.LAUNCHES)
     got = render_camera(pack, cfg, cfg.cameras[0], spp=4, device=cuda,
                         jitter=jitter)
-    assert mk.LAUNCHES["mega_whitted"] == before + 4
+    assert {k: mk.LAUNCHES[k] - before[k] for k in before} == {
+        k: 4 * int(k == "mega_whitted_tree") for k in before}
     want = render_camera(pack_scene(cfg, device="cpu"), cfg, cfg.cameras[0],
                          spp=4, device="cpu", jitter=jitter)
     du8 = np.abs(ldr_from_radiance(got).astype(int)
@@ -222,8 +225,9 @@ def test_ext_kernel_matches_plain_version(cuda, tmp_path, name, mode):
 
 @pytest.mark.parametrize("pt", [False, True])
 def test_ext_render_camera_launches_once_per_sample(cuda, tmp_path, pt):
-    """feat_lights_brdf.xml (coarse torus, 48 px, DoF) on the card: K1c
-    launches once per sample and no other variant, and the frame is finite
+    """feat_lights_brdf.xml (coarse torus, 48 px, DoF) on the card: K1c's
+    tree instantiation (768 faces, past one chunk) launches once per sample
+    and no other variant, and the frame is finite
     (its lens draws come from the card's generator, so no CPU frame draws
     the same rays)."""
     path = lights_brdf_scene(tmp_path)
@@ -236,9 +240,8 @@ def test_ext_render_camera_launches_once_per_sample(cuda, tmp_path, pt):
     got = render_camera(pack_scene(cfg, device=cuda), cfg, cfg.cameras[0],
                         seed=7, spp=4, device=cuda, jitter=jitter)
     after = dict(mk.LAUNCHES)
-    assert after["mega_ext"] == before["mega_ext"] + 4
-    assert (after["mega_pt"], after["mega_whitted"]) == (
-        before["mega_pt"], before["mega_whitted"])
+    assert {k: after[k] - before[k] for k in before} == {
+        k: 4 * int(k == "mega_ext_tree") for k in before}
     assert np.isfinite(got).all()
 
 
@@ -285,8 +288,9 @@ def test_tex_kernel_matches_plain_version(cuda, tmp_path, name, mode):
 
 
 def test_tex_render_camera_launches_once_per_sample(cuda, tmp_path):
-    """feat_textures.xml (coarse torus, 48 px) on the card: K1d launches
-    once per sample and no other variant, and the frame agrees with the
+    """feat_textures.xml (coarse torus, 48 px) on the card: K1d's tree
+    instantiation (past one chunk) launches once per sample and no other
+    variant, and the frame agrees with the
     CPU frame of the same jitter and Philox draws."""
     xml = (REPO / "scenes" / "feat_textures.xml").read_text().replace(
         "800 800", "48 48")
@@ -301,9 +305,8 @@ def test_tex_render_camera_launches_once_per_sample(cuda, tmp_path):
     got = render_camera(pack_scene(cfg, device=cuda), cfg, cfg.cameras[0],
                         seed=7, spp=4, device=cuda, jitter=jitter)
     after = dict(mk.LAUNCHES)
-    assert after["mega_tex"] == before["mega_tex"] + 4
-    assert all(after[k] == before[k] for k in ("mega_whitted", "mega_pt",
-                                                "mega_ext"))
+    assert {k: after[k] - before[k] for k in before} == {
+        k: 4 * int(k == "mega_tex_tree") for k in before}
     want = render_camera(pack_scene(cfg, device="cpu"), cfg, cfg.cameras[0],
                          seed=7, spp=4, device="cpu", jitter=jitter)
     du8 = np.abs(ldr_from_radiance(got).astype(int)
@@ -343,7 +346,7 @@ def test_tree_kernel_matches_plain_version(cuda, monkeypatch, textured):
 def test_tree_render_camera_launches_once_per_sample(cuda, monkeypatch):
     """K1e through render_camera: the tree instantiation launches once per
     sample and nothing else; the frame agrees with the CPU frame."""
-    monkeypatch.setattr(mk, "FLAT_MAX_FACES", 0)
+    monkeypatch.setattr(mk, "FWD_FLAT_MAX_FACES", 0)
     cfg = terrain_scene(n=33, width=48, height=32, textured=True)
     jitter = torch.rand((4, 48 * 32, 2), generator=torch.Generator().manual_seed(3))
     before = dict(mk.LAUNCHES)

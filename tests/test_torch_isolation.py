@@ -2,8 +2,8 @@
 neither JAX nor the JAX package, needs neither triton nor a CUDA card, and
 its entry points (the renderer, the differentiable render's ``optimize``,
 ``make_diff_render`` and ``mega_bwd_trace``, K3's ``tri_closest_hit``, the
-inverse-rendering tool and the big-texture probe) refuse to fall back to the CPU when no card is
-there."""
+inverse-rendering tool, the big-texture probe and the tree-design tool)
+refuse to fall back to the CPU when no card is there."""
 
 from __future__ import annotations
 
@@ -44,7 +44,8 @@ assert {"advanced_cpu_raytracing_tpu_torch.tools.inverse_render",
         "advanced_cpu_raytracing_tpu_torch.render.integrator",
         "advanced_cpu_raytracing_tpu_torch.tools.probe_bigtex",
         "advanced_cpu_raytracing_tpu_torch.ops.bigtex_gather",
-        "advanced_cpu_raytracing_tpu_torch.utils.profiling"} <= set(names)
+        "advanced_cpu_raytracing_tpu_torch.utils.profiling",
+        "advanced_cpu_raytracing_tpu_torch.tools.tree_design"} <= set(names)
 
 import dataclasses
 from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
@@ -56,7 +57,11 @@ from advanced_cpu_raytracing_tpu_torch.render.renderer import (
 )
 from advanced_cpu_raytracing_tpu_torch.scene.pack import pack_scene
 from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
-from advanced_cpu_raytracing_tpu_torch.tools import inverse_render, probe_bigtex
+from advanced_cpu_raytracing_tpu_torch.tools import (
+    inverse_render,
+    probe_bigtex,
+    tree_design,
+)
 cfg = load_scene(sys.argv[1])
 cpu_pack = pack_scene(cfg, device="cpu")
 opts = options_for_camera(cfg, cfg.cameras[0])
@@ -78,7 +83,9 @@ for call in (lambda: pack_scene(cfg),
              lambda: render_camera(cpu_pack, cfg, cfg.cameras[0], tile_size=8),
              lambda: inverse_render.main(["--texture", "--steps", "1"]),
              lambda: probe_bigtex.run(n_rows=64, blocks=1, iters=1),
-             lambda: probe_bigtex.main(["--n-rows", "64", "--blocks", "1"])):
+             lambda: probe_bigtex.main(["--n-rows", "64", "--blocks", "1"]),
+             lambda: tree_design.main(["--count"]),
+             lambda: tree_design.main(["--twins"])):
     try:
         call()
     except RuntimeError as e:

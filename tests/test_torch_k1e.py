@@ -1,9 +1,10 @@
 """Large geometry (K1e) of the PyTorch port against the JAX package, on
 this host's CPU.
 
-Past ``FLAT_MAX_FACES`` work items ``build_mega`` adds a tree over 16-row
-leaves of the triangle table, and the CUDA kernels walk it in place of the
-128-face chunk sweep (the JAX kernel streams its table from HBM instead).
+Past ``FLAT_MAX_FACES`` work items ``build_mega`` adds a tree of 4-wide
+nodes over leaves of ``LEAF_ROWS`` (4) rows of the triangle table, and the
+CUDA kernels walk it in place of the 128-face chunk sweep (the JAX kernel
+streams its table from HBM instead).
 Here, with the thresholds of both packages lowered as the JAX kernel's own
 streamed-geometry tests lower theirs:
 
@@ -12,10 +13,10 @@ streamed-geometry tests lower theirs:
   interpret mode on 1,024 seeded primary rays: mean |d| < 0.01 and 99.9%
   quantile < 0.5 (the K1a/K1d bound); the Cornell mesh-light scene on the
   JAX kernel's own host draw table within 1e-4;
-* the tree tables: every row in exactly one leaf of at most 16 consecutive
-  rows, leaf boxes holding their faces swept over the motion, node boxes
-  holding their children, every node reached once, the depth within the
-  kernels' stack;
+* the tree tables: every row in exactly one leaf of at most LEAF_ROWS
+  consecutive rows, leaf boxes holding their faces swept over the motion, each node's
+  child boxes holding that child's children, every node reached once, the
+  stack need within the kernels' stack;
 * ``TreeWalker`` (the kernels' walk on the host) against the brute force:
   the same closest hit and winning row on the terrain at pixel centres, on
   a moving terrain, and on a constructed tie on a shared edge whose faces
@@ -61,6 +62,7 @@ from advanced_cpu_raytracing_tpu_torch.scene.pack import (
 from advanced_cpu_raytracing_tpu_torch.scene.synth import terrain_scene
 from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
 from tests.scene_builders import cornell_pt_xml
+from test_torch_common import assert_tree_invariants
 
 torch.set_num_threads(1)
 
@@ -157,39 +159,9 @@ def _tree_scene(name):
 def test_tree_tables_hold_their_invariants(monkeypatch, name):
     cfg, flat_max = _tree_scene(name)
     mc, tab, _ = _tables(cfg, monkeypatch, flat_max)
-    w = mc.n_tri
-    assert w > flat_max and mc.tree is not None
-    nodes = mc.tree.numpy()
-    lo, hi = nodes[:, 0:3], nodes[:, 3:6]
-    a, cnt = nodes.view(np.int32)[:, 6], nodes.view(np.int32)[:, 7]
-    leaf = cnt > 0
-    # every row in exactly one leaf of at most 16 consecutive rows
-    assert (cnt[leaf] <= mk.LEAF_ROWS).all() and (a[leaf] % mk.LEAF_ROWS == 0).all()
-    rows = np.concatenate([np.arange(f, f + c) for f, c in zip(a[leaf], cnt[leaf])])
-    np.testing.assert_array_equal(np.sort(rows), np.arange(w))
-    # leaf boxes hold their faces at both ends of the motion
-    verts = tab[:w, 0:9].numpy().reshape(w, 3, 3)
-    ends = [verts, verts - mc.tri_motion[:w].numpy()[:, None]]
+    assert mc.n_tri > flat_max and mc.tree is not None
     assert mc.faces_move == (name == "moving_terrain")
-    for i in np.where(leaf)[0]:
-        for v in ends:
-            vs = v[a[i]:a[i] + cnt[i]].reshape(-1, 3)
-            assert (vs >= lo[i]).all() and (vs <= hi[i]).all(), i
-    # node boxes hold their children; every node reached once; the depth
-    seen = np.zeros(len(nodes), int)
-    depth = 0
-    todo = [(0, 1)]
-    while todo:
-        i, dep = todo.pop()
-        seen[i] += 1
-        depth = max(depth, dep)
-        if leaf[i]:
-            continue
-        for c in (i + 1, a[i]):
-            assert (lo[c] >= lo[i]).all() and (hi[c] <= hi[i]).all(), (i, c)
-            todo.append((c, dep + 1))
-    assert (seen == 1).all()
-    assert depth == mc.tree_depth <= mk.TREE_STACK
+    assert_tree_invariants(mc, tab)
 
 
 def test_tree_deeper_than_the_stack_raises(monkeypatch):
@@ -278,7 +250,7 @@ def test_walker_keeps_the_lowest_row_on_a_shared_edge_tie(monkeypatch):
             t, valid = mk._tri_hit(verts[:, 0].T, verts[:, 1].T, verts[:, 2].T,
                                    *(c[:, None] for c in (*o.T, *d.T)))
             rows = torch.where(valid[0] & (t[0] == 1.0))[0]
-            if len(set((rows // mk.LEAF_ROWS).tolist())) > 1:
+            if len(set((rows // mc.tree_leaf_rows).tolist())) > 1:
                 rays_o.append(o)
                 rays_d.append(d)
                 pairs.append(rows)
@@ -294,9 +266,10 @@ def test_render_camera_takes_a_scene_past_the_threshold(monkeypatch):
     the CPU; the plain version's brute force gives the flat scene's
     frame."""
     cfg = terrain_scene(n=17, width=24, height=16)
+    monkeypatch.setattr(mk, "FWD_FLAT_MAX_FACES", 1 << 20)
     flat = renderer.render_camera(pack_scene(cfg, device="cpu"), cfg,
                                   cfg.cameras[0], device="cpu")
-    monkeypatch.setattr(mk, "FLAT_MAX_FACES", 0)
+    monkeypatch.setattr(mk, "FWD_FLAT_MAX_FACES", 0)
     pack = pack_scene(cfg, device="cpu")
     opts = renderer.options_for_camera(cfg, cfg.cameras[0])
     assert mk.mega_missing(pack.static, opts, pack) == []
