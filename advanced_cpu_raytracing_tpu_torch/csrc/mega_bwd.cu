@@ -49,19 +49,31 @@
 // forward values from the record, the call's tables and the draws (read or
 // drawn again, not stored) and applies each step's adjoint, derived by hand
 // (the TPU kernel gets it from jax.vjp at trace time, which has no CUDA
-// counterpart).  The cotangents are scattered with atomics in place of the
-// TPU's one-hot MXU epilogue: the winner vertices' and the sampled
-// mesh-light faces' (9 per segment each) straight to global memory by row;
-// the materials', lights' and background's into shared memory per block
-// first, then one global atomic per block and value (a few addresses take
-// every ray's adds).  The ray cotangents d_o, d_d are written per ray.
-// K2c reads its taps from K1d's pool (mega_tex.cuh: every image at native
-// size, RGB f32, any number of texels and textures) with __ldg and adds
-// each tap's three cotangents into a pool-shaped buffer with global
-// atomics, in place of the TPU's channel-block texel table, its row-masked
-// lane gather, the 16 tap streams and the one-hot MXU reduction with its
-// 4,096-texel cap; the diffuse slot is read again from the winner's row,
-// not kept in the record.
+// counterpart).  The ray cotangents d_o, d_d are written per ray.  K2c
+// reads its taps from K1d's pool (mega_tex.cuh: every image at native size,
+// RGB f32, any number of texels and textures) with __ldg, in place of the
+// TPU's channel-block texel table, its row-masked lane gather and the 16 tap
+// streams; the diffuse slot is read again from the winner's row, not kept
+// in the record.
+//
+// The scatter, in place of the TPU's one-hot MXU epilogue and the 4,096
+// texels it capped the pool at (the port has no cap).  Each cotangent target
+// (vertices by row, materials, point, directional, spot, area and mesh
+// lights, background, texels) has its own flag, and one the caller needs no
+// gradient of is never added to.  Thousands of rays add into a few
+// addresses: on the inverse-texture quad 640,000 rays x 9 vertex values go
+// to 18, and 4 taps x 3 channels to 12,288 texel values whose neighbouring
+// pixels share taps.  So every add is first summed over the warp's lanes
+// that share its destination (__match_any_sync on the address, or on the
+// first tap's texel and the filter, which fix the other three taps; then a
+// tree of shuffles), and one lane adds the group's sums.  Those adds go to
+// shared memory where the target fits in it: the materials' and lights'
+// always; the rows' when 9 n_tri floats are few (FLAG_TRI_SHARED; the host
+// picks, ops/megabwd.py::scatter_flags).  At the block's end each nonzero
+// shared sum goes to global memory with one atomic.  Elsewhere (the
+// 32,768-face torus's rows; the texel pool, whose copy in shared memory
+// measured slower than these sums on an H100 at every pool size tried,
+// PERF.md) the group sums go to global memory directly.
 //
 // Draws.  A table (the JAX wavefront_rng planes: ops/megabwd.py::BwdDraws)
 // when one is given, else Philox4x32-10 keyed (seed, step), counter (ray,
@@ -91,9 +103,16 @@ using namespace mw;
 constexpr int MAX_SEG_WHITTED = 11;  // K2a's segments: MAX_DEPTH (10) + 1
 constexpr int MAX_SEG = 19;  // K2b's: + RR_DEPTH_FLOOR (8) under Russian roulette
 constexpr int MAX_ML = 4;    // mesh lights (ops/megakernel.py::MAX_MESH_LIGHTS)
-constexpr int FLAG_EMISSIVE = 8, FLAG_NO_SCATTER = 16, FLAG_PT = 32,
-              FLAG_IMPORTANCE = 64, FLAG_NEE = 128, FLAG_RR = 256,
-              FLAG_PT_SPEC = 512;
+constexpr int FLAG_EMISSIVE = 8, FLAG_PT = 32, FLAG_IMPORTANCE = 64,
+              FLAG_NEE = 128, FLAG_RR = 256, FLAG_PT_SPEC = 512;
+// the fwd+bwd's cotangent targets, one flag each (ops/megabwd.py::
+// SCATTER_FLAGS): a target without its flag is never added to; and the
+// rows, whose sums a block keeps in shared memory first where the host
+// asks (ops/megabwd.py::scatter_flags)
+constexpr int SC_MAT = 1 << 10, SC_PL = 1 << 11, SC_DL = 1 << 12,
+              SC_BG = 1 << 13, SC_TRI = 1 << 14, SC_SL = 1 << 15,
+              SC_AL = 1 << 16, SC_ML = 1 << 17, SC_TEX = 1 << 18;
+constexpr int FLAG_TRI_SHARED = 1 << 19;
 constexpr int SPOT_COLS = 12;  // pos 3, dir 3, intensity 3, cos(cov/2),
                                // cos(fall/2), falloff denominator
 constexpr int AREA_COLS = 17;  // pos 3, normal 3, radiance 3, extent, area,
@@ -452,6 +471,53 @@ __device__ __forceinline__ int shared_floats(const Params& P) {
   return P.n_mat * MAT_GRAD_COLS + 3 * (P.n_point + P.n_dir) + 3;
 }
 
+// Where the reverse sweep adds its cotangents: the block's sums (sm, above);
+// the rows' (9 per work item), the block's copy in shared memory or the
+// call's buffer; the texel pool's (3 per texel), the call's buffer; and the
+// targets asked for (SC_*).
+struct Sinks {
+  float* sm;
+  float* tri;
+  float* tex;
+  int sc;
+};
+
+// Sums v over each group of the warp's converged lanes that share key: a
+// tree over the group's lanes in lane order, by shuffles (the peers'
+// reduction of E. Westphal's warp-aggregated atomics).  Returns true on the
+// group's lowest lane, whose v then holds the group's sums; that lane alone
+// adds them, so a group of 32 lanes on one address costs one atomic per
+// value where each lane's own atomics would queue 32 deep on it.
+template <int N>
+__device__ __forceinline__ bool warp_sum(unsigned long long key, float (&v)[N]) {
+  const unsigned active = __activemask();
+  const unsigned peers = __match_any_sync(active, key);
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = peers & ((1u << lane) - 1u);
+  unsigned rel = __popc(below);                  // rank in the group
+  unsigned rest = peers & ~((2u << lane) - 1u);  // the peers above
+  while (__any_sync(active, rest != 0u)) {
+    const int next = __ffs(rest) - 1;  // -1: none above
+    for (int j = 0; j < N; ++j) {
+      const float t = __shfl_sync(active, v[j], next < 0 ? lane : next);
+      if (next >= 0) v[j] += t;
+    }
+    // a lane whose rank is odd at this level has passed its sum down
+    rest &= ~__ballot_sync(active, rel & 1u);
+    rel >>= 1;
+  }
+  return below == 0u;
+}
+
+// Adds v[0..N) at dst[0..N), one atomic per nonzero value and group of the
+// warp's lanes on the same dst.
+template <int N>
+__device__ __forceinline__ void scatter_add(float* dst, float (&v)[N]) {
+  if (warp_sum(reinterpret_cast<unsigned long long>(dst), v) && dst != nullptr)
+    for (int j = 0; j < N; ++j)
+      if (v[j] != 0.0f) atomicAdd(dst + j, v[j]);
+}
+
 // ---- K2b: the draws, the spot, area and mesh lights, the GI direction ----
 
 __device__ __forceinline__ float word_uniform(unsigned x) {
@@ -794,14 +860,17 @@ __device__ __forceinline__ float tile_slope(float x) {
 
 // The adjoint of tex_step for the cotangent gkd of its kd: the taps'
 // texels (g w_k / 255, g w_k / 510 under blend_kd) added into the pool's
-// cotangent, the material's kd (g / 2 under blend_kd) into gm, and the
-// barycentrics' (through the bilinear weights where the clip of u w to
-// [0, w - 1] passes, tile_uv and uv; floor is a constant) into g_beta,
-// g_gamma.
+// cotangent at tex (null: not asked for), the material's kd (g / 2 under
+// blend_kd) into gm, and the barycentrics' (through the bilinear weights
+// where the clip of u w to [0, w - 1] passes, tile_uv and uv; floor is a
+// constant) into g_beta, g_gamma.  The taps' texels follow from the first
+// tap's and the filter (the first tap fixes the image and the cell; two
+// textures may share an image with different filters), so the warp's lanes
+// are grouped by both and each group's lowest lane adds the group's sums.
 __device__ __forceinline__ void tex_step_vjp(const BwdParams& Q, int row,
                                              const TexStep& X,
                                              const float* gkd, float* gm,
-                                             bool scatter, float& g_beta,
+                                             float* tex, float& g_beta,
                                              float& g_gamma) {
   float gtap[3];
   for (int c = 0; c < 3; ++c) {
@@ -810,16 +879,24 @@ __device__ __forceinline__ void tex_step_vjp(const BwdParams& Q, int row,
     gtap[c] = gv * mt::INV255;
   }
   const int n_taps = X.bilinear ? 4 : 1;
-  float gw[4];
+  float gw[4], gt[12];
+  for (int k = 0; k < 4; ++k)
+    for (int c = 0; c < 3; ++c) gt[3 * k + c] = 0.0f;
   for (int k = 0; k < n_taps; ++k) {
     const size_t at = 3 * static_cast<size_t>(X.idx[k]);
     gw[k] = 0.0f;
     for (int c = 0; c < 3; ++c) {
       gw[k] += gtap[c] * __ldg(Q.t.texels + at + c);
-      const float gt = gtap[c] * X.w[k];
-      if (scatter && gt != 0.0f) atomicAdd(Q.t.d_texels + at + c, gt);
+      gt[3 * k + c] = gtap[c] * X.w[k];
     }
   }
+  const unsigned long long key =
+      (static_cast<unsigned long long>(X.idx[0]) << 1) | (X.bilinear ? 1u : 0u);
+  if (tex != nullptr && warp_sum(key, gt))
+    for (int k = 0; k < n_taps; ++k)
+      for (int c = 0; c < 3; ++c)
+        if (gt[3 * k + c] != 0.0f)
+          atomicAdd(tex + 3 * static_cast<size_t>(X.idx[k]) + c, gt[3 * k + c]);
   g_beta = 0.0f;
   g_gamma = 0.0f;
   if (!X.bilinear) return;
@@ -844,7 +921,7 @@ __device__ __forceinline__ void tex_step_vjp(const BwdParams& Q, int row,
 template <bool kBwd, class G, bool kPt = false, bool kTex = false>
 __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
                          const float* __restrict__ d, float* __restrict__ out,
-                         int i, float* sm) {
+                         int i, const Sinks& K) {
   using SegT = typename std::conditional<kPt, SegPt, Seg>::type;
   const Params& P = Q.g;
   const bool diel = (P.flags & FLAG_DIELECTRIC) != 0;
@@ -1090,9 +1167,8 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
   if constexpr (!kBwd) return;
 
   // ---- reverse sweep: the last segment to the first ----
-  const bool scatter = (P.flags & FLAG_NO_SCATTER) == 0;
-  float* sm_mat = sm;
-  float* sm_pl = sm + P.n_mat * MAT_GRAD_COLS;
+  float* sm_mat = K.sm;
+  float* sm_pl = K.sm + P.n_mat * MAT_GRAD_COLS;
   float* sm_dl = sm_pl + 3 * P.n_point;
   float* sm_bg = sm_dl + 3 * P.n_dir;
   float gL[3], go2[3] = {0.0f, 0.0f, 0.0f}, gd2[3] = {0.0f, 0.0f, 0.0f},
@@ -1244,11 +1320,13 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
     }
     // the segment's radiance
     const bool lit = (s.bits & LIT) != 0;
+    if (K.sc & SC_BG) {
+      float gb[3];
+      for (int c = 0; c < 3; ++c) gb[c] = gL[c] * g.wb[c];
+      scatter_add((s.bits & MISS_PRIMARY) ? sm_bg : nullptr, gb);
+    }
     for (int c = 0; c < 3; ++c) {
-      if (s.bits & MISS_PRIMARY) {
-        gwb[c] += gL[c] * Q.bg[c];
-        if (scatter) atomicAdd(sm_bg + c, gL[c] * g.wb[c]);
-      }
+      if (s.bits & MISS_PRIMARY) gwb[c] += gL[c] * Q.bg[c];
       if (s.bits & EMISSIVE) {
         gwb[c] += gL[c] * TWO_PI * m[19 + c];
         gm[13 + c] += gL[c] * TWO_PI * g.wb[c];
@@ -1266,7 +1344,7 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
         const bool point = light_at(P, l, g.p, tl, wi, d2, inv, row);
         Shade S;
         shade_unit(wi, n, g.wo, m, kd, S);
-        float gv[3], gwi[3] = {0.0f, 0.0f, 0.0f};
+        float gv[3], gwi[3] = {0.0f, 0.0f, 0.0f}, gI[3];
         if (point) {
           float g_d2 = 0.0f;
           for (int c = 0; c < 3; ++c) {
@@ -1274,9 +1352,10 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
             const float gq = gL[c] * S.v[c];
             gv[c] = gL[c] * q;
             gwb[c] += gq / d2 * row[3 + c];
-            if (scatter) atomicAdd(sm_pl + 3 * l + c, gq / d2 * g.wb[c]);
+            gI[c] = gq / d2 * g.wb[c];
             g_d2 -= gq * q / d2;
           }
+          if (K.sc & SC_PL) scatter_add(sm_pl + 3 * l, gI);
           shade_unit_vjp(wi, n, m, kd, S, gv, gm, gkd, gwi, gn, gwo);
           // wi = tl / sqrt(d2), d2 = max(tl . tl, 1e-20), tl = pos - p
           const float g_inv = dot3(gwi, tl);
@@ -1294,14 +1373,15 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
             const float gq = gL[c] * S.v[c];
             gv[c] = gL[c] * q;
             gwb[c] += gq * row[3 + c];
-            if (scatter) atomicAdd(sm_dl + 3 * j + c, gq * g.wb[c]);
+            gI[c] = gq * g.wb[c];
           }
+          if (K.sc & SC_DL) scatter_add(sm_dl + 3 * j, gI);
           shade_unit_vjp(wi, n, m, kd, S, gv, gm, gkd, nullptr, gn, gwo);
         }
       }
     }
     if constexpr (kPt) {
-      float* sm_x = sm + shared_floats(P);  // spot, area, mesh: 3 each
+      float* sm_x = K.sm + shared_floats(P);  // spot, area, mesh: 3 each
       for (int j = 0; lit && j < n_ext; ++j) {
         if (!((s.vis >> (n_light + j)) & 1u)) continue;
         const int mi = j - Q.x.n_spot - Q.x.n_area;
@@ -1309,21 +1389,24 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
         ext_at(Q, i, k, j, mi >= 0 ? s.ml_face[mi] : -1, g.p, X);
         Shade S;
         shade_unit(X.wi, n, g.wo, m, kd, S);
-        float gv[3], gwi[3] = {0.0f, 0.0f, 0.0f}, ge = 0.0f, g_d2 = 0.0f;
+        float gv[3], gwi[3] = {0.0f, 0.0f, 0.0f}, ge = 0.0f, g_d2 = 0.0f,
+                     gI[3];
         for (int c = 0; c < 3; ++c) {
           const float q = g.wb[c] * X.I[c];
           const float gq = gL[c] * S.v[c];
           gv[c] = gL[c] * (q * X.e);
           ge += gq * q;
           gwb[c] += gq * X.e * X.I[c];
-          if (scatter) atomicAdd(sm_x + 3 * j + c, gq * X.e * g.wb[c]);
+          gI[c] = gq * X.e * g.wb[c];
         }
+        const int sc_j = j < Q.x.n_spot ? SC_SL : mi < 0 ? SC_AL : SC_ML;
+        if (K.sc & sc_j) scatter_add(sm_x + 3 * j, gI);
         shade_unit_vjp(X.wi, n, m, kd, S, gv, gm, gkd, gwi, gn, gwo);
         ext_e_vjp(X, ge, gwi, g_d2);
         float gtl[3];
         towards_vjp(X.tl, X.inv, X.d2, gwi, g_d2, gtl);
         for (int c = 0; c < 3; ++c) gp[c] -= gtl[c];
-        if (X.kind == 2 && scatter) {
+        if (X.kind == 2 && (K.sc & SC_TRI)) {
           // the sampled point through the face's corners, by row
           const int row = static_cast<int>(X.row[0]);
           const float sq = sqrtf(X.b1);
@@ -1333,8 +1416,7 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
             gv9[3 + c] = gtl[c] * sq * (1.0f - X.b2);
             gv9[6 + c] = gtl[c] * sq * X.b2;
           }
-          for (int jj = 0; jj < 9; ++jj)
-            if (gv9[jj] != 0.0f) atomicAdd(Q.d_tri + row * 9 + jj, gv9[jj]);
+          scatter_add(K.tri + row * 9, gv9);
         }
       }
     }
@@ -1353,7 +1435,8 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
     float g_beta = 0.0f, g_gamma = 0.0f;
     if constexpr (kTex) {
       if (tx.slot >= 0)
-        tex_step_vjp(Q, s.row, tx, gkd_t, gm, scatter, g_beta, g_gamma);
+        tex_step_vjp(Q, s.row, tx, gkd_t, gm,
+                     (K.sc & SC_TEX) ? K.tex : nullptr, g_beta, g_gamma);
       else
         for (int c = 0; c < 3; ++c) gm[3 + c] += gkd_t[c];
     }
@@ -1398,9 +1481,7 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
             gv9[3 + c] = -ge1;
             gv9[6 + c] = -ge2;
           }
-          if (scatter)
-            for (int j = 0; j < 9; ++j)
-              if (gv9[j] != 0.0f) atomicAdd(Q.d_tri + s.row * 9 + j, gv9[j]);
+          if (K.sc & SC_TRI) scatter_add(K.tri + s.row * 9, gv9);
         }
       } else if (s.sph >= 0) {
         const SphereStep& S = g.Sp;
@@ -1439,11 +1520,9 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
         }
       }
     }
-    if (scatter && (s.bits & HIT)) {
-      float* dst = sm_mat + s.mat * MAT_GRAD_COLS;
-      for (int j = 0; j < MAT_GRAD_COLS; ++j)
-        if (gm[j] != 0.0f) atomicAdd(dst + j, gm[j]);
-    }
+    if (K.sc & SC_MAT)
+      scatter_add((s.bits & HIT) ? sm_mat + s.mat * MAT_GRAD_COLS : nullptr,
+                  gm);
     for (int c = 0; c < 3; ++c) {
       go2[c] = go[c];
       gd2[c] = gd[c];
@@ -1456,46 +1535,65 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
   }
 }
 
+// The fwd+bwd's block sums in shared memory, in floats: the materials',
+// lights' and background's, then the rows' where FLAG_TRI_SHARED
+__host__ __device__ __forceinline__ int block_floats(int n_mat, int n_light,
+                                                     int n_ext, int n_tri,
+                                                     int flags) {
+  return n_mat * MAT_GRAD_COLS + 3 * (n_light + n_ext) + 3 +
+         ((flags & FLAG_TRI_SHARED) ? 9 * n_tri : 0);
+}
+
+// One ray a thread.  The fwd+bwd zeroes the block's sums, runs its ray, and
+// adds each nonzero sum to the call's buffer with one global atomic.
 template <bool kBwd, class G, bool kPt = false, bool kTex = false>
 __device__ __forceinline__ void run(const BwdParams& Q,
                                     const float* __restrict__ o,
                                     const float* __restrict__ d,
                                     float* __restrict__ out) {
   extern __shared__ float sm[];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (kBwd) {
-    const int base = shared_floats(Q.g);
-    const int ns = kPt ? base + 3 * (Q.x.n_spot + Q.x.n_area + Q.x.n_ml) : base;
-    for (int j = threadIdx.x; j < ns; j += blockDim.x) sm[j] = 0.0f;
-    __syncthreads();
-    if (i < Q.n) diff_ray<true, G, kPt, kTex>(Q, o, d, out, i, sm);
-    __syncthreads();
-    // one global atomic per block and value
     const Params& P = Q.g;
+    const int n_ext = kPt ? Q.x.n_spot + Q.x.n_area + Q.x.n_ml : 0;
+    const int base = shared_floats(P);
+    const int ns = base + 3 * n_ext;
+    const int n_tri9 = (P.flags & FLAG_TRI_SHARED) ? 9 * P.n_tri : 0;
+    const int total = ns + n_tri9;
+    for (int j = threadIdx.x; j < total; j += blockDim.x) sm[j] = 0.0f;
+    __syncthreads();
+    Sinks K;
+    K.sm = sm;
+    K.tri = n_tri9 ? sm + ns : Q.d_tri;
+    K.tex = Q.t.d_texels;
+    K.sc = P.flags;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < Q.n) diff_ray<true, G, kPt, kTex>(Q, o, d, out, i, K);
+    __syncthreads();
+    // one global atomic per block and nonzero value
     const int n_mat = P.n_mat * MAT_GRAD_COLS, n_pl = 3 * P.n_point,
               n_dl = 3 * P.n_dir;
-    for (int j = threadIdx.x; j < ns; j += blockDim.x) {
+    for (int j = threadIdx.x; j < total; j += blockDim.x) {
       const float v = sm[j];
       if (v == 0.0f) continue;
-      if constexpr (kPt) {
-        if (j >= base) {
-          const int jj = j - base, n_sl = 3 * Q.x.n_spot,
-                    n_al = 3 * Q.x.n_area;
-          atomicAdd(jj < n_sl          ? Q.x.d_sl + jj
-                    : jj < n_sl + n_al ? Q.x.d_al + (jj - n_sl)
-                                       : Q.x.d_ml + (jj - n_sl - n_al),
-                    v);
-          continue;
-        }
+      float* dst;
+      if (j >= ns) {
+        dst = Q.d_tri + (j - ns);
+      } else if (kPt && j >= base) {
+        const int jj = j - base, n_sl = 3 * Q.x.n_spot, n_al = 3 * Q.x.n_area;
+        dst = jj < n_sl          ? Q.x.d_sl + jj
+              : jj < n_sl + n_al ? Q.x.d_al + (jj - n_sl)
+                                 : Q.x.d_ml + (jj - n_sl - n_al);
+      } else {
+        dst = j < n_mat                 ? Q.d_mat + j
+              : j < n_mat + n_pl        ? Q.d_pl + (j - n_mat)
+              : j < n_mat + n_pl + n_dl ? Q.d_dl + (j - n_mat - n_pl)
+                                        : Q.d_bg + (j - n_mat - n_pl - n_dl);
       }
-      float* dst = j < n_mat               ? Q.d_mat + j
-                   : j < n_mat + n_pl      ? Q.d_pl + (j - n_mat)
-                   : j < n_mat + n_pl + n_dl ? Q.d_dl + (j - n_mat - n_pl)
-                                             : Q.d_bg + (j - n_mat - n_pl - n_dl);
       atomicAdd(dst, v);
     }
   } else {
-    if (i < Q.n) diff_ray<false, G, kPt, kTex>(Q, o, d, out, i, nullptr);
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < Q.n) diff_ray<false, G, kPt, kTex>(Q, o, d, out, i, Sinks{});
   }
 }
 
@@ -1622,7 +1720,10 @@ mega_bwd_pt_tex_tree_kernel(BwdParams Q, const float* __restrict__ o,
 // gbar null: the primal instantiation (the cotangent pointers unused), else
 // the fwd+bwd one; nodes: the tree, or null (the chunk sweep); ext: K2b's
 // tables, or null for K2a; tex: K2c's, or null without textures.  consts =
-// eps, ambient 3.  The cotangent buffers must be zeroed by the caller.
+// eps, ambient 3.  flags: the scene's switches, the fwd+bwd's targets
+// (SC_*) and the rows' sums kept per block (FLAG_TRI_SHARED).
+// The cotangent buffers must be zeroed by the caller; a target not asked
+// for stays so.
 extern "C" int mega_bwd_launch(
     const float* o, const float* d, const float* gbar, float* out, int n,
     const float* tri, int n_tri, const float* chunk, int n_chunks,
@@ -1681,8 +1782,12 @@ extern "C" int mega_bwd_launch(
     kern<<<blocks, mw::THREADS, 0, st>>>(Q, o, d, out);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = sizeof(float) * static_cast<size_t>(
-      n_mat * mb::MAT_GRAD_COLS + 3 * (n_point + n_dir) + 3 + 3 * n_ext);
+  if ((flags & mb::FLAG_TRI_SHARED) && !(flags & mb::SC_TRI))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * static_cast<size_t>(mb::block_floats(
+      n_mat, n_point + n_dir, n_ext, n_tri, flags));
+  // past 48 KB (some 700 materials, with the rows' 9 KB) the kernel must
+  // opt in to the larger dynamic shared memory
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -102,10 +102,10 @@ _SIGNATURES = {
         "mega_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
     "tri_intersect": {
-        # o, d, v0, v1, v2, motion (or null), time (or null), n, w; t, idx,
+        # o, d, the item table, time (or null: no motion), n, w; t, idx,
         # beta, gamma; stream
         "tri_intersect_launch": (
-            _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]),
+            _I, [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P]),
         "tri_intersect_error_string": (ctypes.c_char_p, [_I]),
     },
     "bigtex_gather": {

@@ -37,8 +37,10 @@ of the work items and the texel pool of the image textures.
   forward only) and a fwd+bwd, whose hand-derived reverse sweep scatters
   the cotangents with atomics in place of the TPU's one-hot MXU epilogue
   (the texels' by their index in the pool, with no cap on the texels or
-  the textures);
-* ``make_diff_render`` wraps both in a ``torch.autograd.Function``.
+  the textures): each add summed first over the warp's lanes that share
+  its address, and only the targets asked for (``scatter_flags``);
+* ``make_diff_render`` wraps both in a ``torch.autograd.Function``, whose
+  backward asks the fwd+bwd for the tables that need a gradient alone.
 
 The draws (``BwdDraws``) are the four planes of the JAX ``wavefront_rng``:
 the area lights' offsets, the mesh lights' face picks and barycentric
@@ -1075,8 +1077,64 @@ LIBRARY = "mega_bwd"
 LAUNCHES = {f"mega_bwd{pr}{pt}{tex}{tree}": 0 for pr in ("_primal", "")
             for pt in ("", "_pt") for tex in ("", "_tex")
             for tree in ("", "_tree")}
-FLAG_EMISSIVE, FLAG_NO_SCATTER = 8, 16
+FLAG_EMISSIVE = 8
 FLAG_PT, FLAG_IMPORTANCE, FLAG_NEE, FLAG_RR, FLAG_PT_SPEC = 32, 64, 128, 256, 512
+# the fwd+bwd's cotangent targets, by BwdTables field, and their flags in
+# csrc/mega_bwd.cu (SC_*): a target without its flag is never added to
+SCATTER_FLAGS = {name: 1 << (10 + k)
+                 for k, name in enumerate(BwdTables._fields)}
+# the rows' sums (9 floats a work item), which each block keeps in shared
+# memory before one global atomic per value up to TRI_SHARED_MAX_ROWS work
+# items; past them, and for every other large target (the texel pool), the
+# warp's sums go to global memory.  Measured on an H100 (PERF.md section
+# 6): the rows' copy cut K2b's fwd+bwd on feat_pt.xml from 1.20 to 0.84 ms;
+# a copy of the texel pool ran slower than the warp's sums at every pool
+# size tried (32x32 to 128x128 texels), so the pool has none
+FLAG_TRI_SHARED = 1 << 19
+TRI_SHARED_MAX_ROWS = 256
+
+
+def scatter_targets(scatter) -> tuple:
+    """The targets ``mega_bwd_trace``'s ``scatter`` names: True every
+    ``BwdTables`` field, False none, else the fields listed."""
+    if scatter is True:
+        return tuple(SCATTER_FLAGS)
+    if scatter is False or scatter is None:
+        return ()
+    names = tuple(scatter)
+    unknown = set(names) - set(SCATTER_FLAGS)
+    if unknown:
+        raise ValueError(f"scatter: unknown targets {sorted(unknown)}; "
+                         f"the targets are {list(SCATTER_FLAGS)}")
+    return names
+
+
+def scatter_flags(bc: BwdConsts, scatter=True) -> int:
+    """The flag word of the fwd+bwd's scatter: one SC_* flag per target
+    (``scatter_targets``), and FLAG_TRI_SHARED where the rows' sums fit a
+    block's shared memory under ``TRI_SHARED_MAX_ROWS``."""
+    names = scatter_targets(scatter)
+    flags = 0
+    for name in names:
+        flags |= SCATTER_FLAGS[name]
+    if "tri_w" in names and 0 < bc.n_tri <= TRI_SHARED_MAX_ROWS:
+        flags |= FLAG_TRI_SHARED
+    return flags
+
+
+def launch_flags(bc: BwdConsts, scatter=False) -> int:
+    """The flag word of ``mega_bwd_trace``'s launch: the scene's switches
+    (mirror 1, dielectric 2, conductor 4, FLAG_EMISSIVE, the path tracer's)
+    and, for the fwd+bwd, ``scatter_flags(bc, scatter)`` (the primal
+    passes False)."""
+    return ((1 if bc.has_mirror else 0) | (2 if bc.has_dielectric else 0)
+            | (4 if bc.has_conductor else 0)
+            | (FLAG_EMISSIVE if bc.has_emissive else 0)
+            | scatter_flags(bc, scatter)
+            | (FLAG_PT if bc.pt else 0)
+            | (FLAG_IMPORTANCE if bc.pt_importance else 0)
+            | (FLAG_NEE if bc.pt_nee else 0) | (FLAG_RR if bc.pt_rr else 0)
+            | (FLAG_PT_SPEC if bc.pt_spec else 0))
 
 
 def mega_bwd_trace_ref(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
@@ -1109,16 +1167,23 @@ def mega_bwd_trace(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
     with it.  The draws come from ``draws`` (``as_draws``) when given, else
     from Philox keyed by (``seed``, ``step``) — on the CPU through
     ``bwd_draws``.
-    ``scatter=False`` skips the fwd+bwd kernel's scatter of the parameter
-    cotangents (they stay 0; a measurement of the scatter's cost).
-    ``LAUNCHES`` counts the launches."""
+    ``scatter`` names the parameter cotangents to compute (True all,
+    False none, or ``BwdTables`` fields, ``scatter_targets``); the others
+    stay 0 and the kernel never adds to them.  The rays' cotangents are
+    always computed.  ``LAUNCHES`` counts the launches."""
     r = o.shape[0]
     depth = bc_depth(bc)
     dr = as_draws(bc, draws, r)
+    targets = scatter_targets(scatter)
     if o.device.type == "cpu":
         if dr is None and needs_draws(bc):
             dr = bwd_draws(bc, seed, step, r)
-        return mega_bwd_trace_ref(bc, tabs, o, d, dr, gbar)
+        res = mega_bwd_trace_ref(bc, tabs, o, d, dr, gbar)
+        if gbar is None:
+            return res
+        out, g = res
+        return out, g._replace(**{f: torch.zeros_like(getattr(g, f))
+                                  for f in SCATTER_FLAGS if f not in targets})
     from advanced_cpu_raytracing_tpu_torch.ops import _build
 
     mc = bc.mc
@@ -1190,14 +1255,7 @@ def mega_bwd_trace(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
         return out if gbar is None else (out, grads)
     lib = _build.load(LIBRARY)
     consts = (ctypes.c_float * 4)(mc.eps, *mc.ambient)
-    flags = ((1 if bc.has_mirror else 0) | (2 if bc.has_dielectric else 0)
-             | (4 if bc.has_conductor else 0)
-             | (FLAG_EMISSIVE if bc.has_emissive else 0)
-             | (0 if scatter else FLAG_NO_SCATTER)
-             | (FLAG_PT if bc.pt else 0)
-             | (FLAG_IMPORTANCE if bc.pt_importance else 0)
-             | (FLAG_NEE if bc.pt_nee else 0) | (FLAG_RR if bc.pt_rr else 0)
-             | (FLAG_PT_SPEC if bc.pt_spec else 0))
+    flags = launch_flags(bc, targets if gbar is not None else False)
 
     def ptr(x):
         return ctypes.c_void_p(None if x is None else x.data_ptr())
@@ -1238,7 +1296,8 @@ def mega_bwd_trace(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
 
 class _Render(torch.autograd.Function):
     """Forward: the primal instantiation (or the plain version on the
-    CPU); backward: the fwd+bwd one.  The JAX ``make_diff_render``'s
+    CPU); backward: the fwd+bwd one, scattering only the tables that need
+    a gradient (``None`` for the others).  The JAX ``make_diff_render``'s
     ``custom_vjp``."""
 
     @staticmethod
@@ -1252,9 +1311,13 @@ class _Render(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gbar):
         *tabs, o, d = ctx.saved_tensors
+        needs = ctx.needs_input_grad[4:]  # the tables', then o's and d's
+        targets = [f for f, need in zip(BwdTables._fields, needs) if need]
         _, g = mega_bwd_trace(ctx.bc, BwdTables(*tabs), o, d, ctx.draws,
-                              *ctx.key, gbar=gbar.contiguous())
-        return (None, None, None, None, *g)
+                              *ctx.key, gbar=gbar.contiguous(),
+                              scatter=targets)
+        return (None, None, None, None,
+                *(x if need else None for x, need in zip(g, needs)))
 
 
 def texel_pool(bc: BwdConsts, atlas) -> torch.Tensor:

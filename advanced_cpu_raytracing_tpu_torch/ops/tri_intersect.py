@@ -18,12 +18,20 @@ Beyond the TPU kernel, both take an optional motion row per item and a
 time per ray: the origin of each test is then ``o + motion * time`` (the
 JAX jnp route's ``ow``, ops/traverse.py:123-125), so motion scenes go
 through the kernel too.
+
+The kernel reads its items from ``item_table``, built once per call: 16
+floats a row (v0, e1, e2, the motion row, padding), three 16-byte loads.
+It rejects an item by an approximate reciprocal of the determinant before
+any division, only where that provably cannot change the answer (the
+argument is in the kernel's header), so it stays bit for bit equal to the
+plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 BIG = 3.0e38  # the TPU kernel's "no hit" distance (_INF)
@@ -32,6 +40,23 @@ LIBRARY = "tri_intersect"
 LAUNCHES = {"tri_intersect": 0}
 # elements of the (items, rays) planes of one step of the plain version
 _REF_ELEMS = 1 << 24
+
+
+ITEM_COLS = 16  # item_table: v0 0:3, e1 3:6, e2 6:9, motion 9:12, padding
+
+
+def item_table(v0, v1, v2, motion=None):
+    """The kernel's (W, ITEM_COLS) item table: v0, e1 = v0 - v1,
+    e2 = v0 - v2 (the TPU kernel's subtractions, tri_intersect.py:58-59),
+    the motion row (zeros without motion) and four zeros of padding."""
+    tab = torch.zeros((v0.shape[0], ITEM_COLS), dtype=torch.float32,
+                      device=v0.device)
+    tab[:, 0:3] = v0
+    tab[:, 3:6] = v0 - v1
+    tab[:, 6:9] = v0 - v2
+    if motion is not None:
+        tab[:, 9:12] = motion
+    return tab
 
 
 def tri_closest_hit_ref(o, d, v0, v1, v2, motion=None, time=None):
@@ -129,16 +154,88 @@ def tri_closest_hit(o, d, v0, v1, v2, motion=None, time=None):
     if r == 0:
         return t, idx, beta, gamma
     lib = _build.load(LIBRARY)
-    mo = [ctypes.c_void_p(None) if motion is None else _ptr(x)
-          for x in (motion, time)]
+    items = item_table(v0, v1, v2, motion)
+    tau = ctypes.c_void_p(None) if motion is None else _ptr(time)
     with torch.cuda.device(o.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream)
-        rc = lib.tri_intersect_launch(_ptr(o), _ptr(d), _ptr(v0), _ptr(v1),
-                                      _ptr(v2), *mo, r, w, _ptr(t), _ptr(idx),
-                                      _ptr(beta), _ptr(gamma), stream)
+        rc = lib.tri_intersect_launch(_ptr(o), _ptr(d), _ptr(items), tau, r, w,
+                                      _ptr(t), _ptr(idx), _ptr(beta),
+                                      _ptr(gamma), stream)
     if rc != 0:
         err = lib.tri_intersect_error_string(rc).decode()
         raise RuntimeError(f"tri_intersect launch failed: CUDA error {rc} "
                            f"({err})")
     LAUNCHES["tri_intersect"] += 1
     return t, idx, beta, gamma
+
+
+def edge_tables(n_rays: int, seed: int = 0, device=None) -> dict:
+    """Tables at the edges of the kernel's rejection, for its checks on the
+    card: name -> (o, d, v0, v1, v2, motion, time), numpy-made from
+    ``seed`` (motion and time None but for the motion table).
+
+    * ``vertices and edges``: rays aimed at a vertex, an edge's point or
+      beside it, so beta, gamma and beta + gamma - 1 lie within rounding of
+      0;
+    * ``ties at t_best``: each triangle twice and coplanar overlapping
+      triangles, so later items meet the best t exactly or within rounding;
+    * ``scaled``: per item a scale 2^k, k in [-70, 70], on the edges and the
+      offset of v0 from the ray, so determinants leave the trusted range,
+      numerators go denormal and quotients underflow to -0 or overflow;
+    * ``near-degenerate``: slivers and rays almost in the triangle's plane,
+      det within a few ulps of 0, and det = 0;
+    * ``motion``: the first table with a motion row per item and a time
+      per ray."""
+    g = np.random.default_rng(seed)
+    w = 512
+
+    def tri(w):
+        v0 = g.uniform(-1.0, 1.0, (w, 3))
+        return v0, v0 + g.uniform(-0.5, 0.5, (w, 3)), v0 + g.uniform(
+            -0.5, 0.5, (w, 3))
+
+    def aim(v0, v1, v2, n, spread):
+        k = g.integers(0, v0.shape[0], n)
+        b = g.choice([0.0, 0.5, 1.0], (n, 2))
+        b[:, 1] = np.where(b[:, 0] == 1.0, 0.0, b[:, 1] * (1.0 - b[:, 0]))
+        b[: n // 2] += g.normal(0.0, spread, (n // 2, 2))
+        target = (v0[k] + b[:, :1] * (v1[k] - v0[k]) + b[:, 1:] * (v2[k]
+                                                                   - v0[k]))
+        o = target + g.normal(0.0, 1.0, (n, 3)) * np.float32(3.0)
+        return o, target - o
+
+    out = {}
+    v0, v1, v2 = tri(w)
+    o, d = aim(v0, v1, v2, n_rays, 1e-7)
+    out["vertices and edges"] = (o, d, v0, v1, v2, None, None)
+    a0, a1, a2 = tri(w // 2)
+    c0 = np.concatenate([a0, a0])
+    # the second half: the first's triangles again, and each first-half
+    # triangle's plane cut otherwise (v0 kept, v1 and v2 moved in plane)
+    c1 = np.concatenate([a1, a0 + 0.7 * (a1 - a0) + 0.2 * (a2 - a0)])
+    c2 = np.concatenate([a2, a0 + 0.1 * (a1 - a0) + 0.9 * (a2 - a0)])
+    c1[w // 2::3], c2[w // 2::3] = a1[::3], a2[::3]
+    o, d = aim(a0, a1, a2, n_rays, 1e-3)
+    out["ties at t_best"] = (o, d, c0, c1, c2, None, None)
+    s = 2.0 ** g.integers(-70, 71, (w, 1))
+    t0 = g.uniform(-1.0, 1.0, (w, 3)) * 2.0 ** g.integers(-110, 1, (w, 1))
+    e1, e2 = g.uniform(-1.0, 1.0, (w, 3)) * s, g.uniform(-1.0, 1.0, (w, 3)) * s
+    o = g.uniform(-1e-30, 1e-30, (n_rays, 3))
+    d = g.normal(size=(n_rays, 3))
+    out["scaled"] = (o, d, t0, t0 - e1, t0 - e2, None, None)
+    v0, v1, v2 = tri(w)
+    v2[::2] = v0[::2] + (v1[::2] - v0[::2]) * g.uniform(-2, 2, (w // 2, 1))
+    v2[::4] += g.normal(0.0, 1e-7, (w // 4, 3))
+    o, d = aim(v0, v1, v2, n_rays, 1e-2)
+    k = g.integers(0, w, n_rays)
+    nrm = np.cross(v1[k] - v0[k], v2[k] - v0[k])
+    flat = np.cross(nrm, g.normal(size=(n_rays, 3)))
+    d[::3] = (flat + g.normal(0.0, 1e-6, flat.shape) * np.linalg.norm(
+        flat, axis=1, keepdims=True))[::3]
+    out["near-degenerate"] = (o, d, v0, v1, v2, None, None)
+    o, d, v0, v1, v2 = out["vertices and edges"][:5]
+    out["motion"] = (o, d, v0, v1, v2, g.uniform(-0.05, 0.05, (w, 3)),
+                     g.uniform(0.0, 1.0, n_rays))
+    return {name: tuple(None if x is None else torch.as_tensor(
+        np.ascontiguousarray(x, dtype=np.float32), device=device)
+        for x in tab) for name, tab in out.items()}

@@ -1012,6 +1012,42 @@ def texture_inverse_scene_xml(n: int = 64, image=None, *, out_dir) -> str:
     return str(path)
 
 
+def shared_image_scene_xml(n: int = 8, *, out_dir) -> str:
+    """The inverse-texture frame with its floor cut in two side by side
+    quads that share one image, ``inverse_texture(n)``, through two
+    ``replace_kd`` textures: nearest on the left, bilinear on the right,
+    each over the whole image.  Neighbouring pixels then read the same
+    texel of the pool through both filters.  Written to ``out_dir``;
+    returns the XML's path."""
+    from advanced_cpu_raytracing_tpu_torch.scene.images import write_png
+
+    out = _scene_dir(out_dir)
+    image = out / "shared.png"
+    write_png(str(image), inverse_texture(n))
+    xml = Path(texture_inverse_scene_xml(n, image=image, out_dir=out))
+    text = xml.read_text()
+    texture = text[text.index("    <TextureMap"):text.index("  </Textures>")]
+    nearest = texture.replace("bilinear", "nearest")
+    text = text.replace(texture, nearest + texture.replace(
+        'id="1"', 'id="2"'))
+    text = text.replace("""    -2.2 -0.5 1.6   2.2 -0.5 1.6   2.2 0.2 -2.8   -2.2 0.2 -2.8
+""", """    -2.2 -0.5 1.6   0 -0.5 1.6   0 0.2 -2.8   -2.2 0.2 -2.8
+    0 -0.5 1.6   2.2 -0.5 1.6   2.2 0.2 -2.8   0 0.2 -2.8
+""")
+    text = text.replace("""    0 1   1 1   1 0   0 0
+""", """    0 1   1 1   1 0   0 0
+    0 1   1 1   1 0   0 0
+""")
+    text = text.replace("""      <Faces>1 2 3  1 3 4</Faces></Mesh>
+""", """      <Faces>1 2 3  1 3 4</Faces></Mesh>
+    <Mesh id="2"><Material>1</Material><Textures>2</Textures>
+      <Faces>5 6 7  5 7 8</Faces></Mesh>
+""")
+    path = out / "shared_image.xml"
+    path.write_text(text)
+    return str(path)
+
+
 # the JAX texture-gradient test's scene (tests/test_megabwd.py:513-567): a
 # nearest replace_kd floor tiled twice, a bilinear blend_kd wall and a mirror
 # sphere that shows both

@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
      (kept beside a cached library); the flat instantiations must keep
      their registers: K1a 72, K1b 77, K1c 84 (90 with motion), K1d 123
      (128 with motion), K2a 72 (primal) and 128 (fwd+bwd), K2b 80
-     (primal) and 152 (fwd+bwd), K3 40 and K4 27; K2's tree twins, which
+     (primal) and 164 (fwd+bwd; the per-target, warp-summed scatter), K3
+     50 (the rejection before dividing), K4 27; K2's tree twins, which
      inline the walk of csrc/mega_common.cuh, KEPT_REGISTERS' counts; and
      each K1 and K2 kernel has a tree instantiation (K1e);
   3. K1a against its plain torch version on 65,536 primary rays of
@@ -181,7 +182,9 @@ Phases, each printing one JSON line:
      feat_pt_spec.xml, the median of 3 after a warm-up;
  23. K2b at the main path's shape (phase 22's 640,000 rays, and the same on
      feat_pt_rr.xml and feat_pt_spec.xml): as phase 20, time per launch of
-     the primal, the fwd+bwd and the fwd+bwd without its scatter, the plain
+     the primal, the fwd+bwd and the fwd+bwd without its scatter, and the
+     scatter's split by target (the kernel's device time, torch.profiler,
+     with every target, none, and each cotangent target alone), the plain
      version's time and agreement on every 16th ray, the tree twins timed
      and held to the flat kernels on every ray, and the bound over the
      chunks and over the tree, with the GI queries and GI samples counted;
@@ -205,13 +208,19 @@ Phases, each printing one JSON line:
      every 25 steps, the texture's PSNR and max-rel error beside the
      artifact's, wall seconds, steps/s and rays/s;
  26. K2c at the main path's shape (one sample grid's 640,000 rays of the
-     64x64 scene): as phase 20, time per launch of the primal, the fwd+bwd
-     and the fwd+bwd without its scatter, the plain version's time and
-     agreement on every 16th ray, the tree twins, the bound with the taps
-     and the textured steps counted; the path-traced twins timed on the
-     textured feat_pt.xml; then one value-and-grad of sum(img^2)/n with
-     respect to img_atlas at 1920x1080 on the 1,048,576-texel quad, the
-     median of 3 after a warm-up;
+     64x64 scene): as phase 20, time per launch of the primal, the fwd+bwd,
+     the fwd+bwd without its scatter and with the texels alone (the main
+     path's call), the scatter's split by target as phase 23, the plain
+     version's time and agreement on every 16th ray; the cotangents on
+     the floor cut in two quads that read one 8x8 image through a nearest
+     and a bilinear texture against the plain version on every 16th ray;
+     the tree twins, the bound with the taps and the textured steps
+     counted; the path-traced twins timed on the textured feat_pt.xml; the
+     fwd+bwd on one sample grid of the 1,048,576-texel quad (the texels'
+     warp sums into global memory, as for every pool), its split by target,
+     and every cotangent held to the plain version on every 16th ray; then
+     one value-and-grad of sum(img^2)/n with respect to img_atlas at
+     1920x1080 on that quad, the median of 3 after a warm-up;
  27. K3 (csrc/tri_intersect.cu, the wavefront's dense closest hit)
      against its plain version (ops/tri_intersect.py::tri_closest_hit_ref)
      bit for bit on t, the item index, beta and gamma, on 65,536 rays: the
@@ -220,11 +229,16 @@ Phases, each printing one JSON line:
      HDR sky as an environment light and a thin lens; 1,932 work items)
      against its item table and its shadow table, against feat_pt.xml's 12
      items, rays through a random 2,048-item table with det = 0 items and
-     exact ties, and the motion scene's table with its motion rows and
-     random times;
+     exact ties, the motion scene's table with its motion rows and random
+     times, and ops/tri_intersect.py::edge_tables on 65,537 rays (the
+     edges of the kernel's rejection before its divisions: quotients
+     within rounding of 0 and of beta + gamma = 1, ties at the best t,
+     determinants outside the trusted range, denormal numerators and
+     quotients that round to -0, det = 0, motion);
  28. K3 at the main path's shape (phase 29's 640,000 rays, through the
      lens, against the 1,932 items): time per launch (CUDA events, 5
-     launches), the plain version's time on the same rays, and the bound:
+     launches; and the kernel's device time, torch.profiler), the plain
+     version's time on the same rays, and the bound:
      the FP32 operations of every ray x item test (61 each, counted in the
      source) against the bytes of the rays, the table and the results;
  29. the slice's main path: diff/optimize.py::optimize on that scene at
@@ -315,15 +329,17 @@ REPLACES_K4 = "tools/probe_bigtex.py:31"
 # registers of the K1a-K1d, K2, K3 and K4 kernels since they were first
 # measured; the later variants' policies (motion, textures, the tree, K2b's
 # template flag) must not change their code; K2's tree twins as ptxas gave
-# them with the 4-wide walk
+# them with the 4-wide walk; K2's fwd+bwd kernels with the per-target,
+# warp-summed scatter (K2a's held at 128 by their launch bounds) and K3
+# with its rejection before dividing, as ptxas gave them
 KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
                   "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90,
                   "mega_tex_kernel": 123, "mega_tex_motion_kernel": 128,
                   "mega_bwd_primal_kernel": 72, "mega_bwd_kernel": 128,
                   "mega_bwd_primal_tree_kernel": 72, "mega_bwd_tree_kernel": 128,
-                  "mega_bwd_primal_pt_kernel": 80, "mega_bwd_pt_kernel": 152,
+                  "mega_bwd_primal_pt_kernel": 80, "mega_bwd_pt_kernel": 158,
                   "mega_bwd_primal_pt_tree_kernel": 96,
-                  "mega_bwd_pt_tree_kernel": 168, "tri_intersect_kernel": 40,
+                  "mega_bwd_pt_tree_kernel": 168, "tri_intersect_kernel": 50,
                   "bigtex_gather_kernel": 27}
 KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_ext_motion_kernel", "mega_tex_kernel",
@@ -469,6 +485,30 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 10, tries: int = 3) -> float:
+    """The device time per call of the kernels whose name holds
+    ``kernel`` (torch.profiler over ``reps`` calls after one warm-up): the
+    kernel's own time, without the wrapper's host work between launches.
+    A profile that caught no such kernel is taken again, up to ``tries``
+    times, and then raises: a time of 0 is never reported."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(r.device_time_total for r in prof.key_averages()
+                    if r.device_type == DeviceType.CUDA and kernel in r.key)
+        if total > 0:
+            return total / reps / 1e3
+    raise AssertionError(f"device_ms: the profiler caught no {kernel} kernel "
+                         f"in {tries} profiles")
 
 
 def bound(stats: dict, n_bytes: int) -> dict:
@@ -635,6 +675,7 @@ def main() -> int:
         ply_bytes,
         pt_env_dof_scene_xml,
         tex_bwd_scene_xml,
+        shared_image_scene_xml,
         texture_inverse_scene_xml,
         textured_pt_scene_xml,
         torus_mesh,
@@ -1399,6 +1440,24 @@ def main() -> int:
                                      f"{out[k]}")
         return out
 
+    def scatter_split(bc, tabs, o, d, gbar, draws=None) -> dict:
+        """The fwd+bwd's device time per launch (``device_ms``) with every
+        target, with none, and with each cotangent target alone that the
+        scene has, and what each alone adds to none: the scatter's split
+        by target."""
+        def run(scatter):
+            return device_ms(lambda: mb.mega_bwd_trace(
+                bc, tabs, o, d, draws, gbar=gbar, scatter=scatter), "mega_bwd")
+
+        none = run(False)
+        out = {"every target": run(True), "no target": none}
+        for name in mb.SCATTER_FLAGS:
+            if getattr(tabs, name).numel():
+                ms = run((name,))
+                out[name] = {"ms": ms, "adds_ms": ms - none}
+        out["scatter_ms"] = out["every target"] - none
+        return out
+
     def diff_render(path, emissive=False):
         """The differentiable render of a scene file on the card, its
         camera, and its parameter tables at the pack's values; with
@@ -1901,6 +1960,7 @@ def main() -> int:
                                                   gbar=gbar), 5)
         no_scatter_ms = cuda_ms(lambda: mb.mega_bwd_trace(
             bc, tabs_s, o_s, d_s, gbar=gbar, scatter=False), 5)
+        split = scatter_split(bc, tabs_s, o_s, d_s, gbar)
         # the plain version on every 16th ray, the kernel on the same rays
         # and draws
         stride = 16
@@ -1982,7 +2042,8 @@ def main() -> int:
         emit("kernel_at_main_shape", kernel="mega_bwd_pt", scene=path.name,
              rays=n23, plain_stride=stride, primal_ms=prim_ms, fwd_bwd_ms=fb_ms,
              fwd_bwd_no_scatter_ms=no_scatter_ms,
-             scatter_ms=fb_ms - no_scatter_ms, plain_primal_ms=plain_prim_ms,
+             scatter_ms=fb_ms - no_scatter_ms, device_ms_by_target=split,
+             plain_primal_ms=plain_prim_ms,
              plain_fwd_bwd_ms=plain_fb_ms, primal_bound=bd_p,
              fwd_bwd_bound=bd_fb, primal=err_p,
              fwd_bwd_exact_frac=err_fb["exact_frac"], grads=gerr,
@@ -1995,6 +2056,7 @@ def main() -> int:
              flat_fwd_bwd_bound=flat_bd[1], card=card)
         k2b_main[path.name] = dict(
             prim_ms=prim_ms, fb_ms=fb_ms, scatter_ms=fb_ms - no_scatter_ms,
+            split=split,
             plain_prim_ms=plain_prim_ms, plain_fb_ms=plain_fb_ms, bd_p=bd_p,
             bd_fb=bd_fb, err_p=err_p, err_fb={"max_abs_err": max(
                 err_fb["max_abs_err"], grad_err)},
@@ -2015,6 +2077,10 @@ def main() -> int:
         main["plain_fb_ms"], main["bd_fb"], main["err_fb"], main["rays"], 16,
         library=mb.LIBRARY, replaces=REPLACES_K2),
         "scatter_ms": main["scatter_ms"],
+        "device_ms": main["split"]["every target"],
+        "scatter_device_ms_by_target": {
+            k: v["adds_ms"] for k, v in main["split"].items()
+            if isinstance(v, dict)},
         "bound_counted_over": main["bd_fb"]["counted_over"],
         "tree_twin_ms": main["tree_fb_ms"], "other_scenes": others})
 
@@ -2146,6 +2212,12 @@ def main() -> int:
     fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar), 5)
     no_scatter_ms = cuda_ms(lambda: mb.mega_bwd_trace(
         bc, tabs, o, d, gbar=gbar, scatter=False), 5)
+    # the main path asks for the texels alone (the tool optimizes img_atlas)
+    tex_ms = cuda_ms(lambda: mb.mega_bwd_trace(
+        bc, tabs, o, d, gbar=gbar, scatter=("texels",)), 5)
+    split = scatter_split(bc, tabs, o, d, gbar)
+    prim_dev_ms = device_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d),
+                            "mega_bwd")
     stride = 16
     os_, ds_, gs_ = (t[::stride].contiguous() for t in (o, d, gbar))
     prim = mb.mega_bwd_trace(bc, tabs, os_, ds_)
@@ -2164,6 +2236,20 @@ def main() -> int:
     err_p = check_close(prim, ref0, what + ", primal")
     err_fb = check_close(got, ref, what + ", fwd+bwd")
     gerr = check_grads(g, gref, what)
+    # the floor cut in two quads that read one 8x8 image through a nearest
+    # and a bilinear texture: the warp's texel sums group lanes by first
+    # tap and filter, held to the plain version on every 16th ray
+    cfg_s, _, _, f_s, tabs_s, cam_s = diff_render(
+        shared_image_scene_xml(out_dir=k2c_dir / "shared"))
+    if len(f_s.bc.mc.tex_images) != 1:
+        raise AssertionError("the two textures' image pooled more than once")
+    o_s, d_s = (t[::stride].contiguous() for t in inverse_render.sample_grids(
+        cfg_s.cameras[0], cam_s, 800, 1, dev)[0])
+    _, g_s = mb.mega_bwd_trace(f_s.bc, tabs_s, o_s, d_s, gbar=gs_)
+    _, gref_s = mb.mega_bwd_trace_ref(f_s.bc, tabs_s, o_s, d_s, gbar=gs_)
+    gerr_filters = check_grads(g_s, gref_s, "K2c, a nearest and a bilinear "
+                               "texture on one image, every 16th ray")
+    del f_s, tabs_s, o_s, d_s, g_s, gref_s
     mk.FLAT_MAX_FACES = 0
     try:
         f_tree = mb.make_diff_render(pack, opts, device=dev)
@@ -2207,7 +2293,12 @@ def main() -> int:
     emit("kernel_at_main_shape", kernel="mega_bwd_tex", rays=n26,
          plain_stride=stride, primal_ms=prim_ms, fwd_bwd_ms=fb_ms,
          fwd_bwd_no_scatter_ms=no_scatter_ms,
-         scatter_ms=fb_ms - no_scatter_ms, plain_primal_ms=plain_prim_ms,
+         scatter_ms=fb_ms - no_scatter_ms, fwd_bwd_texels_ms=tex_ms,
+         primal_device_ms=prim_dev_ms, device_ms_by_target=split,
+         grads_two_filters_one_image=gerr_filters,
+         flags={"every target": hex(mb.scatter_flags(bc, True)),
+                "texels": hex(mb.scatter_flags(bc, ("texels",)))},
+         plain_primal_ms=plain_prim_ms,
          plain_fwd_bwd_ms=plain_fb_ms, primal_bound=bd_p, fwd_bwd_bound=bd_fb,
          primal=err_p, fwd_bwd_exact_frac=err_fb["exact_frac"], grads=gerr,
          counts=counted, tree_primal_ms=tree_prim_ms,
@@ -2230,9 +2321,25 @@ def main() -> int:
          primal_ms=pt_prim_ms, fwd_bwd_ms=pt_fb_ms,
          scatter_ms=pt_fb_ms - pt_no_scatter_ms, card=card)
     del f_pt, tabs_pt, o_pt, d_pt
+    # the fwd+bwd on the 1,048,576-texel quad (the warp's sums go to global
+    # memory, as for every pool), one sample grid: timed, and held to the
+    # plain version on every 16th ray
+    cfg_b, pack_b, _, f_b, tabs_b, cam_b = diff_render(tiles_path)
+    ot, dt = inverse_render.sample_grids(cfg_b.cameras[0], cam_b, 800, 1,
+                                         dev)[0]
+    split_big = scatter_split(f_b.bc, tabs_b, ot, dt, gbar)
+    ots, dts, gts = (t[::stride].contiguous() for t in (ot, dt, gbar))
+    _, g_big = mb.mega_bwd_trace(f_b.bc, tabs_b, ots, dts, gbar=gts)
+    _, gref_big = mb.mega_bwd_trace_ref(f_b.bc, tabs_b, ots, dts, gbar=gts)
+    emit("kernel_vs_plain", kernel=f_b.bc.variant,
+         scene="floor_tiles.png quad (1,048,576 texels), one sample grid",
+         rays=ot.shape[0], plain_stride=stride,
+         grads=check_grads(g_big, gref_big, "K2c on the 1,048,576-texel "
+                           "pool, every 16th ray"),
+         device_ms_by_target=split_big, card=card)
+    del ot, dt, ots, dts, gts, g_big, gref_big, tabs_b
     # one value-and-grad of sum(img^2) / n with respect to img_atlas at
     # 1920x1080 on the 1,048,576-texel quad, the median of 3 after a warm-up
-    cfg_b, pack_b, _, f_b, _, cam_b = diff_render(tiles_path)
     bw, bh = 1920, 1080
     ys, xs = np.divmod(np.arange(bw * bh, dtype=np.int64), bw)
     ob, db = (t.contiguous() for t in generate_rays(
@@ -2269,13 +2376,17 @@ def main() -> int:
     kernels.append({**kernel_entry(
         "mega_bwd_primal_tex", tex_launches["mega_bwd_primal_tex"], prim_ms,
         plain_prim_ms, bd_p, err_p, n26, stride, library=mb.LIBRARY,
-        replaces=REPLACES_K2C), "bound_counted_over": "chunks",
+        replaces=REPLACES_K2C), "device_ms": prim_dev_ms,
+        "bound_counted_over": "chunks",
         "tree_twin_ms": tree_prim_ms, "pt_twin": pt_twins})
     kernels.append({**kernel_entry(
         "mega_bwd_tex", tex_launches["mega_bwd_tex"], fb_ms, plain_fb_ms,
         bd_fb, {"max_abs_err": max(err_fb["max_abs_err"], grad_err)}, n26,
         stride, library=mb.LIBRARY, replaces=REPLACES_K2C),
-        "scatter_ms": fb_ms - no_scatter_ms, "bound_counted_over": "chunks",
+        "scatter_ms": fb_ms - no_scatter_ms, "device_ms": split["every target"],
+        "main_path_ms": tex_ms, "scatter_device_ms_by_target": {
+            k: v["adds_ms"] for k, v in split.items() if isinstance(v, dict)},
+        "bound_counted_over": "chunks",
         "tree_twin_ms": tree_fb_ms, "pt_twin": pt_twins})
 
     # 27. K3 against its plain version, bit for bit, on 65,536 rays of each
@@ -2348,6 +2459,13 @@ def main() -> int:
             "the motion table", o_mo, d_mo, pack_mo.wi_v0, pack_mo.wi_v1,
             pack_mo.wi_v2, pack_mo.wi_motion, tau),
     }
+    # the edges of the kernel's rejection before its divisions (its
+    # header): quotients within rounding of 0 and 1, ties at the best t,
+    # determinants outside the trusted range, denormals, det = 0, motion;
+    # a ray count that is no multiple of a block's rays
+    for name, tab in k3.edge_tables(65537, seed=27, device=dev).items():
+        checks27[f"edge table: {name}"] = k3_check(f"the edge table {name}",
+                                                   *tab)
     if checks27["random 2,048 items, det = 0 and ties"]["hit_frac"] < 0.2:
         raise AssertionError(f"K3 random table: {checks27}")
     emit("k3_check", kernel="tri_intersect", checks=checks27, card=card)
@@ -2372,6 +2490,8 @@ def main() -> int:
     # 28. K3 at the main path's shape
     k3_ms = cuda_ms(lambda: k3.tri_closest_hit(o28, d28, pack_d1.wi_v0,
                                                pack_d1.wi_v1, pack_d1.wi_v2), 5)
+    k3_dev_ms = device_ms(lambda: k3.tri_closest_hit(
+        o28, d28, pack_d1.wi_v0, pack_d1.wi_v1, pack_d1.wi_v2), "tri_intersect")
     got28 = k3.tri_closest_hit(o28, d28, pack_d1.wi_v0, pack_d1.wi_v1,
                                pack_d1.wi_v2)
     torch.cuda.synchronize()
@@ -2398,7 +2518,8 @@ def main() -> int:
                         else "bytes")
     emit("kernel_at_main_shape", kernel="tri_intersect",
          scene="slice D1 (feat_pt.xml + 1,920-face torus + sky + lens)",
-         rays=n29, items=w28, ms=k3_ms, plain_ms=k3_plain_ms, exact=exact28,
+         rays=n29, items=w28, ms=k3_ms, device_ms=k3_dev_ms,
+         plain_ms=k3_plain_ms, exact=exact28,
          hit_frac=float(hit28.float().mean()), bound=bd28,
          frac_of_bound=bd28["bound_ms"] / k3_ms, card=card)
     del got28, ref28, o28, d28
@@ -2567,7 +2688,7 @@ def main() -> int:
     kernels.append({**kernel_entry(
         "tri_intersect", k3_launches, k3_ms, k3_plain_ms, bd28,
         {"max_abs_err": err28}, n29, 1, library=k3.LIBRARY,
-        replaces=REPLACES_K3), "items": w28})
+        replaces=REPLACES_K3), "items": w28, "device_ms": k3_dev_ms})
 
     # 31. K4 against its plain version, bit for bit (NaN lanes alike): the
     # JAX probe's two asserted configurations, the frame-size one and edge

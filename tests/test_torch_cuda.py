@@ -638,6 +638,181 @@ def test_optimize_recovers_a_texture_through_the_k2c_kernel(cuda, tmp_path):
     np.testing.assert_allclose(hist, hist_cpu, rtol=1e-3)
 
 
+def _quad_case(dev, tmp_path, n_tex=64, image=None, n=4096):
+    """The inverse-texture quad (a 64x64 texture, or ``image``) on the
+    card: its differentiable render, tables, n random primary rays and a
+    random radiance cotangent."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+    from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+        texture_inverse_scene_xml,
+    )
+
+    cfg = load_scene(texture_inverse_scene_xml(n_tex, image=image,
+                                               out_dir=tmp_path))
+    pack = pack_scene(cfg, device=dev)
+    f = mb.make_diff_render(pack, options_for_camera(cfg, cfg.cameras[0]),
+                            device=dev)
+    rng = np.random.default_rng(5)
+    px, py = (torch.as_tensor(rng.uniform(0, 800, n).astype(np.float32),
+                              device=dev) for _ in range(2))
+    o, d = generate_rays(build_camera(cfg.cameras[0], device=dev), px, py)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    gbar = torch.randn(o.shape, generator=gen, device=dev)
+    tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
+    return f, pack, tabs, o.contiguous(), d.contiguous(), gbar
+
+
+def _assert_grads_close(g, gref, fields):
+    for k in fields:
+        a, b = getattr(gref, k), getattr(g, k)
+        assert bool(torch.isfinite(b).all()), k
+        if a.numel():
+            torch.testing.assert_close(b, a, rtol=1e-3,
+                                       atol=1e-4 * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("pool,rows_shared", [("64x64", True),
+                                              ("64x64", False),
+                                              ("1024x1024", True)])
+def test_k2c_fwd_bwd_matches_plain_on_both_scatter_paths(
+        cuda, tmp_path, monkeypatch, pool, rows_shared):
+    """K2c's fwd+bwd on the inverse-texture quad, its texel pool (64x64,
+    and floor_tiles.png's 1,048,576 texels) summed by warp straight into
+    global memory, its rows' sums in each block's shared memory (the
+    default) or summed by warp into global memory: every cotangent against
+    autograd within rtol 1e-3 and atol 1e-4 max|ref|."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    image = REPO / "scenes" / "textures" / "floor_tiles.png" if (
+        pool == "1024x1024") else None
+    if not rows_shared:
+        monkeypatch.setattr(mb, "TRI_SHARED_MAX_ROWS", 0)
+    f, _, tabs, o, d, gbar = _quad_case(cuda, tmp_path, image=image)
+    bc = f.bc
+    assert bool(mb.scatter_flags(bc, True) & mb.FLAG_TRI_SHARED) == rows_shared
+    _, g = mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar)
+    _, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, gbar=gbar)
+    assert float(gref.texels.abs().sum()) > 0
+    _assert_grads_close(g, gref, gref._fields)
+
+
+def test_k2c_fwd_bwd_keeps_two_filters_on_one_image_apart(cuda, tmp_path):
+    """Two textures over one image of the pool, nearest on one half of
+    the floor and bilinear on the other (``shared_image_scene_xml``): a
+    warp's lanes that read the same first texel through different filters
+    add different taps, and every cotangent, the pool's included, agrees
+    with autograd within rtol 1e-3 and atol 1e-4 max|ref|."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+    from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+        shared_image_scene_xml,
+    )
+
+    cfg = load_scene(shared_image_scene_xml(out_dir=tmp_path))
+    pack = pack_scene(cfg, device=cuda)
+    f = mb.make_diff_render(pack, options_for_camera(cfg, cfg.cameras[0]),
+                            device=cuda)
+    assert len(f.bc.mc.tex_images) == 1
+    rng = np.random.default_rng(9)
+    px, py = (torch.as_tensor(rng.uniform(0, 800, 8192).astype(np.float32),
+                              device=cuda) for _ in range(2))
+    o, d = generate_rays(build_camera(cfg.cameras[0], device=cuda), px, py)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    gbar = torch.randn(o.shape, generator=gen, device=cuda)
+    tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
+    o, d = o.contiguous(), d.contiguous()
+    _, g = mb.mega_bwd_trace(f.bc, tabs, o, d, gbar=gbar)
+    _, gref = mb.mega_bwd_trace_ref(f.bc, tabs, o, d, gbar=gbar)
+    assert float(gref.texels.abs().sum()) > 0
+    _assert_grads_close(g, gref, gref._fields)
+
+
+def _feat_pt_case(dev, n=4096):
+    """scenes/feat_pt.xml (K2b: path tracing under a mesh light) on the
+    card: its render, tables, n random primary rays, a random radiance
+    cotangent and Philox's draws."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    cfg = load_scene(str(REPO / "scenes" / "feat_pt.xml"))
+    pack = pack_scene(cfg, device=dev)
+    f = mb.make_diff_render(pack, options_for_camera(cfg, cfg.cameras[0]),
+                            device=dev)
+    rng = np.random.default_rng(6)
+    px, py = (torch.as_tensor(rng.uniform(0, 800, n).astype(np.float32),
+                              device=dev) for _ in range(2))
+    o, d = generate_rays(build_camera(cfg.cameras[0], device=dev), px, py)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    gbar = torch.randn(o.shape, generator=gen, device=dev)
+    tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
+    return (f, tabs, o.contiguous(), d.contiguous(), gbar,
+            mb.bwd_draws(f.bc, 0, 0, n, device=dev))
+
+
+@pytest.mark.parametrize("scene", ["quad", "feat_pt.xml"])
+def test_unasked_cotangents_stay_zero_and_asked_ones_do_not_move(
+        cuda, tmp_path, scene):
+    """Each target alone, and a pair: the targets not asked for stay
+    exactly 0, the asked ones agree with the call that asks for every
+    target (itself held to autograd) within the cotangents' tolerance."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    if scene == "quad":
+        f, _, tabs, o, d, gbar = _quad_case(cuda, tmp_path)
+        draws = None
+    else:
+        f, tabs, o, d, gbar, draws = _feat_pt_case(cuda)
+    bc = f.bc
+    _, full = mb.mega_bwd_trace(bc, tabs, o, d, draws, gbar=gbar)
+    _, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws, gbar)
+    _assert_grads_close(full, gref, gref._fields)
+    present = [k for k in mb.SCATTER_FLAGS if getattr(tabs, k).numel()]
+    for targets in [[k] for k in present] + [present[:2]]:
+        _, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, gbar=gbar,
+                                 scatter=targets)
+        for k in mb.SCATTER_FLAGS:
+            if k not in targets:
+                assert not bool(getattr(g, k).any()), (targets, k)
+        _assert_grads_close(g, full, targets + ["o", "d"])
+
+
+def test_render_backward_scatters_only_what_needs_a_gradient(cuda, tmp_path,
+                                                             monkeypatch):
+    """Autograd through make_diff_render on the card with only img_atlas
+    requiring grad: one fwd+bwd launch, asked for the texels alone; its
+    other table cotangents exactly 0; the atlas's gradient the plain
+    version's texel cotangent."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    f, pack, tabs, o, d, gbar = _quad_case(cuda, tmp_path, n_tex=16)
+    seen = []
+    trace = mb.mega_bwd_trace
+
+    def spy(*args, **kw):
+        res = trace(*args, **kw)
+        if kw.get("gbar") is not None:
+            seen.append((kw.get("scatter"), res[1]))
+        return res
+
+    monkeypatch.setattr(mb, "mega_bwd_trace", spy)
+    before = mb.LAUNCHES["mega_bwd_tex"]
+    atlas = pack.img_atlas.detach().clone().requires_grad_(True)
+    img = f({"img_atlas": atlas}, o, d)
+    (img * gbar).sum().backward()
+    assert mb.LAUNCHES["mega_bwd_tex"] == before + 1
+    assert len(seen) == 1 and list(seen[0][0]) == ["texels"]
+    for k in mb.SCATTER_FLAGS:
+        if k != "texels":
+            assert not bool(getattr(seen[0][1], k).any()), k
+    _, gref = mb.mega_bwd_trace_ref(f.bc, tabs, o, d, gbar=gbar)
+    (img_i, h, w), = f.bc.mc.tex_images
+    got = atlas.grad[img_i, :h, :w].reshape(-1, 3)
+    assert float(gref.texels.abs().sum()) > 0
+    torch.testing.assert_close(got, gref.texels, rtol=1e-3,
+                               atol=1e-4 * float(gref.texels.abs().max()))
+
+
 # ---- K3, the dense closest hit of the wavefront (slice D1) ----
 
 
@@ -680,6 +855,25 @@ def test_k3_kernel_matches_plain_version(cuda, w, motion):
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert (got[1] >= 0).float().mean() > 0.2 or w == 1
+
+
+@pytest.mark.parametrize("n", [1, 4097, 20003])
+@pytest.mark.parametrize("table", ["vertices and edges", "ties at t_best",
+                                   "scaled", "near-degenerate", "motion"])
+def test_k3_is_exact_at_the_edges_of_its_rejection(cuda, table, n):
+    """Bit for bit on ops/tri_intersect.py::edge_tables: quotients within
+    rounding of 0 and of beta + gamma = 1, items at exactly the best t,
+    determinants outside the rejection's trusted range, denormal
+    numerators and quotients that underflow to -0, det = 0, with and
+    without motion, at ray counts that are no multiple of the rays a
+    block takes."""
+    from advanced_cpu_raytracing_tpu_torch.ops import tri_intersect as k3
+
+    tab = k3.edge_tables(n, seed=n, device=cuda)[table]
+    got = k3.tri_closest_hit(*tab)
+    ref = k3.tri_closest_hit_ref(*tab)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 def test_optimize_goes_through_k3(cuda, tmp_path):

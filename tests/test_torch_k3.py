@@ -185,3 +185,26 @@ def test_wrapper_takes_the_plain_version_only_on_the_cpu():
     assert k3.LAUNCHES == before  # the plain version counts no launch
     with pytest.raises(ValueError, match="go together"):
         k3.tri_closest_hit(o, d, v0, v1, v2, motion=v0)
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_item_table_is_the_jax_kernels_subtractions(motion):
+    """The kernel's 16-float rows (v0, e1, e2, the motion row, four zeros)
+    hold bit for bit what the JAX kernel computes per item
+    (tri_intersect.py:58-63: e1 = v0 - v1, e2 = v0 - v2, in f32), on the
+    2,048-item random table with det = 0 items and exact ties."""
+    v0, v1, v2 = _table(2048, 27)
+    mo = (np.random.default_rng(3).normal(0, 0.2, (2048, 3)).astype(np.float32)
+          if motion else None)
+    tab = k3.item_table(*(torch.tensor(x) for x in (v0, v1, v2)),
+                        None if mo is None else torch.tensor(mo)).numpy()
+    assert tab.shape == (2048, k3.ITEM_COLS) and tab.dtype == np.float32
+    want = [np.asarray(v0), np.asarray(jnp.asarray(v0) - jnp.asarray(v1)),
+            np.asarray(jnp.asarray(v0) - jnp.asarray(v2)),
+            np.zeros((2048, 3), np.float32) if mo is None else mo,
+            np.zeros((2048, 4), np.float32)]
+    np.testing.assert_array_equal(tab.view(np.uint32), np.concatenate(
+        want, axis=1).view(np.uint32))
+    k = np.arange(2048)
+    zero = (k % 5 == 4) & (k % 7 != 6)  # the det = 0 items (not ties): e1 = 0
+    assert (tab[zero, 3:6] == 0).all()
