@@ -1,5 +1,7 @@
 // mega_bwd.cu — kernels K2a, K2b and K2c for NVIDIA Hopper (sm_90a): the
-// differentiable render's chain, forward and reverse in one launch.
+// differentiable render's chain, forward and reverse (K2b and K2c in one
+// launch, K2a's reverse from its primal's records), and the refit of the
+// boxes from each call's vertices.
 //
 // Replaces the TPU kernel advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py::
 // _kernel (line 428, launched by _bwd_call through pl.pallas_call at line
@@ -36,25 +38,42 @@
 // weight included.  The plain version is ops/megabwd.py::diff_trace_ref,
 // differentiated by torch autograd.
 //
-// Design.  One thread per ray, 128 per block, as K1.  Per kernel four
-// instantiations of one template: the primal (kBwd = false: the radiance
-// only, the JAX with_bwd=False) and the fwd+bwd (kBwd = true), each over the
-// 128-face chunks or the tree (FlatChunks / ChunkTree, picked as K1 picks
-// them), so neither has a face cap.  The forward keeps each segment's
-// stop-grad facts in a per-thread record (origin, direction, weight, Beer
-// constant, the dielectric's ratio, winner row / sphere / material, topology
-// and visibility bits, and in K2b the sampled mesh-light faces and the GI,
-// coin and suppression bits; MAX_SEG records in local memory).  The reverse
-// sweep runs from the last segment to the first: it recomputes the step's
-// forward values from the record, the call's tables and the draws (read or
-// drawn again, not stored) and applies each step's adjoint, derived by hand
-// (the TPU kernel gets it from jax.vjp at trace time, which has no CUDA
-// counterpart).  The ray cotangents d_o, d_d are written per ray.  K2c
-// reads its taps from K1d's pool (mega_tex.cuh: every image at native size,
-// RGB f32, any number of texels and textures) with __ldg, in place of the
-// TPU's channel-block texel table, its row-masked lane gather and the 16 tap
-// streams; the diffuse slot is read again from the winner's row, not kept
-// in the record.
+// Design.  One thread per ray, 128 per block, as K1.  Each chain has a
+// primal (kBwd = false: the radiance only, the JAX with_bwd=False) and a
+// backward, over the 128-face chunks or the tree (FlatChunks / ChunkTree)
+// as K1 picks them: the tree past one chunk (ops/megakernel.py::
+// FWD_FLAT_MAX_FACES), with leaves of 4 rows, so no instantiation has a
+// face cap.  The forward keeps each segment's stop-grad facts in a record
+// (origin, direction, weight, Beer constant, the dielectric's ratio,
+// winner row / sphere / material, topology and visibility bits, and in K2b
+// the sampled mesh-light faces and the GI, coin and suppression bits).
+// The reverse sweep runs from the last segment to the first: it recomputes
+// the step's forward values from the record, the call's tables and the
+// draws (read or drawn again, not stored) and applies each step's adjoint,
+// derived by hand (the TPU kernel gets it from jax.vjp at trace time,
+// which has no CUDA counterpart).  The ray cotangents d_o, d_d are written
+// per ray.
+//
+// K2a's backward is a reverse kernel (kRev) that traces nothing: its
+// primal writes each ray's records to a buffer of the call's
+// (ops/megabwd.py::records_shape: REC_WORDS 32-bit words a segment,
+// field-major, so the warp's threads store and load neighbouring words;
+// 325 MB at 640,000 rays and 7 segments, which the card holds and moves
+// in about 0.1 ms each way), and the reverse kernel reads them with the
+// call's tables and the cotangent.  The TPU kernel traced the chain again
+// in its fwd+bwd, since per-ray records could not outlive a kernel there;
+// K2b's and K2c's fwd+bwd still do, keeping MAX_SEG records in local
+// memory.  K2c reads its taps from K1d's pool (mega_tex.cuh: every image
+// at native size, RGB f32, any number of texels and textures) with __ldg,
+// in place of the TPU's channel-block texel table, its row-masked lane
+// gather and the 16 tap streams; the diffuse slot is read again from the
+// winner's row, not kept in the record.
+//
+// The boxes.  K2 moves the vertices, so each call refits the boxes the
+// kernels read from its own vertices (mega_bwd_refit_*: the tree's child
+// boxes over the topology and row order of the build, or the chunks'),
+// and a moved face is never culled by a box of where it was.  The JAX
+// kernel keeps the initial pack's boxes.
 //
 // The scatter, in place of the TPU's one-hot MXU epilogue and the 4,096
 // texels it capped the pool at (the port has no cap).  Each cotangent target
@@ -87,6 +106,9 @@
 // whichever needs fewer, plus the step and its adjoint per segment, light
 // and GI sample; bytes are the rays in and out and the tables (or the
 // tree's boxes and rows) read once; K2c adds its taps' weights and blend.
+// K2a's primal adds the records it writes; its reverse kernel is the
+// step's adjoint per segment and lit light against the bytes of the
+// records, the cotangent, the tables and the cotangents out.
 // Built with -fmad=false, IEEE division and sqrtf, the forward computes the
 // plain version's expressions in their order; the adjoint is an
 // independent derivation, so it rounds otherwise than autograd.
@@ -176,6 +198,10 @@ struct BwdParams {
   float* d_bg;       // (3,)
   float* d_o;        // (n, 3)
   float* d_d;        // (n, 3)
+  // K2a's segment records (REC_WORDS words a segment, field-major, then
+  // each ray's segment count): written by the primal where not null, read
+  // by the reverse kernel
+  float* rec;
   int n, depth;
   unsigned seed, step;
   BwdExt x;  // K2b only
@@ -194,6 +220,54 @@ struct Seg {
 struct SegPt : Seg {
   int ml_face[MAX_ML];
 };
+
+// K2a's records (ops/megabwd.py::records_shape): word f of segment k of
+// ray i at rec[(k REC_WORDS + f) n + i], so that the warp's threads store
+// and load neighbouring words; o 0:3, d 3:6, w 6:9, ab 9:12, ratio 12, and
+// row, sph, mat, bits, vis (13:18) as the bits of their 32-bit words.
+// Each ray's segment count follows the depth's last segment.
+constexpr int REC_WORDS = 18;
+
+__device__ __forceinline__ float* rec_at(const BwdParams& Q, int i, int k) {
+  return Q.rec + static_cast<size_t>(k) * REC_WORDS * Q.n + i;
+}
+
+__device__ __forceinline__ void store_seg(const BwdParams& Q, int i, int k,
+                                          const Seg& s) {
+  float* r = rec_at(Q, i, k);
+  const size_t n = static_cast<size_t>(Q.n);
+  for (int c = 0; c < 3; ++c) {
+    r[c * n] = s.o[c];
+    r[(3 + c) * n] = s.d[c];
+    r[(6 + c) * n] = s.w[c];
+    r[(9 + c) * n] = s.ab[c];
+  }
+  r[12 * n] = s.ratio;
+  r[13 * n] = __int_as_float(s.row);
+  r[14 * n] = __int_as_float(s.sph);
+  r[15 * n] = __int_as_float(s.mat);
+  r[16 * n] = __uint_as_float(s.bits);
+  r[17 * n] = __uint_as_float(s.vis);
+}
+
+__device__ __forceinline__ Seg load_seg(const BwdParams& Q, int i, int k) {
+  const float* r = rec_at(Q, i, k);
+  const size_t n = static_cast<size_t>(Q.n);
+  Seg s;
+  for (int c = 0; c < 3; ++c) {
+    s.o[c] = __ldg(r + c * n);
+    s.d[c] = __ldg(r + (3 + c) * n);
+    s.w[c] = __ldg(r + (6 + c) * n);
+    s.ab[c] = __ldg(r + (9 + c) * n);
+  }
+  s.ratio = __ldg(r + 12 * n);
+  s.row = __float_as_int(__ldg(r + 13 * n));
+  s.sph = __float_as_int(__ldg(r + 14 * n));
+  s.mat = __float_as_int(__ldg(r + 15 * n));
+  s.bits = __float_as_uint(__ldg(r + 16 * n));
+  s.vis = __float_as_uint(__ldg(r + 17 * n));
+  return s;
+}
 
 // the branch uniform of segment k of ray i: the table's, else Philox keyed
 // (seed, step), counter (ray, segment, 0, 0), word 0 (ops/megabwd.py::ud_table)
@@ -918,10 +992,18 @@ __device__ __forceinline__ void tex_step_vjp(const BwdParams& Q, int row,
   g_gamma = g_xu * (__ldg(q + 9) - u0) + g_xv * (__ldg(q + 10) - v0);
 }
 
-template <bool kBwd, class G, bool kPt = false, bool kTex = false>
+// The chain of ray i: the forward sweep (the radiance into out; with kBwd
+// each segment's record kept in local memory, and in K2a's primal written
+// to Q.rec where it is not null), then with kBwd the reverse sweep.  kRev
+// (K2a's reverse kernel) runs the reverse sweep alone, from the primal's
+// records in Q.rec: it traces nothing.
+template <bool kBwd, class G, bool kPt = false, bool kTex = false,
+          bool kRev = false>
 __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
                          const float* __restrict__ d, float* __restrict__ out,
                          int i, const Sinks& K) {
+  static_assert(!kRev || (kBwd && !kPt && !kTex),
+                "the reverse kernel is K2a's");
   using SegT = typename std::conditional<kPt, SegPt, Seg>::type;
   const Params& P = Q.g;
   const bool diel = (P.flags & FLAG_DIELECTRIC) != 0;
@@ -938,232 +1020,244 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
   const bool importance = (P.flags & FLAG_IMPORTANCE) != 0;
   const bool rr = (P.flags & FLAG_RR) != 0;
   const int n_ext = kPt ? Q.x.n_spot + Q.x.n_area + Q.x.n_ml : 0;
-  SegT rec[kBwd ? (kPt ? MAX_SEG : MAX_SEG_WHITTED) : 1];
+  SegT rec[kBwd && !kRev ? (kPt ? MAX_SEG : MAX_SEG_WHITTED) : 1];
   int n_seg = 0;
-  SegT s;
-  for (int c = 0; c < 3; ++c) {
-    s.o[c] = o[3 * i + c];
-    s.d[c] = d[3 * i + c];
-    s.w[c] = 1.0f;
-    s.ab[c] = 0.0f;
-  }
-  float med = 1.0f;
-  float L[3] = {0.0f, 0.0f, 0.0f};
-  Hit gh;  // K2b: the GI ray's hit, the next segment's where it is taken
-  int gwin[2] = {-1, -1};
-  bool reuse = false;
-  for (int k = 0; k < Q.depth; ++k) {
-    // ---- trace and topology (stop-grad) ----
-    int win[2];
-    Hit h;
-    if (kPt && reuse) {
-      h = gh;
-      win[0] = gwin[0];
-      win[1] = gwin[1];
-    } else {
-      h = trace<false, NoMotion, true, G>(P, s.o[0], s.o[1], s.o[2], s.d[0],
-                                          s.d[1], s.d[2], NoMotion(), win);
+  if constexpr (kRev) {
+    n_seg = __float_as_int(__ldg(rec_at(Q, i, Q.depth)));
+  } else {
+    SegT s;
+    for (int c = 0; c < 3; ++c) {
+      s.o[c] = o[3 * i + c];
+      s.d[c] = d[3 * i + c];
+      s.w[c] = 1.0f;
+      s.ab[c] = 0.0f;
     }
-    s.row = win[0];
-    s.sph = win[1];
-    s.mat = h.hit ? h.mat : 0;
-    s.ratio = 1.0f;
-    s.vis = 0u;
-    const float* m = P.mat + s.mat * MAT_COLS;
-    const int type = static_cast<int>(m[0]);
-    unsigned bits = h.hit ? HIT : 0u;
-    if (h.hit && has_em && type == MAT_EMISSIVE) bits |= EMISSIVE;
-    bool lit = h.hit && !(bits & EMISSIVE) && !(diel && med > 1.00001f);
-    if constexpr (kPt) lit = lit && sample_direct;
-    if (lit) bits |= LIT;
-    if (k == 0 && !h.hit) bits |= MISS_PRIMARY;
-    s.bits = bits;
-    Geo g;
-    step_geometry<false>(Q, s, k, h.t, g);
-    const float* n = g.n;
-    // K2c: kd of the winner's diffuse texture
-    TexStep tx;
-    const float* kd = m + 4;
-    if constexpr (kTex) {
-      tex_step(Q, h.hit ? s.row : -1, s.o, s.d, m, tx);
-      kd = tx.kd;
-    }
-    // ---- K2b: the GI ray, traced before the light terms (NEE skips the
-    // mesh light it hit); Russian roulette past max_depth on the post-Beer
-    // weight (integrator.py:259-297) ----
-    bool gi_would = false;
-    float4 gdraw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    float gd[3] = {0.0f, 0.0f, 0.0f}, gio[3] = {0.0f, 0.0f, 0.0f};
-    if constexpr (kPt) {
-      if (pt && k < Q.depth - 1) {
-        gdraw = gi_draws(Q, i, k);
-        bool gi_alive = h.hit && !(bits & EMISSIVE);
-        if (rr && k >= P.max_depth && gdraw.z > rr_prob(g.wb)) gi_alive = false;
-        if (gi_alive) {
-          gi_direction(n[0], n[1], n[2], gdraw.x, gdraw.y, importance, gd[0],
-                       gd[1], gd[2]);
-          for (int c = 0; c < 3; ++c) gio[c] = g.p[c] + n[c] * GI_EPS;
-          gh = trace<true, NoMotion, true, G>(P, gio[0], gio[1], gio[2], gd[0],
-                                              gd[1], gd[2], NoMotion(), gwin);
-          gi_would = gh.hit;
-          if (gh.hit && gh.ml >= 0) s.bits |= SKIP_ML << gh.ml;
+    float med = 1.0f;
+    float L[3] = {0.0f, 0.0f, 0.0f};
+    Hit gh;  // K2b: the GI ray's hit, the next segment's where it is taken
+    int gwin[2] = {-1, -1};
+    bool reuse = false;
+    for (int k = 0; k < Q.depth; ++k) {
+      // ---- trace and topology (stop-grad) ----
+      int win[2];
+      Hit h;
+      if (kPt && reuse) {
+        h = gh;
+        win[0] = gwin[0];
+        win[1] = gwin[1];
+      } else {
+        h = trace<false, NoMotion, true, G>(P, s.o[0], s.o[1], s.o[2], s.d[0],
+                                            s.d[1], s.d[2], NoMotion(), win);
+      }
+      s.row = win[0];
+      s.sph = win[1];
+      s.mat = h.hit ? h.mat : 0;
+      s.ratio = 1.0f;
+      s.vis = 0u;
+      const float* m = P.mat + s.mat * MAT_COLS;
+      const int type = static_cast<int>(m[0]);
+      unsigned bits = h.hit ? HIT : 0u;
+      if (h.hit && has_em && type == MAT_EMISSIVE) bits |= EMISSIVE;
+      bool lit = h.hit && !(bits & EMISSIVE) && !(diel && med > 1.00001f);
+      if constexpr (kPt) lit = lit && sample_direct;
+      if (lit) bits |= LIT;
+      if (k == 0 && !h.hit) bits |= MISS_PRIMARY;
+      s.bits = bits;
+      Geo g;
+      step_geometry<false>(Q, s, k, h.t, g);
+      const float* n = g.n;
+      // K2c: kd of the winner's diffuse texture
+      TexStep tx;
+      const float* kd = m + 4;
+      if constexpr (kTex) {
+        tex_step(Q, h.hit ? s.row : -1, s.o, s.d, m, tx);
+        kd = tx.kd;
+      }
+      // ---- K2b: the GI ray, traced before the light terms (NEE skips the
+      // mesh light it hit); Russian roulette past max_depth on the post-Beer
+      // weight (integrator.py:259-297) ----
+      bool gi_would = false;
+      float4 gdraw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float gd[3] = {0.0f, 0.0f, 0.0f}, gio[3] = {0.0f, 0.0f, 0.0f};
+      if constexpr (kPt) {
+        if (pt && k < Q.depth - 1) {
+          gdraw = gi_draws(Q, i, k);
+          bool gi_alive = h.hit && !(bits & EMISSIVE);
+          if (rr && k >= P.max_depth && gdraw.z > rr_prob(g.wb))
+            gi_alive = false;
+          if (gi_alive) {
+            gi_direction(n[0], n[1], n[2], gdraw.x, gdraw.y, importance, gd[0],
+                         gd[1], gd[2]);
+            for (int c = 0; c < 3; ++c) gio[c] = g.p[c] + n[c] * GI_EPS;
+            gh = trace<true, NoMotion, true, G>(P, gio[0], gio[1], gio[2],
+                                                gd[0], gd[1], gd[2],
+                                                NoMotion(), gwin);
+            gi_would = gh.hit;
+            if (gh.hit && gh.ml >= 0) s.bits |= SKIP_ML << gh.ml;
+          }
         }
       }
-    }
-    // ---- the segment's radiance ----
-    float seg[3] = {0.0f, 0.0f, 0.0f};
-    for (int c = 0; c < 3; ++c) {
-      if (bits & MISS_PRIMARY) seg[c] = seg[c] + g.wb[c] * Q.bg[c];
-      if (bits & EMISSIVE) seg[c] = seg[c] + g.wb[c] * m[19 + c] * TWO_PI;
-      if (has_amb && lit) seg[c] = seg[c] + g.wb[c] * P.amb[c] * m[1 + c];
-    }
-    if (lit) {
-      const float so[3] = {g.p[0] + n[0] * eps, g.p[1] + n[1] * eps,
-                           g.p[2] + n[2] * eps};
-      for (int l = 0; l < n_light; ++l) {
-        float tl[3], wi[3], d2 = 0.0f, inv = 0.0f;
-        const float* row;
-        const bool point = light_at(P, l, g.p, tl, wi, d2, inv, row);
-        if (!light_visible<G>(P, l, so, wi, d2, point)) continue;
-        s.vis |= 1u << l;
-        Shade S;
-        shade_unit(wi, n, g.wo, m, kd, S);
-        for (int c = 0; c < 3; ++c)
-          seg[c] = seg[c] + (point ? g.wb[c] * row[3 + c] / d2
-                                   : g.wb[c] * row[3 + c]) * S.v[c];
+      // ---- the segment's radiance ----
+      float seg[3] = {0.0f, 0.0f, 0.0f};
+      for (int c = 0; c < 3; ++c) {
+        if (bits & MISS_PRIMARY) seg[c] = seg[c] + g.wb[c] * Q.bg[c];
+        if (bits & EMISSIVE) seg[c] = seg[c] + g.wb[c] * m[19 + c] * TWO_PI;
+        if (has_amb && lit) seg[c] = seg[c] + g.wb[c] * P.amb[c] * m[1 + c];
+      }
+      if (lit) {
+        const float so[3] = {g.p[0] + n[0] * eps, g.p[1] + n[1] * eps,
+                             g.p[2] + n[2] * eps};
+        for (int l = 0; l < n_light; ++l) {
+          float tl[3], wi[3], d2 = 0.0f, inv = 0.0f;
+          const float* row;
+          const bool point = light_at(P, l, g.p, tl, wi, d2, inv, row);
+          if (!light_visible<G>(P, l, so, wi, d2, point)) continue;
+          s.vis |= 1u << l;
+          Shade S;
+          shade_unit(wi, n, g.wo, m, kd, S);
+          for (int c = 0; c < 3; ++c)
+            seg[c] = seg[c] + (point ? g.wb[c] * row[3 + c] / d2
+                                     : g.wb[c] * row[3 + c]) * S.v[c];
+        }
+        if constexpr (kPt) {
+          for (int j = 0; j < n_ext; ++j) {
+            const int mi = j - Q.x.n_spot - Q.x.n_area;
+            if (mi >= 0 && (s.bits & (SKIP_ML << mi))) continue;
+            ExtL X;
+            ext_at(Q, i, k, j, -1, g.p, X);
+            if (mi >= 0) s.ml_face[mi] = X.face;
+            if (!light_visible<G>(P, 0, so, X.wi, X.d2, true)) continue;
+            s.vis |= 1u << (n_light + j);
+            Shade S;
+            shade_unit(X.wi, n, g.wo, m, kd, S);
+            for (int c = 0; c < 3; ++c)
+              seg[c] = seg[c] + g.wb[c] * X.I[c] * X.e * S.v[c];
+          }
+        }
+      }
+      for (int c = 0; c < 3; ++c) L[c] = L[c] + seg[c];
+      // ---- the child ----
+      bool chain = false;
+      float o2[3], d2v[3], w2[3], ab2[3] = {0.0f, 0.0f, 0.0f}, med2 = 1.0f;
+      if (k < (kPt ? P.max_depth : Q.depth - 1) && any_spec && h.hit) {
+        if (type == MAT_MIRROR || type == MAT_CONDUCTOR) {
+          const float ndotwo = dot3(n, g.wo);
+          float ratio = 1.0f;
+          chain = true;
+          if (type == MAT_CONDUCTOR) {
+            ratio = conductor_ratio(m[14], m[15], ndotwo, nullptr);
+            chain = ratio > 1e-4f;
+          }
+          if (chain) {
+            s.bits |= type == MAT_MIRROR ? MIRROR : COND;
+            float r[3];
+            for (int c = 0; c < 3; ++c) r[c] = 2.0f * n[c] * ndotwo - g.wo[c];
+            norm3(r[0], r[1], r[2]);
+            for (int c = 0; c < 3; ++c) {
+              o2[c] = g.p[c] + n[c] * eps;
+              d2v[c] = r[c];
+              w2[c] = g.wb[c] * (type == MAT_MIRROR ? m[10 + c]
+                                                    : m[10 + c] * ratio);
+            }
+          }
+        } else if (type == MAT_DIELECTRIC) {
+          const float ior = m[14];
+          const float cos0 = -dot3(n, s.d);
+          const bool entering = cos0 > 0.0f;
+          const float n1 = entering ? med : ior;
+          const float n2 = entering ? ior : 1.0f;
+          const float ratio_n = n1 / fmaxf(n2, 1e-20f);
+          const float cos_a = fabsf(cos0);
+          const float crit0 = ratio_n * ratio_n * (1.0f - cos_a * cos_a);
+          const bool tir = crit0 > 1.0f;
+          const float cos_p0 = tir ? 0.0f : sqrtf(fmaxf(1.0f - crit0, 1e-20f));
+          const float n2cos = n2 * cos_a, n1cosp = n1 * cos_p0;
+          const float rpar = (n2cos - n1cosp) / fmaxf(n2cos + n1cosp, 1e-20f);
+          const float rperp = (n1 * cos_a - n2 * cos_p0) /
+                              fmaxf(n1 * cos_a + n2 * cos_p0, 1e-20f);
+          const float r_refl = 0.5f * (rpar * rpar + rperp * rperp);
+          const bool refl = tir || branch_uniform(Q, i, k) < r_refl;
+          chain = true;
+          s.bits |= (refl ? REFLECT : REFRACT) | (entering ? 0u : EXITING);
+          s.ratio = ratio_n;
+          med2 = tir ? med : n2;
+          const bool take = tir ? med > 1.0001f
+                                : (refl ? n2 > 1.00001f : n2 > 1.001f);
+          if (take)
+            for (int c = 0; c < 3; ++c) ab2[c] = m[16 + c];
+          const float sgn = entering ? 1.0f : -1.0f;
+          const float nm[3] = {n[0] * sgn, n[1] * sgn, n[2] * sgn};
+          const float cos_i = -dot3(s.d, nm);
+          if (refl) {
+            float rm[3];
+            for (int c = 0; c < 3; ++c) rm[c] = 2.0f * nm[c] * cos_i + s.d[c];
+            norm3(rm[0], rm[1], rm[2]);
+            for (int c = 0; c < 3; ++c) {
+              o2[c] = g.p[c] + nm[c] * eps;
+              d2v[c] = rm[c];
+            }
+          } else {
+            const float crit = ratio_n * ratio_n * (1.0f - cos_i * cos_i);
+            const float cos_p = sqrtf(fmaxf(1.0f - crit, 1e-20f));
+            float tn[3];
+            for (int c = 0; c < 3; ++c)
+              tn[c] = (s.d[c] + nm[c] * cos_i) * ratio_n - nm[c] * cos_p;
+            norm3(tn[0], tn[1], tn[2]);
+            for (int c = 0; c < 3; ++c) {
+              o2[c] = g.p[c] - nm[c] * eps;
+              d2v[c] = tn[c];
+            }
+          }
+          for (int c = 0; c < 3; ++c) w2[c] = g.wb[c];
+        }
       }
       if constexpr (kPt) {
-        for (int j = 0; j < n_ext; ++j) {
-          const int mi = j - Q.x.n_spot - Q.x.n_area;
-          if (mi >= 0 && (s.bits & (SKIP_ML << mi))) continue;
-          ExtL X;
-          ext_at(Q, i, k, j, -1, g.p, X);
-          if (mi >= 0) s.ml_face[mi] = X.face;
-          if (!light_visible<G>(P, 0, so, X.wi, X.d2, true)) continue;
-          s.vis |= 1u << (n_light + j);
-          Shade S;
-          shade_unit(X.wi, n, g.wo, m, kd, S);
-          for (int c = 0; c < 3; ++c)
-            seg[c] = seg[c] + g.wb[c] * X.I[c] * X.e * S.v[c];
+        // the GI child where the GI ray hit; with a specular child too, the
+        // replayed coin picks one and its weight doubles (stochastic_spec_gi)
+        if (gi_would) {
+          const bool chain_spec = chain;
+          chain = true;
+          if (!chain_spec || gdraw.w < 0.5f) {
+            s.bits |= GI;
+            Shade S;
+            shade_unit(gd, n, g.wo, m, kd, S);
+            float fac = TWO_PI;
+            if (rr && k >= P.max_depth) fac = TWO_PI * (1.0f / rr_prob(g.wb));
+            for (int c = 0; c < 3; ++c) {
+              o2[c] = gio[c];
+              d2v[c] = gd[c];
+              w2[c] = g.wb[c] * S.v[c] * fac;
+              ab2[c] = 0.0f;
+            }
+            med2 = med;
+          }
+          if (chain_spec) {
+            s.bits |= BOTH;
+            for (int c = 0; c < 3; ++c) w2[c] = w2[c] * 2.0f;
+          }
         }
+        reuse = (s.bits & GI) != 0;
       }
-    }
-    for (int c = 0; c < 3; ++c) L[c] = L[c] + seg[c];
-    // ---- the child ----
-    bool chain = false;
-    float o2[3], d2v[3], w2[3], ab2[3] = {0.0f, 0.0f, 0.0f}, med2 = 1.0f;
-    if (k < (kPt ? P.max_depth : Q.depth - 1) && any_spec && h.hit) {
-      if (type == MAT_MIRROR || type == MAT_CONDUCTOR) {
-        const float ndotwo = dot3(n, g.wo);
-        float ratio = 1.0f;
-        chain = true;
-        if (type == MAT_CONDUCTOR) {
-          ratio = conductor_ratio(m[14], m[15], ndotwo, nullptr);
-          chain = ratio > 1e-4f;
-        }
-        if (chain) {
-          s.bits |= type == MAT_MIRROR ? MIRROR : COND;
-          float r[3];
-          for (int c = 0; c < 3; ++c) r[c] = 2.0f * n[c] * ndotwo - g.wo[c];
-          norm3(r[0], r[1], r[2]);
-          for (int c = 0; c < 3; ++c) {
-            o2[c] = g.p[c] + n[c] * eps;
-            d2v[c] = r[c];
-            w2[c] = g.wb[c] * (type == MAT_MIRROR ? m[10 + c]
-                                                  : m[10 + c] * ratio);
-          }
-        }
-      } else if (type == MAT_DIELECTRIC) {
-        const float ior = m[14];
-        const float cos0 = -dot3(n, s.d);
-        const bool entering = cos0 > 0.0f;
-        const float n1 = entering ? med : ior;
-        const float n2 = entering ? ior : 1.0f;
-        const float ratio_n = n1 / fmaxf(n2, 1e-20f);
-        const float cos_a = fabsf(cos0);
-        const float crit0 = ratio_n * ratio_n * (1.0f - cos_a * cos_a);
-        const bool tir = crit0 > 1.0f;
-        const float cos_p0 = tir ? 0.0f : sqrtf(fmaxf(1.0f - crit0, 1e-20f));
-        const float n2cos = n2 * cos_a, n1cosp = n1 * cos_p0;
-        const float rpar = (n2cos - n1cosp) / fmaxf(n2cos + n1cosp, 1e-20f);
-        const float rperp = (n1 * cos_a - n2 * cos_p0) /
-                            fmaxf(n1 * cos_a + n2 * cos_p0, 1e-20f);
-        const float r_refl = 0.5f * (rpar * rpar + rperp * rperp);
-        const bool refl = tir || branch_uniform(Q, i, k) < r_refl;
-        chain = true;
-        s.bits |= (refl ? REFLECT : REFRACT) | (entering ? 0u : EXITING);
-        s.ratio = ratio_n;
-        med2 = tir ? med : n2;
-        const bool take = tir ? med > 1.0001f
-                              : (refl ? n2 > 1.00001f : n2 > 1.001f);
-        if (take)
-          for (int c = 0; c < 3; ++c) ab2[c] = m[16 + c];
-        const float sgn = entering ? 1.0f : -1.0f;
-        const float nm[3] = {n[0] * sgn, n[1] * sgn, n[2] * sgn};
-        const float cos_i = -dot3(s.d, nm);
-        if (refl) {
-          float rm[3];
-          for (int c = 0; c < 3; ++c) rm[c] = 2.0f * nm[c] * cos_i + s.d[c];
-          norm3(rm[0], rm[1], rm[2]);
-          for (int c = 0; c < 3; ++c) {
-            o2[c] = g.p[c] + nm[c] * eps;
-            d2v[c] = rm[c];
-          }
-        } else {
-          const float crit = ratio_n * ratio_n * (1.0f - cos_i * cos_i);
-          const float cos_p = sqrtf(fmaxf(1.0f - crit, 1e-20f));
-          float tn[3];
-          for (int c = 0; c < 3; ++c)
-            tn[c] = (s.d[c] + nm[c] * cos_i) * ratio_n - nm[c] * cos_p;
-          norm3(tn[0], tn[1], tn[2]);
-          for (int c = 0; c < 3; ++c) {
-            o2[c] = g.p[c] - nm[c] * eps;
-            d2v[c] = tn[c];
-          }
-        }
-        for (int c = 0; c < 3; ++c) w2[c] = g.wb[c];
+      if (chain) s.bits |= CHAIN;
+      if (kBwd) rec[n_seg] = s;
+      if constexpr (!kBwd && !kPt && !kTex) {
+        if (Q.rec != nullptr) store_seg(Q, i, n_seg, s);
       }
-    }
-    if constexpr (kPt) {
-      // the GI child where the GI ray hit; with a specular child too, the
-      // replayed coin picks one and its weight doubles (stochastic_spec_gi)
-      if (gi_would) {
-        const bool chain_spec = chain;
-        chain = true;
-        if (!chain_spec || gdraw.w < 0.5f) {
-          s.bits |= GI;
-          Shade S;
-          shade_unit(gd, n, g.wo, m, kd, S);
-          float fac = TWO_PI;
-          if (rr && k >= P.max_depth) fac = TWO_PI * (1.0f / rr_prob(g.wb));
-          for (int c = 0; c < 3; ++c) {
-            o2[c] = gio[c];
-            d2v[c] = gd[c];
-            w2[c] = g.wb[c] * S.v[c] * fac;
-            ab2[c] = 0.0f;
-          }
-          med2 = med;
-        }
-        if (chain_spec) {
-          s.bits |= BOTH;
-          for (int c = 0; c < 3; ++c) w2[c] = w2[c] * 2.0f;
-        }
+      ++n_seg;
+      if (!chain) break;
+      for (int c = 0; c < 3; ++c) {
+        s.o[c] = o2[c];
+        s.d[c] = d2v[c];
+        s.w[c] = w2[c];
+        s.ab[c] = ab2[c];
       }
-      reuse = (s.bits & GI) != 0;
+      med = med2;
     }
-    if (chain) s.bits |= CHAIN;
-    if (kBwd) rec[n_seg] = s;
-    ++n_seg;
-    if (!chain) break;
-    for (int c = 0; c < 3; ++c) {
-      s.o[c] = o2[c];
-      s.d[c] = d2v[c];
-      s.w[c] = w2[c];
-      s.ab[c] = ab2[c];
+    for (int c = 0; c < 3; ++c) out[3 * i + c] = L[c];
+    if constexpr (!kBwd && !kPt && !kTex) {
+      if (Q.rec != nullptr) *rec_at(Q, i, Q.depth) = __int_as_float(n_seg);
     }
-    med = med2;
-  }
-  for (int c = 0; c < 3; ++c) out[3 * i + c] = L[c];
+  }  // the forward sweep
   if constexpr (!kBwd) return;
 
   // ---- reverse sweep: the last segment to the first ----
@@ -1175,7 +1269,9 @@ __device__ void diff_ray(const BwdParams& Q, const float* __restrict__ o,
                gw2[3] = {0.0f, 0.0f, 0.0f};
   for (int c = 0; c < 3; ++c) gL[c] = Q.gbar[3 * i + c];
   for (int k = n_seg - 1; k >= 0; --k) {
-    const SegT& s = rec[k];
+    SegT s_rec;
+    if constexpr (kRev) s_rec = load_seg(Q, i, k);
+    const SegT& s = kRev ? s_rec : rec[k];
     const float* m = P.mat + s.mat * MAT_COLS;
     Geo g;
     step_geometry<true>(Q, s, k, 0.0f, g);
@@ -1544,9 +1640,11 @@ __host__ __device__ __forceinline__ int block_floats(int n_mat, int n_light,
          ((flags & FLAG_TRI_SHARED) ? 9 * n_tri : 0);
 }
 
-// One ray a thread.  The fwd+bwd zeroes the block's sums, runs its ray, and
-// adds each nonzero sum to the call's buffer with one global atomic.
-template <bool kBwd, class G, bool kPt = false, bool kTex = false>
+// One ray a thread.  The fwd+bwd and the reverse kernel zero the block's
+// sums, run the ray, and add each nonzero sum to the call's buffer with
+// one global atomic.
+template <bool kBwd, class G, bool kPt = false, bool kTex = false,
+          bool kRev = false>
 __device__ __forceinline__ void run(const BwdParams& Q,
                                     const float* __restrict__ o,
                                     const float* __restrict__ d,
@@ -1567,7 +1665,7 @@ __device__ __forceinline__ void run(const BwdParams& Q,
     K.tex = Q.t.d_texels;
     K.sc = P.flags;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < Q.n) diff_ray<true, G, kPt, kTex>(Q, o, d, out, i, K);
+    if (i < Q.n) diff_ray<true, G, kPt, kTex, kRev>(Q, o, d, out, i, K);
     __syncthreads();
     // one global atomic per block and nonzero value
     const int n_mat = P.n_mat * MAT_GRAD_COLS, n_pl = 3 * P.n_point,
@@ -1603,16 +1701,11 @@ mega_bwd_primal_kernel(BwdParams Q, const float* __restrict__ o,
   run<false, FlatChunks>(Q, o, d, out);
 }
 
-// the fwd+bwd instantiations at 4 blocks of 128 threads per SM (at most 128
-// registers): left to itself ptxas takes 150 and 3 blocks, and the launch
-// runs 15% slower on the gauge scene on an H100 (PERF.md)
+// K2c's fwd+bwd and K2a's reverse kernel at 4 blocks of 128 threads per SM
+// (at most 128 registers): left to itself ptxas took 150 and 3 blocks for
+// K2a's fwd+bwd, which ran 15% slower on the gauge scene on an H100, and
+// 154 for the reverse kernel, which ran 7% slower (PERF.md)
 constexpr int BWD_MIN_BLOCKS = 4;
-
-__global__ void __launch_bounds__(THREADS, BWD_MIN_BLOCKS)
-mega_bwd_kernel(BwdParams Q, const float* __restrict__ o,
-                const float* __restrict__ d, float* __restrict__ out) {
-  run<true, FlatChunks>(Q, o, d, out);
-}
 
 __global__ void __launch_bounds__(THREADS)
 mega_bwd_primal_tree_kernel(BwdParams Q, const float* __restrict__ o,
@@ -1621,10 +1714,12 @@ mega_bwd_primal_tree_kernel(BwdParams Q, const float* __restrict__ o,
   run<false, ChunkTree>(Q, o, d, out);
 }
 
+// K2a's reverse kernel: the reverse sweep of each ray from the primal's
+// records, over the chunks and the tree alike (it traces nothing)
 __global__ void __launch_bounds__(THREADS, BWD_MIN_BLOCKS)
-mega_bwd_tree_kernel(BwdParams Q, const float* __restrict__ o,
-                     const float* __restrict__ d, float* __restrict__ out) {
-  run<true, ChunkTree>(Q, o, d, out);
+mega_bwd_rev_kernel(BwdParams Q, const float* __restrict__ o,
+                    const float* __restrict__ d, float* __restrict__ out) {
+  run<true, FlatChunks, false, false, true>(Q, o, d, out);
 }
 
 // K2b's fwd+bwd asks ptxas for no blocks per SM: 1 to 4 blocks of 128
@@ -1713,17 +1808,136 @@ mega_bwd_pt_tex_tree_kernel(BwdParams Q, const float* __restrict__ o,
   run<true, ChunkTree, true, true>(Q, o, d, out);
 }
 
+// ---- the refit of the boxes (no TPU counterpart: the JAX kernel keeps
+// the initial pack's boxes) ----
+//
+// K2's tree keeps its topology, child codes and row order from the build;
+// each call's vertices (tri_w, 9 floats a row) give its boxes.  Min and max
+// do not round, so the boxes are exact in any order, and on the build's own
+// vertices they are the built ones.  The work is small (at 32,768 faces:
+// 8,192 leaf runs, some 11,000 child slots), so a launch is short and what
+// bounds it is its few dependent steps; each pass is one load wide per
+// thread.
+
+// Pass 1: one thread per position p of the depth-first order of the leaf
+// runs: run j = runs[p], rows j L .. min(j L + L, n_tri) - 1
+__global__ void __launch_bounds__(THREADS)
+mega_bwd_refit_runs_kernel(const float* __restrict__ tri_w, int n_tri,
+                           int leaf_rows, const int* __restrict__ runs,
+                           int n_runs, float* __restrict__ run_box) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_runs) return;
+  const int first = __ldg(runs + p) * leaf_rows;
+  const int last = min(first + leaf_rows, n_tri);
+  const float inf = __int_as_float(0x7f800000);
+  float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf};
+  for (int f = first; f < last; ++f) {
+    const float* v = tri_w + static_cast<size_t>(f) * 9;
+    for (int j = 0; j < 9; ++j) {
+      const float x = __ldg(v + j);
+      lo[j % 3] = fminf(lo[j % 3], x);
+      hi[j % 3] = fmaxf(hi[j % 3], x);
+    }
+  }
+  float* b = run_box + static_cast<size_t>(p) * 6;
+  for (int c = 0; c < 3; ++c) {
+    b[c] = lo[c];
+    b[3 + c] = hi[c];
+  }
+}
+
+// Pass 2: one warp per child slot (node * NODE_W + k) over its span
+// (first, count) of pass 1's boxes, its lanes strided and then reduced by
+// shuffles; the slot's six box words from them (count 0, no child: as
+// built), its code and row count as built.
+__global__ void __launch_bounds__(THREADS)
+mega_bwd_refit_nodes_kernel(const float* __restrict__ run_box,
+                            const int* __restrict__ spans,
+                            const float* __restrict__ tree, int n_slots,
+                            float* __restrict__ nodes) {
+  const int slot = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (slot >= n_slots) return;  // the whole warp
+  const int first = __ldg(spans + 2 * slot),
+            count = __ldg(spans + 2 * slot + 1);
+  const float inf = __int_as_float(0x7f800000);
+  float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf};
+  for (int p = first + lane; p < first + count; p += 32) {
+    const float* b = run_box + static_cast<size_t>(p) * 6;
+    for (int c = 0; c < 3; ++c) {
+      lo[c] = fminf(lo[c], b[c]);
+      hi[c] = fmaxf(hi[c], b[3 + c]);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    for (int c = 0; c < 3; ++c) {
+      lo[c] = fminf(lo[c], __shfl_xor_sync(0xffffffffu, lo[c], off));
+      hi[c] = fmaxf(hi[c], __shfl_xor_sync(0xffffffffu, hi[c], off));
+    }
+  const int node = slot / NODE_W, k = slot % NODE_W;
+  const size_t at = static_cast<size_t>(node) * NODE_COLS + k;
+  if (lane < 8) {
+    // words min x, y, z, max x, y, z, the code and the row count
+    const float box = lane == 0   ? lo[0]
+                      : lane == 1 ? lo[1]
+                      : lane == 2 ? lo[2]
+                      : lane == 3 ? hi[0]
+                      : lane == 4 ? hi[1]
+                                  : hi[2];
+    nodes[at + lane * NODE_W] = lane < 6 && count > 0
+                                    ? box
+                                    : __ldg(tree + at + lane * NODE_W);
+  }
+}
+
+// The chunk sweep's boxes: one warp per 128-row chunk (the rows below
+// max(n_tri, 1): a scene without faces has one zero row, as built)
+__global__ void __launch_bounds__(THREADS)
+mega_bwd_refit_chunks_kernel(const float* __restrict__ tri_w, int n_tri,
+                             int n_chunks, float* __restrict__ chunk) {
+  const int ci = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (ci >= n_chunks) return;  // the whole warp
+  const int hi_row = min(ci * CHUNK + CHUNK, max(n_tri, 1));
+  const float inf = __int_as_float(0x7f800000);
+  float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf};
+  for (int f = ci * CHUNK + lane; f < hi_row; f += 32) {
+    const float* v = tri_w + static_cast<size_t>(f) * 9;
+    for (int j = 0; j < 9; ++j) {
+      const float x = __ldg(v + j);
+      lo[j % 3] = fminf(lo[j % 3], x);
+      hi[j % 3] = fmaxf(hi[j % 3], x);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    for (int c = 0; c < 3; ++c) {
+      lo[c] = fminf(lo[c], __shfl_xor_sync(0xffffffffu, lo[c], off));
+      hi[c] = fmaxf(hi[c], __shfl_xor_sync(0xffffffffu, hi[c], off));
+    }
+  if (lane == 0) {
+    float* b = chunk + static_cast<size_t>(ci) * 8;
+    for (int c = 0; c < 3; ++c) {
+      b[c] = lo[c];
+      b[3 + c] = hi[c];
+    }
+    b[6] = 0.0f;
+    b[7] = 0.0f;
+  }
+}
+
 }  // namespace mb
 
 // ---- C interface (loaded with ctypes) ----
 
 // gbar null: the primal instantiation (the cotangent pointers unused), else
-// the fwd+bwd one; nodes: the tree, or null (the chunk sweep); ext: K2b's
-// tables, or null for K2a; tex: K2c's, or null without textures.  consts =
-// eps, ambient 3.  flags: the scene's switches, the fwd+bwd's targets
-// (SC_*) and the rows' sums kept per block (FLAG_TRI_SHARED).
-// The cotangent buffers must be zeroed by the caller; a target not asked
-// for stays so.
+// the backward: K2a's reverse kernel, or K2b's and K2c's fwd+bwd; nodes: the
+// tree, or null (the chunk sweep); ext: K2b's tables, or null for K2a; tex:
+// K2c's, or null without textures.  consts = eps, ambient 3.  flags: the
+// scene's switches, the backward's targets (SC_*) and the rows' sums kept
+// per block (FLAG_TRI_SHARED).  rec: K2a's records, which its primal writes
+// where not null and its reverse kernel reads (it must not be null there);
+// null for K2b and K2c.  The cotangent buffers must be zeroed by the
+// caller; a target not asked for stays so.
 extern "C" int mega_bwd_launch(
     const float* o, const float* d, const float* gbar, float* out, int n,
     const float* tri, int n_tri, const float* chunk, int n_chunks,
@@ -1732,13 +1946,15 @@ extern "C" int mega_bwd_launch(
     const float* bg, const float* consts, const float* ud, int depth,
     int max_depth, int flags, unsigned seed, unsigned step, float* d_tri,
     float* d_mat, float* d_pl, float* d_dl, float* d_bg, float* d_o,
-    float* d_d, const mb::BwdExt* ext, const mb::BwdTex* tex,
+    float* d_d, float* rec, const mb::BwdExt* ext, const mb::BwdTex* tex,
     void* stream) {
   const int n_ext = ext ? ext->n_spot + ext->n_area + ext->n_ml : 0;
+  const bool k2a = ext == nullptr && tex == nullptr;
   if (n <= 0 || depth < 1 ||
       depth > (ext ? mb::MAX_SEG : mb::MAX_SEG_WHITTED) ||
       n_point + n_dir + n_ext > mb::VIS_BITS ||
-      (ext && ext->n_ml > mb::MAX_ML))
+      (ext && ext->n_ml > mb::MAX_ML) || (rec != nullptr && !k2a) ||
+      (gbar != nullptr && k2a && rec == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float c7[7] = {consts[0], consts[1], consts[2], consts[3],
                        0.0f,      0.0f,      0.0f};
@@ -1756,6 +1972,7 @@ extern "C" int mega_bwd_launch(
   Q.d_bg = d_bg;
   Q.d_o = d_o;
   Q.d_d = d_d;
+  Q.rec = rec;
   Q.n = n;
   Q.depth = depth;
   Q.seed = seed;
@@ -1765,14 +1982,14 @@ extern "C" int mega_bwd_launch(
   const int blocks = (n + mw::THREADS - 1) / mw::THREADS;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   using Kernel = void (*)(mb::BwdParams, const float*, const float*, float*);
-  // [fwd+bwd][K2b][K2c][tree]
+  // [backward][K2b][K2c][tree]
   static const Kernel kernels[2][2][2][2] = {
       {{{mb::mega_bwd_primal_kernel, mb::mega_bwd_primal_tree_kernel},
         {mb::mega_bwd_primal_tex_kernel, mb::mega_bwd_primal_tex_tree_kernel}},
        {{mb::mega_bwd_primal_pt_kernel, mb::mega_bwd_primal_pt_tree_kernel},
         {mb::mega_bwd_primal_pt_tex_kernel,
          mb::mega_bwd_primal_pt_tex_tree_kernel}}},
-      {{{mb::mega_bwd_kernel, mb::mega_bwd_tree_kernel},
+      {{{mb::mega_bwd_rev_kernel, mb::mega_bwd_rev_kernel},
         {mb::mega_bwd_tex_kernel, mb::mega_bwd_tex_tree_kernel}},
        {{mb::mega_bwd_pt_kernel, mb::mega_bwd_pt_tree_kernel},
         {mb::mega_bwd_pt_tex_kernel, mb::mega_bwd_pt_tex_tree_kernel}}}};
@@ -1795,6 +2012,40 @@ extern "C" int mega_bwd_launch(
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kern<<<blocks, mw::THREADS, smem, st>>>(Q, o, d, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The refit of the boxes (ops/megabwd.py::refit): with nodes, the tree's
+// (runs and spans as ops/megabwd.py::refit_spans gives them, and the built
+// tree; run_box scratch of 6 floats per run); with chunk, the chunk sweep's.
+extern "C" int mega_bwd_refit_launch(const float* tri_w, int n_tri,
+                                     int leaf_rows, const int* runs,
+                                     int n_runs, const int* spans,
+                                     const float* tree, int n_nodes,
+                                     float* run_box, float* nodes,
+                                     float* chunk, int n_chunks,
+                                     void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int T = mw::THREADS;
+  if (nodes != nullptr) {
+    if (n_runs <= 0 || n_nodes <= 0 || leaf_rows < 1 || leaf_rows > 31 ||
+        runs == nullptr || spans == nullptr || tree == nullptr ||
+        run_box == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    mb::mega_bwd_refit_runs_kernel<<<(n_runs + T - 1) / T, T, 0, st>>>(
+        tri_w, n_tri, leaf_rows, runs, n_runs, run_box);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long threads = 32LL * n_nodes * mw::NODE_W;
+    mb::mega_bwd_refit_nodes_kernel<<<static_cast<int>((threads + T - 1) / T),
+                                      T, 0, st>>>(run_box, spans, tree,
+                                                  n_nodes * mw::NODE_W, nodes);
+  }
+  if (chunk != nullptr) {
+    if (n_chunks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    mb::mega_bwd_refit_chunks_kernel<<<(32 * n_chunks + T - 1) / T, T, 0,
+                                       st>>>(tri_w, n_tri, n_chunks, chunk);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

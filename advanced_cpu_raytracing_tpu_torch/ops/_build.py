@@ -91,14 +91,19 @@ _SIGNATURES = {
         # rays, gbar (null: the primal), out, n; tri, chunks, the tree (or
         # null); spheres, materials, lights, bg, consts; draws, depth,
         # max_depth, flags, seed, step; the cotangents (tri, mat, pl, dl,
-        # bg, o, d); K2b's tables (null: K2a); K2c's (null: no texture);
-        # stream
+        # bg, o, d); K2a's records (or null); K2b's tables (null: K2a);
+        # K2c's (null: no texture); stream
         "mega_bwd_launch": (
             _I, [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P,
                  _I, _P, _I, _P, ctypes.POINTER(ctypes.c_float), _P, _I, _I,
                  _I, ctypes.c_uint32, ctypes.c_uint32, _P, _P, _P, _P, _P, _P,
-                 _P, ctypes.POINTER(BwdExtParams),
+                 _P, _P, ctypes.POINTER(BwdExtParams),
                  ctypes.POINTER(BwdTexParams), _P]),
+        # tri_w, n_tri, leaf rows, runs, n_runs, spans, the built tree,
+        # n_nodes, the runs' boxes (scratch), nodes out, chunk out, n_chunks;
+        # stream
+        "mega_bwd_refit_launch": (
+            _I, [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P]),
         "mega_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
     "tri_intersect": {

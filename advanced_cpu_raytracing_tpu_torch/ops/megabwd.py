@@ -34,13 +34,18 @@ of the work items and the texel pool of the image textures.
   for a Whitted scene with point and directional lights, K2b's for a
   path-traced scene or one with spot, area or mesh lights, and for a scene
   with diffuse image textures K2c's twin of either; each has a primal (the
-  forward only) and a fwd+bwd, whose hand-derived reverse sweep scatters
+  forward only) and a backward, whose hand-derived reverse sweep scatters
   the cotangents with atomics in place of the TPU's one-hot MXU epilogue
   (the texels' by their index in the pool, with no cap on the texels or
   the textures): each add summed first over the warp's lanes that share
-  its address, and only the targets asked for (``scatter_flags``);
+  its address, and only the targets asked for (``scatter_flags``).  K2a's
+  primal writes each ray's segment records to a buffer
+  (``records_shape``), and its backward is a reverse kernel that reads
+  them and traces nothing; K2b's and K2c's backward (fwd+bwd) traces the
+  chain again.  Past one chunk the kernels walk the tree, its boxes refit
+  from each call's vertices (``refit``, a kernel of its own);
 * ``make_diff_render`` wraps both in a ``torch.autograd.Function``, whose
-  backward asks the fwd+bwd for the tables that need a gradient alone.
+  backward asks for the tables that need a gradient alone.
 
 The draws (``BwdDraws``) are the four planes of the JAX ``wavefront_rng``:
 the area lights' offsets, the mesh lights' face picks and barycentric
@@ -57,6 +62,7 @@ instead, as the JAX package does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -89,8 +95,9 @@ class BwdConsts:
     initial pack (``mc``: the spheres, the lights' positions and
     directions, the spot lights' cones, the area lights' squares, the mesh
     lights' faces, the materials' type, ior, absorption index and Beer
-    coefficient; the chunk boxes ``chunk_tab`` and ``mc.tree``, built once
-    — vertices moved by a parameter keep their old boxes, as in JAX), the
+    coefficient; the chunk boxes ``chunk_tab`` and the tree ``mc.tree`` of
+    the initial vertices, whose topology and row order stay while each
+    call refits their boxes from its own vertices, ``refit``), the
     tri-table columns after the vertices (``tri_rest``: normal, material,
     mesh light, emissive), the map from the pack's ``verts`` to the work
     items' world vertices, ``rot @ verts[tv] + trn``, each mesh-light
@@ -119,6 +126,10 @@ class BwdConsts:
     pt_nee: bool = False
     pt_rr: bool = False  # Russian roulette (path tracing only)
     pt_spec: bool = False  # path tracing with a mirror, conductor or dielectric
+    # what the refit kernel reads of the tree (refit_spans): its leaf runs
+    # in depth-first order, and each child slot's span of that order
+    tree_runs: torch.Tensor | None = None  # (n_runs,) int32
+    tree_spans: torch.Tensor | None = None  # (N * TREE_WIDTH, 2) int32
 
     @property
     def n_tri(self) -> int:
@@ -153,13 +164,31 @@ class BwdConsts:
 
     @property
     def variant(self) -> str:
-        """The fwd+bwd instantiation's name (its ``LAUNCHES`` key):
-        ``mega_bwd`` (K2a) or ``mega_bwd_pt`` (K2b), with ``_tex`` their
-        K2c twin, over the 128-face chunks, or with ``_tree`` over the tree;
-        the primal's has ``mega_bwd_primal`` in place of ``mega_bwd``."""
+        """The scene's instantiations: ``mega_bwd`` (K2a) or ``mega_bwd_pt``
+        (K2b), with ``_tex`` their K2c twin, over the 128-face chunks, or
+        with ``_tree`` over the tree."""
         return ("mega_bwd" + ("_pt" if self.k2b else "")
                 + ("_tex" if self.tex else "")
                 + ("_tree" if self.mc.tree is not None else ""))
+
+    @property
+    def reverse(self) -> bool:
+        """K2a: the backward is the reverse kernel on the primal's
+        records."""
+        return not (self.k2b or self.tex)
+
+    @property
+    def primal_kernel(self) -> str:
+        """The primal's ``LAUNCHES`` key: ``variant`` with
+        ``mega_bwd_primal`` in place of ``mega_bwd``."""
+        return self.variant.replace("mega_bwd", "mega_bwd_primal")
+
+    @property
+    def backward_kernel(self) -> str:
+        """The backward's ``LAUNCHES`` key: K2a's reverse kernel
+        ``mega_bwd_rev`` (one for the chunks and the tree: it traces
+        nothing), else the fwd+bwd instantiation, ``variant``."""
+        return "mega_bwd_rev" if self.reverse else self.variant
 
 
 class BwdTables(NamedTuple):
@@ -313,11 +342,10 @@ def build_bwd_consts(pack, opts, device=None) -> BwdConsts:
         raise NotImplementedError(
             "scene outside the differentiable kernels K2a, K2b and K2c: "
             + ", ".join(missing))
-    # K2 keeps the tree past FLAT_MAX_FACES only (build_mega's default), over
-    # leaves of BWD_LEAF_ROWS: K2a moves vertices under boxes built once,
-    # and tighter boxes would drop a moved face sooner (ROADMAP Queue 3)
+    # the forward route's tree past one chunk, over LEAF_ROWS-row leaves:
+    # each call refits its boxes from the call's vertices (refit)
     mc, tri_tab, chunk_tab = mk.build_mega(pack, opts, device=dev,
-                                           leaf_rows=mk.BWD_LEAF_ROWS)
+                                           flat_max=mk.FWD_FLAT_MAX_FACES)
     w = st.n_work_items
     ent = pack.ent_fwd.to(dev)[pack.wi_ent[:w].to(dev).long()]  # (W,3,4)
     # each mesh-light face's row and weight, in build_mega's ml_faces order
@@ -332,6 +360,10 @@ def build_bwd_consts(pack, opts, device=None) -> BwdConsts:
                             mk._np(mc.ml_faces)[:, 9]], 1)
     pt = bool(opts.path_tracing)
     any_spec = st.has_mirror or st.has_conductor or st.has_dielectric
+    runs = spans = None
+    if mc.tree is not None:
+        runs, spans = (torch.as_tensor(a, device=dev) for a in refit_spans(
+            mk._np(mc.tree), mc.tree_leaf_rows))
     return BwdConsts(
         mc=mc, chunk_tab=chunk_tab, tri_rest=tri_tab[:, 9:].contiguous(),
         rot=ent[:, :, :3].contiguous(), trn=ent[:, :, 3].contiguous(),
@@ -345,7 +377,32 @@ def build_bwd_consts(pack, opts, device=None) -> BwdConsts:
         pt_importance=pt and bool(opts.importance_sampling),
         pt_nee=pt and bool(opts.next_event_estimation),
         pt_rr=pt and bool(opts.russian_roulette),
-        pt_spec=pt and bool(any_spec))
+        pt_spec=pt and bool(any_spec), tree_runs=runs, tree_spans=spans)
+
+
+def refit_spans(tree: np.ndarray, leaf_rows: int):
+    """(runs (n_runs,) int32, spans (N * TREE_WIDTH, 2) int32): the leaf
+    runs of the tree ``tree`` (N, NODE_COLS) in depth-first order (run j:
+    rows j * ``leaf_rows`` onward), and each child slot's (first, count) of
+    that order (count 0: no child), what the refit kernel reads.  In a
+    depth-first order each subtree's leaves are consecutive."""
+    wd = mk.TREE_WIDTH
+    ints = tree.view(np.int32)
+    code, cnt = ints[:, 6 * wd:7 * wd], ints[:, 7 * wd:8 * wd]
+    runs = []
+    spans = np.zeros((tree.shape[0] * wd, 2), np.int32)
+
+    def visit(node):
+        for k in range(wd):
+            first = len(runs)
+            if cnt[node, k] > 0:  # a leaf: ~(first row << 5 | rows)
+                runs.append((~int(code[node, k]) >> 5) // leaf_rows)
+            elif cnt[node, k] == 0:  # an inner child: its node's row
+                visit(int(code[node, k]))
+            spans[node * wd + k] = first, len(runs) - first
+
+    visit(0)
+    return np.asarray(runs, np.int32), spans
 
 
 def world_vertices(bc: BwdConsts, verts: torch.Tensor) -> torch.Tensor:
@@ -358,6 +415,70 @@ def world_vertices(bc: BwdConsts, verts: torch.Tensor) -> torch.Tensor:
     tri_w = (bc.rot[:, None, :, :] * vk[:, :, None, :]).sum(-1) \
         + bc.trn[:, None, :]
     return tri_w.reshape(bc.n_tri, 9)
+
+
+def refit_ref(bc: BwdConsts, tri_w: torch.Tensor):
+    """The plain version of ``refit``: (nodes, chunk_tab) with the boxes of
+    the vertices ``tri_w`` (max(W,1), 9).  With a tree, ``mc.tree`` with
+    each child's box the min and max of the vertices of the rows under it,
+    bottom-up over the child codes (a leaf's its rows', an inner child's
+    the union of its node's child boxes), its codes, counts and topology
+    as built, and ``chunk_tab`` as built (the tree kernels read no chunk
+    box); without, None and ``chunk_tab`` with each 128-row chunk's box.
+    Min and max do not round, so on ``build_mega``'s own vertices the boxes
+    are the built ones bit for bit.  Raises for a scene with motion, whose
+    boxes sweep the motion (K2 has none: ``bwd_missing``)."""
+    mc = bc.mc
+    if mc.has_motion:
+        raise ValueError("refit: the scene has motion, which K2 does not "
+                         "take (bwd_missing)")
+    v = tri_w.detach()[:max(mc.n_tri, 1)].reshape(-1, 3, 3)
+    fmin, fmax = v.amin(1), v.amax(1)
+    inf = float("inf")
+    if mc.tree is None:
+        pad = -fmin.shape[0] % mk.CHUNK
+        lo = torch.cat([fmin, fmin.new_full((pad, 3), inf)])
+        hi = torch.cat([fmax, fmax.new_full((pad, 3), -inf)])
+        chunk = bc.chunk_tab.clone()
+        chunk[:, 0:3] = lo.reshape(-1, mk.CHUNK, 3).amin(1)
+        chunk[:, 3:6] = hi.reshape(-1, mk.CHUNK, 3).amax(1)
+        return None, chunk
+    wd = mk.TREE_WIDTH
+    nodes = mc.tree.clone()
+    n = nodes.shape[0]
+    ints = nodes.view(torch.int32)
+    code, cnt = ints[:, 6 * wd:7 * wd].long(), ints[:, 7 * wd:8 * wd].long()
+    lo = torch.full((n, wd, 3), inf, device=nodes.device)
+    hi = torch.full((n, wd, 3), -inf, device=nodes.device)
+    # each leaf's box: the min and max over its rows
+    leaf = cnt > 0
+    packed = ~code[leaf]
+    first, rows = packed >> 5, packed & 31
+    at = first[:, None] + torch.arange(31, device=nodes.device)
+    inside = torch.arange(31, device=nodes.device) < rows[:, None]
+    at = torch.where(inside, at, 0)
+    lo[leaf] = torch.where(inside[..., None], fmin[at], inf).amin(1)
+    hi[leaf] = torch.where(inside[..., None], fmax[at], -inf).amax(1)
+    # each inner child's box: the union of its node's child boxes, deepest
+    # nodes first (a node's children lie below it in the depth-first rows)
+    level = torch.zeros(n, dtype=torch.long)
+    inner = (cnt == 0).cpu()
+    code_c = code.cpu()
+    for node in range(n):
+        kids = code_c[node][inner[node]]
+        level[kids] = level[node] + 1
+    level = level.to(nodes.device)
+    for lv in range(int(level.max()) - 1, -1, -1):
+        slot = (cnt == 0) & (level == lv)[:, None]
+        kid = code[slot]
+        lo[slot] = lo[kid].amin(1)
+        hi[slot] = hi[kid].amax(1)
+    # the empty slots keep their built boxes
+    keep = (cnt < 0)[:, None, :]
+    box = nodes[:, :6 * wd].view(n, 6, wd)  # min xyz, max xyz; by child
+    box[:, 0:3] = torch.where(keep, box[:, 0:3], lo.transpose(1, 2))
+    box[:, 3:6] = torch.where(keep, box[:, 3:6], hi.transpose(1, 2))
+    return nodes, bc.chunk_tab
 
 
 def ud_table(seed: int, step: int, n_rays: int, depth: int,
@@ -660,9 +781,10 @@ def diff_trace_ref(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
     Shaped like the JAX kernel's unrolled chain (megabwd.py:1189-1483):
     for each of the ``bc_depth`` segments, the closest hit of the rays still
     in the chain (the port's ``_Geometry`` over ``tabs.tri_w`` and the
-    constant boxes, under ``no_grad``; a ray that took its GI child keeps
-    the GI ray's hit), the stop-grad topology — in path tracing the GI ray
-    traced before the light terms, whose mesh light it hit NEE skips — then
+    boxes refit from it, ``refit_ref``, under ``no_grad``; a ray that took
+    its GI child keeps the GI ray's hit), the stop-grad topology — in path
+    tracing the GI ray traced before the light terms, whose mesh light it
+    hit NEE skips — then
     one differentiable step over every ray (masked, with the JAX kernel's
     guards, so that a masked lane passes no NaN back).  ``draws`` (see
     ``as_draws``) are needed where the scene draws (``draw_planes``).
@@ -681,7 +803,11 @@ def diff_trace_ref(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
                          f"planes of {r} rays")
     with torch.no_grad():
         tri_tab = torch.cat([tabs.tri_w.detach(), bc.tri_rest], 1)
-        geo = mk._Geometry(mc, tri_tab, bc.chunk_tab, stats)
+        # the boxes of the call's vertices, as the kernels read them
+        nodes, chunk_tab = refit_ref(bc, tabs.tri_w)
+        geo = mk._Geometry(mc if nodes is None
+                           else dataclasses.replace(mc, tree=nodes),
+                           tri_tab, chunk_tab, stats)
         mfix = mc.materials  # type 0, ior 14, k 15, absorption 16:19
         # sphere rows, and an identity row for the lanes that hit no sphere
         n_sph = mc.spheres.shape[0]
@@ -1072,11 +1198,18 @@ def _visible(geo, lidx, so, wi, limit, r):
 
 LIBRARY = "mega_bwd"
 # kernel launches per instantiation: K2a's and K2b's primal (forward only)
-# and fwd+bwd and their K2c twins (``_tex``), each over the chunks or
-# (``_tree``) the tree
+# and their K2c twins (``_tex``), K2b's and K2c's fwd+bwd, each over the
+# chunks or (``_tree``) the tree; K2a's reverse kernel (``mega_bwd_rev``);
+# and the refit of the boxes (``mega_bwd_refit``)
 LAUNCHES = {f"mega_bwd{pr}{pt}{tex}{tree}": 0 for pr in ("_primal", "")
             for pt in ("", "_pt") for tex in ("", "_tex")
-            for tree in ("", "_tree")}
+            for tree in ("", "_tree") if pr or pt or tex}
+LAUNCHES.update(mega_bwd_rev=0, mega_bwd_refit=0)
+# one segment record of K2a's primal, in 32-bit words (csrc/mega_bwd.cu
+# Seg, REC_WORDS): origin 0:3, direction 3:6, weight 6:9, Beer constant
+# 9:12, the dielectric's ratio 12; winner row 13, sphere 14, material 15,
+# topology bits 16 and visibility bits 17 as the bits of int32 words
+SEG_WORDS = 18
 FLAG_EMISSIVE = 8
 FLAG_PT, FLAG_IMPORTANCE, FLAG_NEE, FLAG_RR, FLAG_PT_SPEC = 32, 64, 128, 256, 512
 # the fwd+bwd's cotangent targets, by BwdTables field, and their flags in
@@ -1154,6 +1287,259 @@ def mega_bwd_trace_ref(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
                                     for g, x in zip(grads, leaves)))
 
 
+def records_shape(bc: BwdConsts, n_rays: int) -> tuple:
+    """The shape of K2a's records for ``n_rays`` rays, f32: per segment
+    (``bc_depth``) ``SEG_WORDS`` rows of ``n_rays`` words, field-major (the
+    warp's threads store and load neighbouring words), then one row of
+    each ray's segment count (int32 bits).  At 640,000 rays and depth 6,
+    127 rows: 325 MB."""
+    return (bc_depth(bc) * SEG_WORDS + 1, n_rays)
+
+
+def refit(bc: BwdConsts, tri_w: torch.Tensor):
+    """The boxes of the call's vertices ``tri_w`` (max(W,1), 9): (nodes,
+    chunk_tab) as ``refit_ref`` returns them.  A CPU tensor runs
+    ``refit_ref``; a CUDA one launches ``csrc/mega_bwd.cu``'s refit
+    kernels (``LAUNCHES["mega_bwd_refit"]``: each leaf run's box, then each
+    child slot's over its span, a warp to a slot; or each chunk's, a warp
+    to a chunk) or raises.  No TPU kernel had one: the JAX
+    ``make_diff_render`` keeps the initial pack's boxes."""
+    mc = bc.mc
+    if tri_w.device.type == "cpu":
+        return refit_ref(bc, tri_w)
+    if mc.has_motion:
+        raise ValueError("refit: the scene has motion, which K2 does not "
+                         "take (bwd_missing)")
+    from advanced_cpu_raytracing_tpu_torch.ops import _build
+
+    mk._check("tri_w", tri_w, (max(mc.n_tri, 1), 9))
+    f32 = torch.float32
+    dev = tri_w.device
+    nodes = chunk = run_box = None
+    if mc.tree is not None:
+        for name, t in (("tree", mc.tree), ("tree_runs", bc.tree_runs),
+                        ("tree_spans", bc.tree_spans)):
+            if t.device != dev:
+                raise ValueError(f"refit: {name} on {t.device}, tri_w on {dev}")
+        mk._check("tree_runs", bc.tree_runs, dtype=torch.int32)
+        mk._check("tree_spans", bc.tree_spans,
+                  (mc.tree.shape[0] * mk.TREE_WIDTH, 2), dtype=torch.int32)
+        nodes = torch.empty_like(mc.tree)
+        run_box = torch.empty((bc.tree_runs.shape[0], 6), dtype=f32,
+                              device=dev)
+    else:
+        chunk = torch.empty_like(bc.chunk_tab)
+
+    def ptr(x):
+        return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+    lib = _build.load(LIBRARY)
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.mega_bwd_refit_launch(
+            mk._ptr(tri_w), mc.n_tri, mc.tree_leaf_rows, ptr(bc.tree_runs),
+            0 if run_box is None else run_box.shape[0], ptr(bc.tree_spans),
+            ptr(mc.tree), 0 if nodes is None else nodes.shape[0],
+            ptr(run_box), ptr(nodes), ptr(chunk),
+            0 if chunk is None else mc.n_chunks, stream)
+    if rc != 0:
+        err = lib.mega_bwd_error_string(rc).decode()
+        raise RuntimeError(f"mega_bwd_refit launch failed: CUDA error {rc} "
+                           f"({err})")
+    LAUNCHES["mega_bwd_refit"] += 1
+    return nodes, bc.chunk_tab if chunk is None else chunk
+
+
+def boxes_read(bc: BwdConsts) -> bool:
+    """The kernels read boxes: a tree, or more than one chunk (a scene of
+    one chunk sweeps its rows in one brute loop)."""
+    return bc.mc.tree is not None or bc.mc.n_chunks > 1
+
+
+class _Launch:
+    """One call's launches of ``csrc/mega_bwd.cu`` on the card: the rays,
+    the parameter tables in the K1 layouts (vertices beside the constant
+    columns, parameters beside the materials' and lights' constants), the
+    draws and the boxes of the call's vertices (``boxes``, a ``refit``
+    result; refit here where the kernels read boxes, when None), all
+    checked once."""
+
+    def __init__(self, bc, tabs, o, d, dr, seed, step, boxes=None):
+        mc = bc.mc
+        r = o.shape[0]
+        n_mat, n_pl, n_dl = (bc.n_mat, mc.point_lights.shape[0],
+                             mc.dir_lights.shape[0])
+        n_sl, n_al, n_ml = bc.n_spot, bc.n_area, bc.n_ml
+        mk._check("o", o, (r, 3))
+        mk._check("d", d, (r, 3))
+        mk._check("mat", tabs.mat, (n_mat, MAT_PARAM_COLS))
+        for name, n in (("pl", n_pl), ("dl", n_dl), ("sl", n_sl),
+                        ("al", n_al), ("ml", n_ml)):
+            mk._check(name, getattr(tabs, name), (n, 3))
+        mk._check("bg", tabs.bg, (3,))
+        mk._check("tri_w", tabs.tri_w, (max(bc.n_tri, 1), 9))
+        self.n_texels = sum(h * w for _, h, w in mc.tex_images)
+        if bc.tex:
+            mk._check("texels", tabs.texels, (self.n_texels, 3))
+        if dr is not None:
+            for name, n in draw_planes(bc).items():
+                if n:
+                    mk._check(f"draws.{name}", getattr(dr, name), (n, r))
+        if mc.tree is not None and mc.tree_stack > mk.TREE_STACK:
+            raise ValueError(f"tree stack {mc.tree_stack} > {mk.TREE_STACK}")
+        depth = bc_depth(bc)
+        if depth > mk.MAX_DEPTH + 1 + mk.RR_DEPTH_FLOOR:
+            raise ValueError(f"depth {depth} segments > "
+                             f"{mk.MAX_DEPTH + 1 + mk.RR_DEPTH_FLOOR}")
+        if boxes is None:
+            boxes = (refit(bc, tabs.tri_w) if boxes_read(bc)
+                     else (mc.tree, bc.chunk_tab))
+        nodes, chunk = boxes
+        if (nodes is None) != (mc.tree is None):
+            raise ValueError("boxes: a tree's nodes with a tree, None without")
+        mk._check("chunk_tab", chunk, (mc.n_chunks, 8))
+        if nodes is not None:
+            mk._check("nodes", nodes, tuple(mc.tree.shape))
+        m = mc.materials
+        tri = torch.cat([tabs.tri_w, bc.tri_rest], 1).contiguous()
+        mat = torch.cat([m[:, 0:1], tabs.mat[:, 0:13], m[:, 14:19],
+                         tabs.mat[:, 13:16]], 1).contiguous()
+        pl = torch.cat([mc.point_lights[:, 0:3], tabs.pl], 1).contiguous()
+        dl = torch.cat([mc.dir_lights[:, 0:3], tabs.dl], 1).contiguous()
+        tables = [tri, chunk, mc.spheres, mat, pl, dl, tabs.bg]
+        ext = None
+        if bc.k2b:
+            sp, ar = mc.spot_lights, mc.area_lights
+            ext = [torch.cat([sp[:, 0:6], tabs.sl, sp[:, 9:12]], 1).contiguous(),
+                   torch.cat([ar[:, 0:6], tabs.al, ar[:, 9:17]], 1).contiguous(),
+                   torch.cat([tabs.ml, mc.ml_lights[:, 3:5]], 1).contiguous(),
+                   bc.ml_rows]
+            tables += ext
+        if nodes is not None:
+            tables.append(nodes)
+        if bc.tex:
+            tables += [mc.tex_face, tabs.texels]
+            mk._check("tex_int", mc.tex_int, dtype=torch.int32)
+        for i, t in enumerate(tables):
+            mk._check(f"table {i}", t)
+        devs = {t.device for t in (o, d, *tables)}
+        devs |= {t.device for t in (*(dr or ()),) if t is not None}
+        if len(devs) != 1:
+            raise ValueError(f"mega_bwd_trace: tensors on several devices {devs}")
+        if any(t.data_ptr() % 16 for t in (tri, chunk, *(
+                [] if nodes is None else [nodes]))):
+            raise ValueError("the tri table, chunk_tab and the tree must be "
+                             "16-byte aligned")
+        self.bc, self.tabs, self.o, self.d, self.r = bc, tabs, o, d, r
+        self.dr, self.seed, self.step, self.depth = dr, seed, step, depth
+        self.boxes, self.tri, self.mat, self.pl, self.dl = boxes, tri, mat, pl, dl
+        self.ext = ext
+
+    def new_records(self) -> torch.Tensor:
+        """An empty records buffer for this call (``records_shape``)."""
+        return torch.empty(records_shape(self.bc, self.r), dtype=torch.float32,
+                           device=self.o.device)
+
+    def _grads(self):
+        bc, f32, dev = self.bc, torch.float32, self.o.device
+        mc = bc.mc
+        return BwdGrads(*(torch.zeros(s, dtype=f32, device=dev) for s in (
+            (bc.n_mat, MAT_PARAM_COLS), (mc.point_lights.shape[0], 3),
+            (mc.dir_lights.shape[0], 3), (3,), (max(bc.n_tri, 1), 9),
+            (bc.n_spot, 3), (bc.n_area, 3), (bc.n_ml, 3), (self.n_texels, 3),
+            (self.r, 3), (self.r, 3))))
+
+    def _run(self, name, out, gbar, grads, targets, rec):
+        """One launch through ``mega_bwd_launch``: the primal (``gbar``
+        None; ``rec`` the records to write, or None), the reverse kernel
+        (K2a; ``rec`` the primal's) or the fwd+bwd."""
+        from advanced_cpu_raytracing_tpu_torch.ops import _build
+
+        bc, mc = self.bc, self.bc.mc
+        lib = _build.load(LIBRARY)
+        consts = (ctypes.c_float * 4)(mc.eps, *mc.ambient)
+        flags = launch_flags(bc, targets if gbar is not None else False)
+
+        def ptr(x):
+            return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+        g = grads or BwdGrads(*([None] * len(BwdGrads._fields)))
+        dw = self.dr or BwdDraws(None, None, None, None)
+        ext, ext_p, tex_p = self.ext, None, None
+        if ext is not None:
+            ext_p = _build.BwdExtParams(
+                ptr(ext[0]), bc.n_spot, ptr(ext[1]), bc.n_area, ptr(ext[2]),
+                bc.n_ml, ptr(ext[3]), ptr(dw.uab), ptr(dw.uml), ptr(dw.ugi),
+                ptr(g.sl), ptr(g.al), ptr(g.ml))
+        if bc.tex:
+            tex_p = _build.BwdTexParams(ptr(mc.tex_face), ptr(mc.tex_int),
+                                        ptr(self.tabs.texels), ptr(g.texels))
+        nodes, chunk = self.boxes
+        o, r = self.o, self.r
+        with torch.cuda.device(o.device):
+            stream = ctypes.c_void_p(
+                torch.cuda.current_stream(o.device).cuda_stream)
+            rc = lib.mega_bwd_launch(
+                mk._ptr(o), mk._ptr(self.d), ptr(gbar), ptr(out), r,
+                mk._ptr(self.tri), bc.n_tri, mk._ptr(chunk), mc.n_chunks,
+                ptr(nodes), mk._ptr(mc.spheres), mc.spheres.shape[0],
+                mk._ptr(self.mat), bc.n_mat, mk._ptr(self.pl),
+                mc.point_lights.shape[0], mk._ptr(self.dl),
+                mc.dir_lights.shape[0], mk._ptr(self.tabs.bg), consts,
+                ptr(dw.ud), self.depth, bc.max_depth, flags,
+                ctypes.c_uint32(self.seed & 0xFFFFFFFF),
+                ctypes.c_uint32(self.step & 0xFFFFFFFF),
+                ptr(g.tri_w), ptr(g.mat), ptr(g.pl), ptr(g.dl), ptr(g.bg),
+                ptr(g.o), ptr(g.d), ptr(rec),
+                None if ext_p is None else ctypes.byref(ext_p),
+                None if tex_p is None else ctypes.byref(tex_p), stream)
+        if rc != 0:
+            err = lib.mega_bwd_error_string(rc).decode()
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({err})")
+        LAUNCHES[name] += 1
+
+    def primal(self, rec=None) -> torch.Tensor:
+        """The radiance (R,3); K2a writes its segment records to ``rec``
+        when given (``records_shape``)."""
+        if rec is not None:
+            if not self.bc.reverse:
+                raise ValueError("records: only K2a's primal writes them")
+            mk._check("records", rec, records_shape(self.bc, self.r))
+        out = torch.empty((self.r, 3), dtype=torch.float32,
+                          device=self.o.device)
+        if self.r:
+            self._run(self.bc.primal_kernel, out, None, None, False, rec)
+        return out
+
+    def backward(self, gbar, targets, rec=None):
+        """The cotangents (a ``BwdGrads``) of radiance cotangent ``gbar``:
+        K2a's reverse kernel on the primal's records ``rec`` (raises when
+        they are missing or mis-shaped), else the fwd+bwd, which also
+        returns the radiance: (out or None, grads)."""
+        bc = self.bc
+        mk._check("gbar", gbar, (self.r, 3))
+        if gbar.device != self.o.device:
+            raise ValueError("gbar: on another device than the rays")
+        grads = self._grads()
+        if bc.reverse:
+            if rec is None:
+                raise ValueError("K2a's reverse kernel needs the primal's "
+                                 "records")
+            mk._check("records", rec, records_shape(bc, self.r))
+            if rec.device != self.o.device:
+                raise ValueError("records: on another device than the rays")
+            if self.r:
+                self._run(bc.backward_kernel, None, gbar, grads, targets, rec)
+            return None, grads
+        if rec is not None:
+            raise ValueError("records: K2b's and K2c's fwd+bwd reads none")
+        out = torch.empty((self.r, 3), dtype=torch.float32,
+                          device=self.o.device)
+        if self.r:
+            self._run(bc.backward_kernel, out, gbar, grads, targets, None)
+        return out, grads
+
+
 def mega_bwd_trace(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
                    seed: int = 0, step: int = 0, gbar=None,
                    scatter: bool = True):
@@ -1163,8 +1549,10 @@ def mega_bwd_trace(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
 
     CPU tensors run the plain version (autograd for the cotangents); CUDA
     tensors launch K2a or K2b (``bc.k2b``), or its K2c twin (``bc.tex``),
-    or raise: the primal instantiation without ``gbar``, the fwd+bwd one
-    with it.  The draws come from ``draws`` (``as_draws``) when given, else
+    or raise, after the refit of the boxes where the kernels read them:
+    the primal without ``gbar``; with it, for K2a the primal writing its
+    records and the reverse kernel reading them, for K2b and K2c the
+    fwd+bwd.  The draws come from ``draws`` (``as_draws``) when given, else
     from Philox keyed by (``seed``, ``step``) — on the CPU through
     ``bwd_draws``.
     ``scatter`` names the parameter cotangents to compute (True all,
@@ -1172,7 +1560,6 @@ def mega_bwd_trace(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
     stay 0 and the kernel never adds to them.  The rays' cotangents are
     always computed.  ``LAUNCHES`` counts the launches."""
     r = o.shape[0]
-    depth = bc_depth(bc)
     dr = as_draws(bc, draws, r)
     targets = scatter_targets(scatter)
     if o.device.type == "cpu":
@@ -1184,138 +1571,57 @@ def mega_bwd_trace(bc: BwdConsts, tabs: BwdTables, o, d, draws=None,
         out, g = res
         return out, g._replace(**{f: torch.zeros_like(getattr(g, f))
                                   for f in SCATTER_FLAGS if f not in targets})
-    from advanced_cpu_raytracing_tpu_torch.ops import _build
-
-    mc = bc.mc
-    n_mat, n_pl, n_dl = bc.n_mat, mc.point_lights.shape[0], mc.dir_lights.shape[0]
-    n_sl, n_al, n_ml = bc.n_spot, bc.n_area, bc.n_ml
-    w_rows = max(bc.n_tri, 1)
-    mk._check("o", o, (r, 3))
-    mk._check("d", d, (r, 3))
-    mk._check("mat", tabs.mat, (n_mat, MAT_PARAM_COLS))
-    for name, n in (("pl", n_pl), ("dl", n_dl), ("sl", n_sl), ("al", n_al),
-                    ("ml", n_ml)):
-        mk._check(name, getattr(tabs, name), (n, 3))
-    mk._check("bg", tabs.bg, (3,))
-    mk._check("tri_w", tabs.tri_w, (w_rows, 9))
-    n_texels = sum(h * w for _, h, w in mc.tex_images)
-    if bc.tex:
-        mk._check("texels", tabs.texels, (n_texels, 3))
-    if dr is not None:
-        for name, n in draw_planes(bc).items():
-            if n:
-                mk._check(f"draws.{name}", getattr(dr, name), (n, r))
-    if gbar is not None:
-        mk._check("gbar", gbar, (r, 3))
-    if mc.tree is not None and mc.tree_stack > mk.TREE_STACK:
-        raise ValueError(f"tree stack {mc.tree_stack} > {mk.TREE_STACK}")
-    if depth > mk.MAX_DEPTH + 1 + mk.RR_DEPTH_FLOOR:
-        raise ValueError(f"depth {depth} segments > "
-                         f"{mk.MAX_DEPTH + 1 + mk.RR_DEPTH_FLOOR}")
-    # the call's tables in the K1 layouts: vertices beside the constant
-    # columns, parameters beside the materials' and lights' constants
-    m = mc.materials
-    tri = torch.cat([tabs.tri_w, bc.tri_rest], 1).contiguous()
-    mat = torch.cat([m[:, 0:1], tabs.mat[:, 0:13], m[:, 14:19],
-                     tabs.mat[:, 13:16]], 1).contiguous()
-    pl = torch.cat([mc.point_lights[:, 0:3], tabs.pl], 1).contiguous()
-    dl = torch.cat([mc.dir_lights[:, 0:3], tabs.dl], 1).contiguous()
-    tables = [tri, bc.chunk_tab, mc.spheres, mat, pl, dl, tabs.bg]
-    ext = None
-    if bc.k2b:
-        sp, ar = mc.spot_lights, mc.area_lights
-        ext = [torch.cat([sp[:, 0:6], tabs.sl, sp[:, 9:12]], 1).contiguous(),
-               torch.cat([ar[:, 0:6], tabs.al, ar[:, 9:17]], 1).contiguous(),
-               torch.cat([tabs.ml, mc.ml_lights[:, 3:5]], 1).contiguous(),
-               bc.ml_rows]
-        tables += ext
-    if mc.tree is not None:
-        tables.append(mc.tree)
-    if bc.tex:
-        tables += [mc.tex_face, tabs.texels]
-        mk._check("tex_int", mc.tex_int, dtype=torch.int32)
-    for i, t in enumerate(tables):
-        mk._check(f"table {i}", t)
-    devs = {t.device for t in (o, d, *tables)}
-    devs |= {t.device for t in (gbar, *(dr or ())) if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"mega_bwd_trace: tensors on several devices {devs}")
-    if any(t.data_ptr() % 16 for t in (tri, bc.chunk_tab, *(
-            [] if mc.tree is None else [mc.tree]))):
-        raise ValueError("the tri table, chunk_tab and the tree must be "
-                         "16-byte aligned")
-    f32 = torch.float32
-    out = torch.empty((r, 3), dtype=f32, device=o.device)
-    grads = None
-    if gbar is not None:
-        grads = BwdGrads(*(torch.zeros(s, dtype=f32, device=o.device) for s in (
-            (n_mat, MAT_PARAM_COLS), (n_pl, 3), (n_dl, 3), (3,), (w_rows, 9),
-            (n_sl, 3), (n_al, 3), (n_ml, 3), (n_texels, 3), (r, 3), (r, 3))))
-    if r == 0:
-        return out if gbar is None else (out, grads)
-    lib = _build.load(LIBRARY)
-    consts = (ctypes.c_float * 4)(mc.eps, *mc.ambient)
-    flags = launch_flags(bc, targets if gbar is not None else False)
-
-    def ptr(x):
-        return ctypes.c_void_p(None if x is None else x.data_ptr())
-
-    g = grads or BwdGrads(*([None] * len(BwdGrads._fields)))
-    dw = dr or BwdDraws(None, None, None, None)
-    ext_p = None
-    if ext is not None:
-        ext_p = _build.BwdExtParams(
-            ptr(ext[0]), n_sl, ptr(ext[1]), n_al, ptr(ext[2]), n_ml,
-            ptr(ext[3]), ptr(dw.uab), ptr(dw.uml), ptr(dw.ugi), ptr(g.sl),
-            ptr(g.al), ptr(g.ml))
-    tex_p = None
-    if bc.tex:
-        tex_p = _build.BwdTexParams(ptr(mc.tex_face), ptr(mc.tex_int),
-                                    ptr(tabs.texels), ptr(g.texels))
-    with torch.cuda.device(o.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream)
-        rc = lib.mega_bwd_launch(
-            mk._ptr(o), mk._ptr(d), ptr(gbar), mk._ptr(out), r,
-            mk._ptr(tri), bc.n_tri, mk._ptr(bc.chunk_tab), mc.n_chunks,
-            ptr(mc.tree), mk._ptr(mc.spheres), mc.spheres.shape[0],
-            mk._ptr(mat), n_mat, mk._ptr(pl), n_pl, mk._ptr(dl), n_dl,
-            mk._ptr(tabs.bg), consts, ptr(dw.ud), depth, bc.max_depth, flags,
-            ctypes.c_uint32(seed & 0xFFFFFFFF),
-            ctypes.c_uint32(step & 0xFFFFFFFF),
-            ptr(g.tri_w), ptr(g.mat), ptr(g.pl), ptr(g.dl), ptr(g.bg),
-            ptr(g.o), ptr(g.d), None if ext_p is None else ctypes.byref(ext_p),
-            None if tex_p is None else ctypes.byref(tex_p), stream)
-    name = (bc.variant if gbar is not None
-            else bc.variant.replace("mega_bwd", "mega_bwd_primal"))
-    if rc != 0:
-        err = lib.mega_bwd_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({err})")
-    LAUNCHES[name] += 1
-    return out if gbar is None else (out, grads)
+    run = _Launch(bc, tabs, o, d, dr, seed, step)
+    if gbar is None:
+        return run.primal()
+    if not bc.reverse:
+        return run.backward(gbar, targets)
+    rec = run.new_records()
+    out = run.primal(rec)
+    return out, run.backward(gbar, targets, rec)[1]
 
 
 class _Render(torch.autograd.Function):
     """Forward: the primal instantiation (or the plain version on the
-    CPU); backward: the fwd+bwd one, scattering only the tables that need
-    a gradient (``None`` for the others).  The JAX ``make_diff_render``'s
-    ``custom_vjp``."""
+    CPU), K2a's writing its segment records where an input needs a
+    gradient; backward: K2a's reverse kernel on those records, or K2b's
+    and K2c's fwd+bwd, scattering only the tables that need a gradient
+    (``None`` for the others).  The boxes refit in the forward and K2a's
+    records are saved for the backward with the inputs, so autograd frees
+    them after it unless the graph is retained.  The JAX
+    ``make_diff_render``'s ``custom_vjp``."""
 
     @staticmethod
     def forward(ctx, bc, draws, seed, step, mat, pl, dl, bg, tri_w, sl, al, ml,
                 texels, o, d):
         ctx.bc, ctx.draws, ctx.key = bc, draws, (seed, step)
         tabs = BwdTables(mat, pl, dl, bg, tri_w, sl, al, ml, texels)
-        ctx.save_for_backward(*tabs, o, d)
-        return mega_bwd_trace(bc, tabs, o, d, draws, seed, step)
+        if o.device.type == "cpu":
+            ctx.save_for_backward(*tabs, o, d, None, None, None)
+            return mega_bwd_trace(bc, tabs, o, d, draws, seed, step)
+        run = _Launch(bc, tabs, o, d, as_draws(bc, draws, o.shape[0]), seed,
+                      step)
+        rec = None
+        if bc.reverse and any(ctx.needs_input_grad[4:]):
+            rec = run.new_records()
+        out = run.primal(rec)
+        ctx.save_for_backward(*tabs, o, d, rec, *run.boxes)
+        return out
 
     @staticmethod
     def backward(ctx, gbar):
-        *tabs, o, d = ctx.saved_tensors
+        *tabs, o, d, rec, nodes, chunk = ctx.saved_tensors
         needs = ctx.needs_input_grad[4:]  # the tables', then o's and d's
         targets = [f for f, need in zip(BwdTables._fields, needs) if need]
-        _, g = mega_bwd_trace(ctx.bc, BwdTables(*tabs), o, d, ctx.draws,
-                              *ctx.key, gbar=gbar.contiguous(),
-                              scatter=targets)
+        tabs = BwdTables(*tabs)
+        if o.device.type == "cpu":
+            _, g = mega_bwd_trace(ctx.bc, tabs, o, d, ctx.draws, *ctx.key,
+                                  gbar=gbar.contiguous(), scatter=targets)
+        else:
+            run = _Launch(ctx.bc, tabs, o, d,
+                          as_draws(ctx.bc, ctx.draws, o.shape[0]), *ctx.key,
+                          boxes=(nodes, chunk))
+            g = run.backward(gbar.contiguous(), targets, rec)[1]
         return (None, None, None, None,
                 *(x if need else None for x, need in zip(g, needs)))
 

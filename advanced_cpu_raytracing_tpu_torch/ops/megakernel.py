@@ -67,22 +67,19 @@ BIG = 3.0e37  # "no hit" distance
 CHUNK = 128  # faces per culling chunk (BVH depth-first order)
 # past this many work items build_mega adds the tree and the kernels walk it
 # (K1e) unless its caller names another threshold: the JAX kernel's
-# _VMEM_MAX_FACES, past which it streams geometry.  K2's build
-# (ops/megabwd.py::build_bwd_consts) keeps it.
+# _VMEM_MAX_FACES, past which it streams geometry
 FLAT_MAX_FACES = 98304
-# the forward route's threshold (render_camera, through
-# render/renderer.py::_mega_build_cached): a scene of more than one chunk
-# walks the tree, whose culls the flat sweep's table-order chunks lack; a
-# scene of one chunk keeps the flat instantiation's brute loop
+# the threshold of the forward route (render_camera, through
+# render/renderer.py::_mega_build_cached) and of K2's build
+# (ops/megabwd.py::build_bwd_consts): a scene of more than one chunk walks
+# the tree, whose culls the flat sweep's table-order chunks lack; a scene
+# of one chunk keeps the flat instantiation's brute loop.  K2 refits the
+# tree's boxes from each call's vertices (ops/megabwd.py::refit)
 FWD_FLAT_MAX_FACES = CHUNK
 # consecutive tri_tab rows per tree leaf (at most 31), build_mega's default:
 # 4 ran the forward main paths fastest on the card, of 4, 8 and 16
 # (tools/tree_design.py)
 LEAF_ROWS = 4
-# K2's leaves (ops/megabwd.py::build_bwd_consts), four times LEAF_ROWS: K2a
-# moves vertices under boxes built once, and a tighter leaf box drops a
-# moved face sooner (ROADMAP Queue 3)
-BWD_LEAF_ROWS = 16
 TREE_WIDTH = 4  # children per tree node (csrc/mega_common.cuh NODE_W)
 # the walk's stack in entries (csrc/mega_common.cuh TREE_STACK), 8 bytes
 # each in local memory; _tree_table raises for a tree that needs more (the
@@ -356,7 +353,7 @@ def _sizing(st, opts):
     return max_iters, stack_k, n_draws
 
 
-def build_mega(pack, opts, device=None, flat_max=None, leaf_rows=None):
+def build_mega(pack, opts, device=None, flat_max=None):
     """(MegaConsts, tri_tab (max(W,1), 16) f32, chunk_tab (n_chunks, 8) f32)
     on ``device`` (default ``cuda``), as the JAX ``build_mega`` builds them
     for a scene inside the envelope: tri table columns 0:16, one AABB
@@ -366,7 +363,7 @@ def build_mega(pack, opts, device=None, flat_max=None, leaf_rows=None):
     mesh-light faces, spot and area lights, the materials' roughness and
     BRDF, per-face and per-sphere motion.  Past ``flat_max`` work items
     (``FLAT_MAX_FACES`` if None) ``mc.tree`` holds the tree over leaves of
-    ``leaf_rows`` rows (``LEAF_ROWS`` if None; ``_tree_table``) that
+    ``LEAF_ROWS`` rows (``_tree_table``) that
     replaces the JAX kernel's streamed fine and coarse boxes and the chunk
     sweep."""
     dev = resolve_device(device)
@@ -499,10 +496,8 @@ def build_mega(pack, opts, device=None, flat_max=None, leaf_rows=None):
     tx = _texture_tables(pack, tab)
     if flat_max is None:
         flat_max = FLAT_MAX_FACES
-    if leaf_rows is None:
-        leaf_rows = LEAF_ROWS
     tree, tree_depth, tree_stack = (
-        _tree_table(tab, tmo if st.has_motion else None, w, leaf_rows)
+        _tree_table(tab, tmo if st.has_motion else None, w, LEAF_ROWS)
         if w > flat_max else (None, 0, 0))
 
     def tens(a):
@@ -539,7 +534,7 @@ def build_mega(pack, opts, device=None, flat_max=None, leaf_rows=None):
         tex_images=tx["images"],
         tree=None if tree is None else tens(tree), tree_depth=tree_depth,
         tree_stack=tree_stack,
-        tree_leaf_rows=0 if tree is None else leaf_rows,
+        tree_leaf_rows=0 if tree is None else LEAF_ROWS,
     )
     return mc, tens(tab), tens(ctab)
 

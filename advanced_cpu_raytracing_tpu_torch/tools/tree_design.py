@@ -44,13 +44,14 @@ the same rays.
 one jittered sample's 640,000 rays of ``scenes/feat_pt.xml`` (12 faces) and
 of that scene with the 32,768-face torus of ``whitted_conductors.xml``
 (``scene/feature_scenes.py::torus_mesh``, centred in the room): ms per
-launch of ``mega_pt`` over the chunks and ``mega_pt_tree`` (the tables
-built with ``FLAT_MAX_FACES`` at 0), and of K2b's primal and fwd+bwd over
-the chunks and over the tree (``make_diff_render``, the same threshold,
-Philox draws), each tree's share of rays equal to its chunks' bit for bit,
-and ptxas's registers of each kernel; for each of ``--leaf-rows`` (set as
-both the forward and K2's leaf size) where the checkout has the leaf sizes
-as constants, else once with its own.
+launch of ``mega_pt`` over the chunks and ``mega_pt_tree``, and of K2b's
+primal and fwd+bwd over the chunks and over the tree (``make_diff_render``,
+Philox draws; the tree's boxes refit from the call's vertices): the chunks
+with ``FLAT_MAX_FACES`` and ``FWD_FLAT_MAX_FACES`` (K2's threshold) at
+``FLAT_MAX_FACES``, the tree with both at 0.  Each tree's share of rays
+equal to its chunks' bit for bit, and ptxas's registers of each kernel;
+for each of ``--leaf-rows`` (set as ``LEAF_ROWS``, the forward's and K2's
+leaf size).
 
 One JSON line per scene and design, the card's name and power limit on
 each.
@@ -431,9 +432,9 @@ def twins(args, mk, renderer, load_scene, pack_scene, sample_rays, cuda_ms,
     scenes = {"feat_pt.xml": ROOT / "scenes" / "feat_pt.xml",
               "feat_pt.xml + torus": pt_torus_xml(
                   ROOT / "build" / "tree_design" / "scenes")}
-    sizes = args.leaf_rows if hasattr(mk, "BWD_LEAF_ROWS") else [None]
     kernels = ("mega_pt", "mega_bwd_primal_pt", "mega_bwd_pt")
-    flat_max = mk.FLAT_MAX_FACES
+    flat_max, fwd_flat_max, leaf_rows = (mk.FLAT_MAX_FACES,
+                                         mk.FWD_FLAT_MAX_FACES, mk.LEAF_ROWS)
     for label, path in scenes.items():
         cfg = load_scene(str(path))
         pack = pack_scene(cfg, device=dev)
@@ -442,19 +443,20 @@ def twins(args, mk, renderer, load_scene, pack_scene, sample_rays, cuda_ms,
         gen = torch.Generator(device=dev)
         gen.manual_seed(2)
         gbar = torch.randn(o.shape, generator=gen, device=dev)
-        for rows in sizes:
-            if rows is not None:
-                mk.LEAF_ROWS = mk.BWD_LEAF_ROWS = rows
+        for rows in args.leaf_rows:
+            mk.LEAF_ROWS = rows
             line = {"scene": label, "root": str(args.root), "leaf_rows": rows,
                     "rays": o.shape[0], "faces": pack.static.n_work_items}
             res = {}
             for geo in ("chunks", "tree"):
-                mk.FLAT_MAX_FACES = 0 if geo == "tree" else flat_max
+                mk.FLAT_MAX_FACES = mk.FWD_FLAT_MAX_FACES = (
+                    0 if geo == "tree" else flat_max)
                 try:
                     mc, tri, chunk = mk.build_mega(pack, opts, device=dev)
                     f = mb.make_diff_render(pack, opts, device=dev)
                 finally:
                     mk.FLAT_MAX_FACES = flat_max
+                    mk.FWD_FLAT_MAX_FACES = fwd_flat_max
                 bc = f.bc
                 tabs = mb.BwdTables(*(t.detach().contiguous()
                                       for t in f.tables({})))
@@ -478,6 +480,7 @@ def twins(args, mk, renderer, load_scene, pack_scene, sample_rays, cuda_ms,
             line.update(registers=registers(
                 [k + t for k in kernels for t in ("", "_tree")]), card=card)
             print(json.dumps(line), flush=True)
+    mk.LEAF_ROWS = leaf_rows
     return 0
 
 

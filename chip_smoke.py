@@ -6,14 +6,15 @@ Phases, each printing one JSON line:
   1. probe: the card's name and power limit, torch's CUDA version, nvcc;
   2. build the kernel sources, one nvcc each, started together:
      csrc/mega_whitted.cu (K1a), csrc/mega_pt.cu (K1b, and K1c and K1d,
-     each static and with motion) and csrc/mega_bwd.cu (K2a and K2b, each
-     with its primal and its fwd+bwd instantiation, and their K2c texture
-     twins), csrc/tri_intersect.cu (K3, the wavefront's dense closest
-     hit) and csrc/bigtex_gather.cu (K4, the big-texture probe's
-     gather-sum), with ptxas's register, frame and spill lines per kernel
+     each static and with motion) and csrc/mega_bwd.cu (K2a's primal and
+     its reverse kernel, K2b's primal and fwd+bwd, their K2c texture twins,
+     and the refit of K2's boxes), csrc/tri_intersect.cu (K3, the
+     wavefront's dense closest hit) and csrc/bigtex_gather.cu (K4, the
+     big-texture probe's gather-sum), with ptxas's register, frame and spill lines per kernel
      (kept beside a cached library); the flat instantiations must keep
      their registers: K1a 72, K1b 77, K1c 84 (90 with motion), K1d 123
-     (128 with motion), K2a 72 (primal) and 128 (fwd+bwd), K2b 80
+     (128 with motion), K2a 88 (primal; 96 its tree twin, both writing
+     their records) and 128 (the reverse kernel, capped), K2b 80
      (primal) and 164 (fwd+bwd; the per-target, warp-summed scatter), K3
      50 (the rejection before dividing), K4 27; K2's tree twins, which
      inline the walk of csrc/mega_common.cuh, KEPT_REGISTERS' counts; and
@@ -24,8 +25,8 @@ Phases, each printing one JSON line:
      room's floor), which the walk must keep to reach the back wall; the
      scene (32,768 faces, past one 128-face chunk) routes to K1a's tree
      instantiation (render/renderer.py::_mega_build_cached), and the flat
-     chunk sweep (the tables of FLAT_MAX_FACES, K2's threshold) is held to
-     the same plain version on the same rays;
+     chunk sweep (the tables of FLAT_MAX_FACES, build_mega's default) is
+     held to the same plain version on the same rays;
   4. the Whitted main path: render_camera on scenes/whitted_conductors.xml
      at 800x800, 16 spp, depth 6, u8 clamp on the device — with the launch
      counters set to 0 before it, K1a's tree instantiation must launch 16
@@ -129,36 +130,50 @@ Phases, each printing one JSON line:
      beside its tree twin (built with flat_max 0): time per launch of each,
      and the tree's radiance equal to the flat sweep's bit for bit on every
      ray (exact_frac_vs_flat 1.0, else the phase fails);
- 18. K2a (csrc/mega_bwd.cu, the differentiable render's Whitted chain)
-     against its plain version (ops/megabwd.py, autograd) on 16,384
-     primary rays at full depth of the gauge scene (scenes/
-     whitted_conductors.xml with a directional light,
-     scene/feature_scenes.py::gauge_scene_xml), of the slice scene with the
-     coarse torus, of the demo scene and of the demo scene with its mirror
-     sphere made emissive (in the pack), each with the branch uniforms from
-     a torch.Generator table and from Philox, over the chunks and (with
-     FLAT_MAX_FACES at 0) over the tree: the primal's and the fwd+bwd's
-     radiance held to K1a's bound, every cotangent (materials, lights,
-     background, vertices, rays) within rtol 1e-3 and atol 1e-4 max|ref|;
+ 18. K2a (csrc/mega_bwd.cu, the differentiable render's Whitted chain:
+     its primal, writing its segment records, and its reverse kernel on
+     them) against its plain version (ops/megabwd.py, autograd) on 16,384
+     primary rays (over the gauge scene's chunks the plain version on every
+     4th ray, the kernels' radiance cotangent 0 on the others) at full depth of
+     the gauge scene (scenes/whitted_conductors.xml with a directional
+     light, scene/feature_scenes.py::gauge_scene_xml), of the slice scene
+     with the coarse torus, each also with its vertices moved by a seeded offset
+     (faces out of their built leaf or chunk boxes, which rays must still
+     hit), of the demo scene and of the demo scene with its mirror sphere
+     made emissive (in the pack), each with the branch uniforms from a
+     torch.Generator table and from Philox (the moved cases Philox), over
+     the chunks (FWD_FLAT_MAX_FACES raised to FLAT_MAX_FACES) and over the
+     tree (FWD_FLAT_MAX_FACES at 0): exact launch counts (the primal twice,
+     the reverse kernel once, the refit twice where boxes are read), the
+     primal's radiance held to K1a's bound and equal with and without
+     records, every cotangent (materials, lights, background, vertices,
+     rays) within rtol 1e-3 and atol 1e-4 max|ref|;
  19. the training main path: diff/optimize.py::optimize on the gauge scene
      at 800x800 (one fixed jitter: 640,000 rays), depth 6, fields
      mat_diffuse, pl_intensity and verts (rates diff/optimize.py::
      GAUGE_RATES), 5 Adam steps
      from the true parameters perturbed by a fixed seed toward a target
      rendered by the primal at the true ones, the same draws every step —
-     with every counter at 0 before it, the primal must launch 6 times, the
-     fwd+bwd 5 times and no K1 kernel; the loss falls at every step; then
-     optimize's step in a loop of its own, one warm-up and the median of 5
-     timed steps, and rays per second;
- 20. K2a at the main path's shape (those 640,000 rays): time per launch of
-     the primal and of the fwd+bwd, and of the fwd+bwd without its scatter;
-     the plain version's time and agreement on every 16th ray; the tree
-     twins (FLAT_MAX_FACES at 0) on every ray, timed and held to the flat
-     kernels; the bound: the closest-hit and shadow tests counted over the
-     chunks (the plain version's counts on every 16th ray) and over the
-     tree (TreeWalker's on every ray, with the boxes, rows and winners
-     read), the cheaper of the two, plus the step and its adjoint per
-     traced segment and lit light evaluation;
+     with every counter at 0 before it, the tree primal must launch 6
+     times, the reverse kernel 5 times, the refit 6 times and nothing
+     else; the loss falls at every step; then optimize's step in a loop of
+     its own, one warm-up and the median of 5 timed steps, rays per second
+     and the peak device memory;
+ 20. K2a at the main path's shape (those 640,000 rays): the refit held to
+     refit_ref and to the built tree bit for bit, and its device time; the
+     device time per launch (torch.profiler) of the tree primal with and
+     without its records and of the reverse kernel with and without its
+     scatter, and CUDA events around the wrapper; the same on the flat
+     sweep (FWD_FLAT_MAX_FACES raised), the tree's radiance equal to the
+     flat sweep's bit for bit on every ray and its cotangents within the
+     gates; the plain version's time and agreement on every 16th ray; the
+     bounds: the primal's the tree walk's tests (TreeWalker's counts on
+     every ray, with the boxes, rows and winners read) and the step per
+     traced segment and lit light evaluation against the bytes it reads
+     and the records it writes; the reverse kernel's the step and its
+     adjoint per segment and lit light against the bytes of the records,
+     the cotangent, the winners' rows and the cotangents out; the refit's
+     the bytes it reads and writes once;
  21. K2b (csrc/mega_bwd.cu's kPt instantiations: path tracing, spot, area
      and mesh lights) against its plain version (autograd) on 16,384
      primary rays at full depth of scenes/feat_pt.xml (and by substitution
@@ -168,7 +183,7 @@ Phases, each printing one JSON line:
      demo scene with its area light, and the demo under PathTracing + NEE
      with its mirror sphere diffuse, each with table draws from a
      torch.Generator and with Philox (against its twin bwd_draws), over the
-     chunks and (FLAT_MAX_FACES at 0) over the tree: K2a's gates;
+     chunks and (FWD_FLAT_MAX_FACES at 0) over the tree: K2a's gates;
  22. the path-traced training main path (JAX bench.py --bwd --bwd-scene pt):
      optimize on scenes/feat_pt.xml at 800x800 (one fixed jitter: 640,000
      rays), depth 4, NEE + importance sampling, fields mat_diffuse,
@@ -195,8 +210,8 @@ Phases, each printing one JSON line:
      of scenes/feat_pt.xml with a bilinear replace_kd floor (path tracing,
      with table draws from a torch.Generator and with Philox) and of the
      inverse-texture quad carrying scenes/textures/floor_tiles.png
-     (1,048,576 texels), over the chunks and (FLAT_MAX_FACES at 0) over the
-     tree: K2a's gates, the texel cotangents included;
+     (1,048,576 texels), over the chunks and (FWD_FLAT_MAX_FACES at 0) over
+     the tree: K2a's gates, the texel cotangents included;
  25. the slice's main path: the port's tools/inverse_render.py --texture
      (advanced_cpu_raytracing_tpu_torch/tools/inverse_render.py) as the
      JAX artifact's run: 800x800, 4 sample grids, 300 steps, the 64x64 texture from
@@ -322,6 +337,10 @@ LIGHTS_SCENE = SCENES / "feat_lights_brdf.xml"
 TEXTURES_SCENE = SCENES / "feat_textures.xml"
 REPLACES = "advanced_cpu_raytracing_tpu/ops/pallas/megakernel.py:912"
 REPLACES_K2 = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:428"
+# the refit of K2's boxes replaces no TPU kernel: the JAX make_diff_render
+# builds its boxes once (megabwd.py:1811)
+REPLACES_REFIT = ("none: added; the JAX kernel keeps the initial boxes, "
+                  "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:1811")
 # K2c: the texel cotangents of the same kernel (megabwd.py:1484-1564)
 REPLACES_K2C = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:1484"
 REPLACES_K3 = "advanced_cpu_raytracing_tpu/ops/pallas/tri_intersect.py:39"
@@ -329,14 +348,15 @@ REPLACES_K4 = "tools/probe_bigtex.py:31"
 # registers of the K1a-K1d, K2, K3 and K4 kernels since they were first
 # measured; the later variants' policies (motion, textures, the tree, K2b's
 # template flag) must not change their code; K2's tree twins as ptxas gave
-# them with the 4-wide walk; K2's fwd+bwd kernels with the per-target,
-# warp-summed scatter (K2a's held at 128 by their launch bounds) and K3
-# with its rejection before dividing, as ptxas gave them
+# them with the 4-wide walk; K2b's fwd+bwd kernels with the per-target,
+# warp-summed scatter and K3 with its rejection before dividing, as ptxas
+# gave them; K2a's primal writing its records and its reverse kernel (held
+# at 128 by its launch bounds) as ptxas gave them in slice F3
 KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
                   "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90,
                   "mega_tex_kernel": 123, "mega_tex_motion_kernel": 128,
-                  "mega_bwd_primal_kernel": 72, "mega_bwd_kernel": 128,
-                  "mega_bwd_primal_tree_kernel": 72, "mega_bwd_tree_kernel": 128,
+                  "mega_bwd_primal_kernel": 88,
+                  "mega_bwd_primal_tree_kernel": 96, "mega_bwd_rev_kernel": 128,
                   "mega_bwd_primal_pt_kernel": 80, "mega_bwd_pt_kernel": 158,
                   "mega_bwd_primal_pt_tree_kernel": 96,
                   "mega_bwd_pt_tree_kernel": 168, "tri_intersect_kernel": 50,
@@ -347,8 +367,9 @@ KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_pt_tree_kernel", "mega_ext_tree_kernel",
                   "mega_ext_motion_tree_kernel", "mega_tex_tree_kernel",
                   "mega_tex_motion_tree_kernel", "mega_bwd_primal_kernel",
-                  "mega_bwd_kernel", "mega_bwd_primal_tree_kernel",
-                  "mega_bwd_tree_kernel", "mega_bwd_primal_pt_kernel",
+                  "mega_bwd_primal_tree_kernel", "mega_bwd_rev_kernel",
+                  "mega_bwd_refit_runs_kernel", "mega_bwd_refit_nodes_kernel",
+                  "mega_bwd_refit_chunks_kernel", "mega_bwd_primal_pt_kernel",
                   "mega_bwd_pt_kernel", "mega_bwd_primal_pt_tree_kernel",
                   "mega_bwd_pt_tree_kernel", "mega_bwd_primal_tex_kernel",
                   "mega_bwd_tex_kernel", "mega_bwd_primal_tex_tree_kernel",
@@ -489,10 +510,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, kernel: str, reps: int = 10, tries: int = 3) -> float:
     """The device time per call of the kernels whose name holds
-    ``kernel`` (torch.profiler over ``reps`` calls after one warm-up): the
-    kernel's own time, without the wrapper's host work between launches.
-    A profile that caught no such kernel is taken again, up to ``tries``
-    times, and then raises: a time of 0 is never reported."""
+    ``kernel``, each launched once per call (torch.profiler over ``reps``
+    calls after one warm-up): each kernel's own time, without the
+    wrapper's host work between launches, averaged over the launches the
+    profile caught (a profile may drop some of them, so a sum over ``reps``
+    would read low).  A profile that caught no such kernel is taken again,
+    up to ``tries`` times, and then raises: a time of 0 is never
+    reported."""
     from torch.autograd import DeviceType
 
     fn()
@@ -503,10 +527,11 @@ def device_ms(fn, kernel: str, reps: int = 10, tries: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(r.device_time_total for r in prof.key_averages()
-                    if r.device_type == DeviceType.CUDA and kernel in r.key)
-        if total > 0:
-            return total / reps / 1e3
+        rows = [r for r in prof.key_averages()
+                if r.device_type == DeviceType.CUDA and kernel in r.key
+                and r.count]
+        if rows:
+            return sum(r.device_time_total / r.count for r in rows) / 1e3
     raise AssertionError(f"device_ms: the profiler caught no {kernel} kernel "
                          f"in {tries} profiles")
 
@@ -759,8 +784,8 @@ def main() -> int:
 
     def flat_tables(cfg, pack, cam_cfg):
         """The flat chunk sweep's tables of a scene that routes to the
-        tree: build_mega with FLAT_MAX_FACES, K2's threshold (the forward
-        route's earlier threshold)."""
+        tree: build_mega with FLAT_MAX_FACES, its default (the forward
+        route's and K2's earlier threshold)."""
         mc, tri, chunk = mk.build_mega(
             pack, renderer.options_for_camera(cfg, cam_cfg), device=dev)
         if mc.tree is not None:
@@ -1387,7 +1412,7 @@ def main() -> int:
              faces_down_ms=kernel_ms, card=card)
 
     # the forward route against the flat chunk sweep (the tables built with
-    # FLAT_MAX_FACES, K2's threshold) on every ray of one sample of each
+    # FLAT_MAX_FACES, build_mega's default) on every ray of one sample of each
     # main path's scene: bit for bit; feat_pt.xml (one chunk) keeps the flat
     # kernel, and is held to its tree twin (flat_max 0)
     for path in (WHITTED_SCENE, PT_SCENE, LIGHTS_SCENE, TEXTURES_SCENE):
@@ -1490,57 +1515,130 @@ def main() -> int:
                                 AREA_DEMO_XML, flags=re.S))
 
     # 18. K2a against its plain version: 16,384 primary rays at full depth,
-    # both draw modes, over the chunks and over the tree
+    # both draw modes, over the chunks and over the tree, and with the
+    # vertices moved
     n18 = 16384
-    flat_max = mk.FLAT_MAX_FACES
+    fwd_flat_max = mk.FWD_FLAT_MAX_FACES
+
+    def left_built_boxes(bc, tri_w) -> torch.Tensor:
+        """The work items with a vertex outside the built box that holds
+        them (their tree leaf's, or their chunk's)."""
+        rows = tri_w.reshape(-1, 3, 3)
+        if bc.mc.tree is None:
+            box = bc.chunk_tab[torch.arange(bc.n_tri, device=dev) // mk.CHUNK]
+            out = ((rows < box[:, None, 0:3]) | (rows > box[:, None, 3:6]))
+            return out.flatten(1).any(1).nonzero().squeeze(1)
+        wd = mk.TREE_WIDTH
+        code = bc.mc.tree.view(torch.int32)[:, 6 * wd:7 * wd]
+        leaf = (code < 0).nonzero()
+        c = ~code[leaf[:, 0], leaf[:, 1]].long()
+        by_row = (c >> 5).argsort()
+        leaf, c = leaf[by_row], c[by_row]
+        first, count = c >> 5, c & 31
+        box = bc.mc.tree[leaf[:, 0], :6 * wd].reshape(-1, 6, wd)[
+            torch.arange(leaf.shape[0], device=dev), :, leaf[:, 1]]
+        row_of = torch.arange(bc.n_tri, device=dev)
+        owner = torch.bucketize(row_of, first, right=True) - 1
+        assert bool((row_of < first[owner] + count[owner]).all())
+        b = box[owner]
+        out = (rows < b[:, None, 0:3]) | (rows > b[:, None, 3:6])
+        return out.flatten(1).any(1).nonzero().squeeze(1)
+
     try:
         for geometry in ("chunks", "tree"):
-            if geometry == "tree":
-                mk.FLAT_MAX_FACES = 0
-            for label, path in (("gauge", gauge_path),
-                                ("slice, coarse torus", slice_path),
-                                ("demo", demo_path),
-                                ("demo, emissive sphere", demo_path)):
-                cfg, _, _, f, tabs, cam = diff_render(
+            mk.FWD_FLAT_MAX_FACES = (mk.FLAT_MAX_FACES if geometry == "chunks"
+                                     else 0)
+            for label, path, moved in (
+                    ("gauge", gauge_path, False),
+                    ("gauge, vertices moved", gauge_path, True),
+                    ("slice, coarse torus", slice_path, False),
+                    ("slice, coarse torus, vertices moved", slice_path, True),
+                    ("demo", demo_path, False),
+                    ("demo, emissive sphere", demo_path, False)):
+                cfg, pack, _, f, tabs, cam = diff_render(
                     path, emissive=label.endswith("emissive sphere"))
                 bc = f.bc
                 if bc.variant != "mega_bwd" + ("_tree" if geometry == "tree"
                                                else ""):
                     raise AssertionError(f"K2a {label}: routed to {bc.variant}")
+                left = None
+                if moved:
+                    noise = np.random.default_rng(18).normal(
+                        0.0, 0.05, tuple(pack.verts.shape)).astype(np.float32)
+                    tabs = tabs._replace(tri_w=mb.world_vertices(
+                        bc, pack.verts + torch.as_tensor(noise, device=dev))
+                        .contiguous())
+                    left = left_built_boxes(bc, tabs.tri_w)
                 depth = mb.bc_depth(bc)
-                o, d = primary_rays(cfg.cameras[0], cam, n18, seed=3)
+                # the plain version sweeps the gauge's 32,778 rows in
+                # 128-row chunks some 8 times slower than in the tree's
+                # groups: there it takes every 4th ray, and the kernels'
+                # cotangent of the others is 0, so that their table
+                # cotangents are those of the plain version's rays
+                n = n18
+                stride = (4 if geometry == "chunks" and label.startswith(
+                    "gauge") else 1)
+                o, d = primary_rays(cfg.cameras[0], cam, n, seed=3)
                 gen = torch.Generator(device=dev)
                 gen.manual_seed(12)
-                gbar = torch.randn((n18, 3), generator=gen, device=dev)
-                for mode in ("table", "philox"):
-                    draws = (torch.rand((depth, n18), generator=gen, device=dev)
+                gbar = torch.randn((n, 3), generator=gen, device=dev)
+                gbar_k = torch.zeros_like(gbar)
+                gbar_k[::stride] = gbar[::stride]
+                os_, ds_, gs_ = (t[::stride].contiguous() for t in (o, d, gbar))
+                for mode in ("table", "philox")[int(moved):]:
+                    draws = (torch.rand((depth, n), generator=gen, device=dev)
                              if mode == "table" else None)
+                    before = dict(mb.LAUNCHES)
                     prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=19,
                                              step=3)
                     got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=19,
-                                               step=3, gbar=gbar)
+                                               step=3, gbar=gbar_k)
                     torch.cuda.synchronize()
+                    launched = {k: v - before[k] for k, v in mb.LAUNCHES.items()
+                                if v != before[k]}
+                    want = {bc.primal_kernel: 2, "mega_bwd_rev": 1}
+                    if mb.boxes_read(bc):
+                        want["mega_bwd_refit"] = 2
+                    if launched != want:
+                        raise AssertionError(f"K2a {label}: launches "
+                                             f"{launched}, expected {want}")
                     if draws is None:
-                        draws = mb.ud_table(19, 3, n18, depth, device=dev)
+                        draws = mb.ud_table(19, 3, n, depth, device=dev)
+                    draws = draws[:, ::stride].contiguous()
                     t0 = time.perf_counter()
-                    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws,
-                                                      gbar)
+                    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, os_, ds_, draws,
+                                                      gs_)
                     torch.cuda.synchronize()
                     plain_s = time.perf_counter() - t0
                     what = f"K2a {bc.variant}, {label}, {mode}"
-                    err = check_close(prim, ref, what + ", primal")
-                    err_fb = check_close(got, ref, what + ", fwd+bwd")
+                    err = check_close(prim[::stride], ref, what + ", primal")
+                    if not torch.equal(prim, got):
+                        raise AssertionError(f"{what}: the primal writing its "
+                                             f"records gave another radiance")
+                    g = g._replace(o=g.o[::stride], d=g.d[::stride])
+                    line = {}
+                    if moved:
+                        # the rays whose closest hit is a face that left its
+                        # built box: the refit boxes must keep them
+                        geo = mk._Geometry(bc.mc, torch.cat(
+                            [tabs.tri_w, bc.tri_rest], 1), bc.chunk_tab, None)
+                        win = geo.trace(*os_.T, *ds_.T, want_win=True)[-1]
+                        hit_left = int(torch.isin(win, left).sum())
+                        line = {"faces_out_of_built_boxes": left.numel(),
+                                "rays_on_them": hit_left}
+                        if hit_left == 0:
+                            raise AssertionError(f"{what}: no ray hits a "
+                                                 f"moved face")
                     emit("kernel_vs_plain", kernel=bc.variant, scene=label,
-                         draws=mode, rays=n18, depth=depth, faces=bc.n_tri,
-                         plain_s=plain_s, primal=err,
-                         fwd_bwd_exact_frac=err_fb["exact_frac"],
-                         fwd_bwd_max_abs_err=err_fb["max_abs_err"],
-                         grads=check_grads(g, gref, what), mean_tol=MEAN_TOL,
-                         q999_tol=Q999_TOL, grad_rtol=GRAD_RTOL,
-                         grad_atol_scale=GRAD_ATOL_SCALE)
+                         draws=mode, rays=n, plain_stride=stride, depth=depth,
+                         faces=bc.n_tri, plain_s=plain_s, primal=err,
+                         launches=launched, grads=check_grads(g, gref, what),
+                         mean_tol=MEAN_TOL, q999_tol=Q999_TOL,
+                         grad_rtol=GRAD_RTOL, grad_atol_scale=GRAD_ATOL_SCALE,
+                         **line)
                 del draws, gref, g
     finally:
-        mk.FLAT_MAX_FACES = flat_max
+        mk.FWD_FLAT_MAX_FACES = fwd_flat_max
 
     # 19. the training main path: 5 Adam steps through K2a at 800x800
     fields = ("mat_diffuse", "pl_intensity", "verts")
@@ -1574,7 +1672,8 @@ def main() -> int:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = counts()
-    want = {k: {"mega_bwd_primal": 6, "mega_bwd": 5}.get(k, 0) for k in launches}
+    want = {k: {"mega_bwd_primal_tree": 6, "mega_bwd_rev": 5,
+                "mega_bwd_refit": 6}.get(k, 0) for k in launches}
     if launches != want:
         raise AssertionError(f"training main path: launches {launches}, "
                              f"expected {want}")
@@ -1589,6 +1688,9 @@ def main() -> int:
     adam = torch.optim.Adam([{"params": [params[k]], "lr": rates[k]}
                              for k in fields])
     step_s = []
+    torch.cuda.synchronize()
+    mem_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for i in range(6):
         t1 = time.perf_counter()
         adam.zero_grad(set_to_none=True)
@@ -1598,37 +1700,91 @@ def main() -> int:
         float(loss.detach())
         if i:
             step_s.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
     del f_step, params, adam, loss
     step_med = sorted(step_s)[len(step_s) // 2]
-    emit("main_path", kernel="mega_bwd", scene="gauge (whitted_conductors.xml "
-         "+ a directional light)", width=w, height=h, rays=w * h,
-         depth=opts.max_depth, fields=list(fields), lr=rates, steps=5,
-         loss_history=history, step_s=step_s, step_s_median=step_med,
-         mrays_per_s=w * h / step_med / 1e6, total_s_with_setup=total_s,
+    emit("main_path", kernel="mega_bwd_primal_tree + mega_bwd_rev",
+         scene="gauge (whitted_conductors.xml + a directional light)", width=w,
+         height=h, rays=w * h, depth=opts.max_depth, fields=list(fields),
+         lr=rates, steps=5, loss_history=history, step_s=step_s,
+         step_s_median=step_med, mrays_per_s=w * h / step_med / 1e6,
+         total_s_with_setup=total_s, peak_mem_bytes=peak,
+         peak_mem_above_start_bytes=peak - mem_base,
+         records_bytes=4 * math.prod(mb.records_shape(f.bc, w * h)),
          launches={k: v for k, v in launches.items() if v}, card=card)
     main_bwd_launches = dict(launches)
 
-    # 20. K2a at the main path's shape: 640,000 rays at the true parameters
+    # 20. K2a at the main path's shape: 640,000 rays at the true parameters,
+    # the route's tree against the flat sweep (the threshold raised), and
+    # the primal with and without its records
     bc = f.bc
+    if bc.variant != "mega_bwd_tree":
+        raise AssertionError(f"K2a's main path routed to {bc.variant}")
     tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
     n20 = o.shape[0]
     gbar = torch.randn((n20, 3), generator=gen, device=dev)
-    prim_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d), 5)
-    fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar), 5)
-    no_scatter_ms = cuda_ms(lambda: mb.mega_bwd_trace(
-        bc, tabs, o, d, gbar=gbar, scatter=False), 5)
-    # the plain version on every 16th ray, the kernel on the same rays and
+    every = tuple(mb.SCATTER_FLAGS)
+    run = mb._Launch(bc, tabs, o, d, None, 0, 0)
+    rec = run.new_records()
+    # the refit: bit for bit refit_ref's, and on the unmoved vertices the
+    # built tree's
+    nodes, _ = mb.refit(bc, tabs.tri_w)
+    t0 = time.perf_counter()
+    nodes_ref, _ = mb.refit_ref(bc, tabs.tri_w)
+    torch.cuda.synchronize()
+    plain_refit_ms = (time.perf_counter() - t0) * 1e3
+    for what, other in (("refit_ref", nodes_ref), ("the built tree", bc.mc.tree)):
+        if not torch.equal(nodes.view(torch.int32), other.view(torch.int32)):
+            raise AssertionError(f"the refit kernel's boxes differ from {what}")
+    refit_ms = device_ms(lambda: mb.refit(bc, tabs.tri_w), "mega_bwd_refit")
+    refit_ev_ms = cuda_ms(lambda: mb.refit(bc, tabs.tri_w), 20)
+    # device times (torch.profiler) of each launch, and CUDA events around
+    # the wrapper's call (mega_bwd_trace: the refit, the primal, and with
+    # gbar the primal writing its records and the reverse kernel)
+    prim_ms = device_ms(lambda: run.primal(), "mega_bwd_primal_tree")
+    prim_rec_ms = device_ms(lambda: run.primal(rec), "mega_bwd_primal_tree")
+    rev_ms = device_ms(lambda: run.backward(gbar, every, rec),
+                       "mega_bwd_rev_kernel")
+    rev_no_scatter_ms = device_ms(lambda: run.backward(gbar, (), rec),
+                                  "mega_bwd_rev_kernel")
+    prim_ev_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d), 5)
+    fb_ev_ms = cuda_ms(lambda: mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar), 5)
+    # the flat sweep on the same rays: the tree's radiance equals it bit for
+    # bit, its cotangents within the gates (atomic sums)
+    mk.FWD_FLAT_MAX_FACES = mk.FLAT_MAX_FACES
+    try:
+        f_flat = mb.make_diff_render(pack, opts, device=dev)
+    finally:
+        mk.FWD_FLAT_MAX_FACES = fwd_flat_max
+    bcf = f_flat.bc
+    if bcf.variant != "mega_bwd":
+        raise AssertionError(f"K2a's flat tables routed to {bcf.variant}")
+    tabs_f = mb.BwdTables(*(t.detach().contiguous()
+                            for t in f_flat.tables({})))
+    run_f = mb._Launch(bcf, tabs_f, o, d, None, 0, 0)
+    rec_f = run_f.new_records()
+    flat_prim_ms = device_ms(lambda: run_f.primal(rec_f), "mega_bwd_primal")
+    flat_rev_ms = device_ms(lambda: run_f.backward(gbar, every, rec_f),
+                            "mega_bwd_rev_kernel")
+    flat_p, flat_g = mb.mega_bwd_trace(bcf, tabs_f, o, d, gbar=gbar)
+    tree_p, tree_g = mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar)
+    what = "K2a's tree at the main path's shape, against the flat sweep"
+    vs_flat = {"exact_frac": exact_frac(tree_p, flat_p),
+               "grads": check_grads(tree_g, flat_g, what)}
+    if vs_flat["exact_frac"] != 1.0:
+        raise AssertionError(f"{what}: radiance not bit for bit: {vs_flat}")
+    del flat_p, flat_g, tree_p, tree_g, rec_f, run_f
+    # the plain version on every 16th ray, the kernels on the same rays and
     # draws
     stride = 16
     depth = mb.bc_depth(bc)
     os_, ds_, gs_ = (t[::stride].contiguous() for t in (o, d, gbar))
     draws = mb.ud_table(0, 0, n20, depth, device=dev)[:, ::stride].contiguous()
-    prim = mb.mega_bwd_trace(bc, tabs, os_, ds_, draws)
-    got, g = mb.mega_bwd_trace(bc, tabs, os_, ds_, draws, gbar=gs_)
+    prim, (got, g) = (mb.mega_bwd_trace(bc, tabs, os_, ds_, draws),
+                      mb.mega_bwd_trace(bc, tabs, os_, ds_, draws, gbar=gs_))
     torch.cuda.synchronize()
-    stats: dict = {}
     t0 = time.perf_counter()
-    ref0 = mb.mega_bwd_trace_ref(bc, tabs, os_, ds_, draws, stats=stats)
+    ref0 = mb.mega_bwd_trace_ref(bc, tabs, os_, ds_, draws)
     torch.cuda.synchronize()
     plain_prim_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
@@ -1637,38 +1793,17 @@ def main() -> int:
     plain_fb_ms = (time.perf_counter() - t0) * 1e3
     what = "K2a at the main path's shape, every 16th ray"
     err_p = check_close(prim, ref0, what + ", primal")
-    err_fb = check_close(got, ref, what + ", fwd+bwd")
+    err_fb = check_close(got, ref, what + ", with records")
     gerr = check_grads(g, gref, what)
-    # the same rays through the tree twins (FLAT_MAX_FACES at 0), against
-    # the flat kernels on every ray
-    mk.FLAT_MAX_FACES = 0
-    try:
-        f_tree = mb.make_diff_render(pack, opts, device=dev)
-    finally:
-        mk.FLAT_MAX_FACES = flat_max
-    bct = f_tree.bc
-    tabs_t = mb.BwdTables(*(t.detach().contiguous()
-                            for t in f_tree.tables({})))
-    flat_p = mb.mega_bwd_trace(bc, tabs, o, d)
-    _, flat_g = mb.mega_bwd_trace(bc, tabs, o, d, gbar=gbar)
-    tree_p = mb.mega_bwd_trace(bct, tabs_t, o, d)
-    tree_fb, tree_g = mb.mega_bwd_trace(bct, tabs_t, o, d, gbar=gbar)
-    tree_prim_ms = cuda_ms(lambda: mb.mega_bwd_trace(bct, tabs_t, o, d), 5)
-    tree_fb_ms = cuda_ms(lambda: mb.mega_bwd_trace(bct, tabs_t, o, d,
-                                                   gbar=gbar), 5)
-    what = "K2a's tree twins at the main path's shape, against the flat"
-    tree_err = {"primal": check_close(tree_p, flat_p, what + ", primal"),
-                "fwd_bwd": check_close(tree_fb, flat_p, what + ", fwd+bwd"),
-                "grads": check_grads(tree_g, flat_g, what)}
-    del flat_p, flat_g, tree_p, tree_fb, tree_g
-    # the tree's work on every ray: the plain version's primal over the
-    # tree, in runs of 160,000 rays sharing its stats (TreeWalker's counts
-    # and the boxes, rows and winners read)
+    del prim, got, g, ref0, ref, gref
+    # the tree's work on every ray: the plain version's primal, in runs of
+    # 160,000 rays sharing its stats (TreeWalker's counts, the boxes, rows
+    # and winners read, the traced segments and lit light evaluations)
     tree_stats: dict = {}
     table = mb.ud_table(0, 0, n20, depth, device=dev)
     for lo in range(0, n20, 160000):
         part = slice(lo, lo + 160000)
-        mb.mega_bwd_trace_ref(bct, tabs_t, o[part].contiguous(),
+        mb.mega_bwd_trace_ref(bc, tabs, o[part].contiguous(),
                               d[part].contiguous(),
                               table[:, part].contiguous(), stats=tree_stats)
     del table
@@ -1677,73 +1812,75 @@ def main() -> int:
                       rows_read=int(reads["rows"].sum()),
                       rows_won=int(reads["won"].sum()))
 
-    def k2a_bounds(counted, n_bytes_primal, n_bytes_fwd_bwd):
-        """The primal's and the fwd+bwd's bounds: the counted sweeps' tests
-        once each, the step per traced segment and lit light evaluation,
-        and in the fwd+bwd their adjoints."""
-        fwd = counted["traces"] * STEP_FLOPS + counted["lit_light_evals"] \
-            * LIGHT_FLOPS
-        adj = counted["traces"] * ADJ_STEP_FLOPS + counted["lit_light_evals"] \
-            * ADJ_LIGHT_FLOPS
-        out = []
-        for n_bytes, extra in ((n_bytes_primal, fwd),
-                               (n_bytes_fwd_bwd, fwd + adj)):
-            bd = bound(counted, n_bytes)
-            bd["flops"] += extra
-            bd["ops_ms"] = bd["flops"] / PEAK_FP32_FLOPS * 1e3
-            bd["bound_ms"] = max(bd["ops_ms"], bd["bytes_ms"])
-            bd["bound_by"] = ("operations" if bd["ops_ms"] >= bd["bytes_ms"]
-                              else "bytes")
-            out.append(bd)
-        return out
+    def with_flops(bd, flops):
+        """``bd`` (a ``bound``) with ``flops`` more operations."""
+        bd["flops"] += flops
+        bd["ops_ms"] = bd["flops"] / PEAK_FP32_FLOPS * 1e3
+        bd["bound_ms"] = max(bd["ops_ms"], bd["bytes_ms"])
+        bd["bound_by"] = ("operations" if bd["ops_ms"] >= bd["bytes_ms"]
+                          else "bytes")
+        return bd
 
-    # bytes: the rays, the tables read once (over the tree: the boxes
-    # visited, the rows tested, the winners' rows), and in the fwd+bwd the
-    # radiance's cotangent in, the parameters' and rays' cotangents out
-    counted = {k: v * stride for k, v in stats.items()}
-    tables = sum(t.numel() * 4 for t in (
-        bc.tri_rest, tabs.tri_w, bc.chunk_tab, bc.mc.spheres, bc.mc.materials,
-        bc.mc.point_lights, bc.mc.dir_lights))
-    grads_bytes = sum(t.numel() * 4 for t in tabs)
-    flat_bd = k2a_bounds(counted, n20 * 9 * 4 + tables,
-                         n20 * 18 * 4 + tables + grads_bytes)
-    tree_tables = table_bytes(bct.mc, None, reads)
-    tree_grads = (sum(t.numel() * 4 for t in tabs_t[:4])
-                  + tree_stats["rows_won"] * 9 * 4)
-    tree_bd = k2a_bounds(tree_stats, n20 * 9 * 4 + tree_tables,
-                         n20 * 18 * 4 + tree_tables + tree_grads)
-    # the function's least work: the cheaper of the two ways to find the
-    # closest hits
-    bd_p, bd_fb = (dict(min(fb, tb, key=lambda x: x["bound_ms"]),
-                        counted_over="chunks" if fb["bound_ms"]
-                        <= tb["bound_ms"] else "tree")
-                   for fb, tb in zip(flat_bd, tree_bd))
+    # bytes: the primal reads the rays and what its walk reaches and
+    # writes the radiance and the records of the segments traced; the
+    # reverse kernel reads those records, the cotangent, the winners' rows
+    # and the small tables, and writes the parameters' and rays'
+    # cotangents (no trace tests)
+    segs = tree_stats["traces"]
+    rec_bytes = (segs * mb.SEG_WORDS + n20) * 4
+    small = sum(t.numel() * 4 for t in (
+        bc.mc.spheres, bc.mc.materials, bc.mc.point_lights, bc.mc.dir_lights,
+        tabs.mat, tabs.pl, tabs.dl, tabs.bg))
+    won_rows = tree_stats["rows_won"] * (9 + 7) * 4
+    tree_tables = table_bytes(bc.mc, None, reads)
+    bd_p = with_flops(bound(tree_stats, n20 * 9 * 4 + tree_tables + rec_bytes),
+                      segs * STEP_FLOPS
+                      + tree_stats["lit_light_evals"] * LIGHT_FLOPS)
+    bd_rev = with_flops(
+        bound({}, rec_bytes + n20 * 3 * 4 + won_rows + small + n20 * 6 * 4
+              + sum(t.numel() * 4 for t in tabs[:4])
+              + tree_stats["rows_won"] * 9 * 4),
+        segs * (STEP_FLOPS + ADJ_STEP_FLOPS)
+        + tree_stats["lit_light_evals"] * (LIGHT_FLOPS + ADJ_LIGHT_FLOPS))
+    # the refit: the vertices, the runs, the spans and the built tree read
+    # once, the boxes written once
+    n_nodes = bc.mc.tree.shape[0]
+    bd_refit = bound({}, tabs.tri_w.numel() * 4 + bc.tree_runs.numel() * 4
+                     + bc.tree_spans.numel() * 4 + 2 * n_nodes * mk.NODE_COLS
+                     * 4)
     grad_err = max(v["max_abs_err"] for v in gerr.values())
-    emit("kernel_at_main_shape", kernel="mega_bwd", rays=n20,
-         plain_stride=stride, primal_ms=prim_ms, fwd_bwd_ms=fb_ms,
-         fwd_bwd_no_scatter_ms=no_scatter_ms,
-         scatter_ms=fb_ms - no_scatter_ms, plain_primal_ms=plain_prim_ms,
-         plain_fwd_bwd_ms=plain_fb_ms, primal_bound=bd_p, fwd_bwd_bound=bd_fb,
-         primal=err_p, fwd_bwd_exact_frac=err_fb["exact_frac"], grads=gerr,
-         counts=counted, card=card)
-    emit("kernel_at_main_shape", kernel="mega_bwd_tree", rays=n20,
-         primal_ms=tree_prim_ms, fwd_bwd_ms=tree_fb_ms,
-         flat_primal_ms=prim_ms, flat_fwd_bwd_ms=fb_ms, vs_flat=tree_err,
-         counts=tree_stats, count_stride=1, primal_bound=tree_bd[0],
-         fwd_bwd_bound=tree_bd[1], flat_primal_bound=flat_bd[0],
-         flat_fwd_bwd_bound=flat_bd[1], card=card)
+    emit("kernel_at_main_shape", kernel="mega_bwd_primal_tree + mega_bwd_rev",
+         rays=n20, plain_stride=stride, primal_device_ms=prim_ms,
+         primal_records_device_ms=prim_rec_ms,
+         records_write_ms=prim_rec_ms - prim_ms, reverse_device_ms=rev_ms,
+         reverse_no_scatter_device_ms=rev_no_scatter_ms,
+         scatter_ms=rev_ms - rev_no_scatter_ms, refit_device_ms=refit_ms,
+         refit_events_ms=refit_ev_ms, plain_refit_ms=plain_refit_ms,
+         primal_events_ms=prim_ev_ms, primal_records_reverse_events_ms=fb_ev_ms,
+         flat_primal_records_device_ms=flat_prim_ms,
+         flat_reverse_device_ms=flat_rev_ms, tree_vs_flat=vs_flat,
+         plain_primal_ms=plain_prim_ms, plain_fwd_bwd_ms=plain_fb_ms,
+         primal_bound=bd_p, reverse_bound=bd_rev, refit_bound=bd_refit,
+         primal=err_p, with_records_exact_frac=err_fb["exact_frac"],
+         grads=gerr, counts=tree_stats, records_bytes=rec.numel() * 4,
+         card=card)
+    del rec, run
     kernels.append({**kernel_entry(
-        "mega_bwd_primal", main_bwd_launches["mega_bwd_primal"], prim_ms,
-        plain_prim_ms, bd_p, err_p, n20, stride, library=mb.LIBRARY,
-        replaces=REPLACES_K2), "bound_counted_over": bd_p["counted_over"],
-        "tree_twin_ms": tree_prim_ms})
-    kernels.append({**kernel_entry(
-        "mega_bwd", main_bwd_launches["mega_bwd"], fb_ms, plain_fb_ms, bd_fb,
-        {"max_abs_err": max(err_fb["max_abs_err"], grad_err)}, n20, stride,
+        "mega_bwd_primal_tree", main_bwd_launches["mega_bwd_primal_tree"],
+        prim_rec_ms, plain_prim_ms, bd_p, err_p, n20, stride,
         library=mb.LIBRARY, replaces=REPLACES_K2),
-        "scatter_ms": fb_ms - no_scatter_ms,
-        "bound_counted_over": bd_fb["counted_over"],
-        "tree_twin_ms": tree_fb_ms})
+        "ms_without_records": prim_ms, "flat_ms": flat_prim_ms,
+        "events_ms": prim_ev_ms})
+    kernels.append({**kernel_entry(
+        "mega_bwd_rev", main_bwd_launches["mega_bwd_rev"], rev_ms, plain_fb_ms,
+        bd_rev, {"max_abs_err": max(err_fb["max_abs_err"], grad_err)}, n20,
+        stride, library=mb.LIBRARY, replaces=REPLACES_K2),
+        "scatter_ms": rev_ms - rev_no_scatter_ms, "flat_ms": flat_rev_ms,
+        "plain_ms_is": "the plain version's radiance and autograd cotangents"})
+    kernels.append({**kernel_entry(
+        "mega_bwd_refit", main_bwd_launches["mega_bwd_refit"], refit_ms,
+        plain_refit_ms, bd_refit, {"max_abs_err": 0.0}, bc.n_tri, 1,
+        library=mb.LIBRARY, replaces=REPLACES_REFIT), "events_ms": refit_ev_ms})
 
     # ---- K2b: path tracing, spot, area and mesh lights (slice C2) ----
     k2b_dir = out_dir / "k2b"
@@ -1781,7 +1918,7 @@ def main() -> int:
     try:
         for geometry in ("chunks", "tree"):
             if geometry == "tree":
-                mk.FLAT_MAX_FACES = 0
+                mk.FWD_FLAT_MAX_FACES = 0
             for label, path in k2b_scenes:
                 cfg, _, _, f, tabs, cam = diff_render(path)
                 bc = f.bc
@@ -1820,7 +1957,7 @@ def main() -> int:
                          grad_atol_scale=GRAD_ATOL_SCALE)
                     del draws, gref, g
     finally:
-        mk.FLAT_MAX_FACES = flat_max
+        mk.FWD_FLAT_MAX_FACES = fwd_flat_max
 
     # 22. the path-traced training main path (JAX bench.py --bwd --bwd-scene
     # pt): 5 Adam steps through K2b on feat_pt.xml at 800x800
@@ -1928,25 +2065,19 @@ def main() -> int:
     # 23. K2b at the main path's shape: one sample's 640,000 rays of
     # feat_pt.xml (phase 22's), feat_pt_rr.xml and feat_pt_spec.xml
     def k2b_bounds(counted, n_bytes_primal, n_bytes_fwd_bwd):
-        """As k2a_bounds, with K2b's segments (traced or reusing the GI
-        ray's hit), lit light evaluations and GI samples."""
+        """The primal's and the fwd+bwd's bounds (K2b, and K2c whose
+        Whitted chain has no GI): the counted sweeps' tests once each, the
+        step per segment (traced or reusing the GI ray's hit), lit light
+        evaluation and GI sample, and in the fwd+bwd their adjoints."""
         seg = counted.get("traces", 0) + counted.get("reused", 0)
         fwd = (seg * STEP_FLOPS + counted["lit_light_evals"] * LIGHT_FLOPS
                + counted.get("gi_traces", 0) * GI_FLOPS)
         adj = (seg * ADJ_STEP_FLOPS
                + counted["lit_light_evals"] * ADJ_LIGHT_FLOPS
                + counted.get("gi_traces", 0) * ADJ_GI_FLOPS)
-        out = []
-        for n_bytes, extra in ((n_bytes_primal, fwd),
-                               (n_bytes_fwd_bwd, fwd + adj)):
-            bd = bound(counted, n_bytes)
-            bd["flops"] += extra
-            bd["ops_ms"] = bd["flops"] / PEAK_FP32_FLOPS * 1e3
-            bd["bound_ms"] = max(bd["ops_ms"], bd["bytes_ms"])
-            bd["bound_by"] = ("operations" if bd["ops_ms"] >= bd["bytes_ms"]
-                              else "bytes")
-            out.append(bd)
-        return out
+        return [with_flops(bound(counted, n_bytes), extra)
+                for n_bytes, extra in ((n_bytes_primal, fwd),
+                                       (n_bytes_fwd_bwd, fwd + adj))]
 
     k2b_main = {}
     for path in (PT_SCENE, PT_RR_SCENE, PT_SPEC_SCENE):
@@ -1983,13 +2114,13 @@ def main() -> int:
         err_fb = check_close(got, ref, what + ", fwd+bwd")
         gerr = check_grads(g, gref, what)
         del draws, ref, gref, g
-        # the tree twins (FLAT_MAX_FACES at 0) on every ray, against the
+        # the tree twins (FWD_FLAT_MAX_FACES at 0) on every ray, against the
         # flat kernels, and the tree's work counted on every ray
-        mk.FLAT_MAX_FACES = 0
+        mk.FWD_FLAT_MAX_FACES = 0
         try:
             f_t = mb.make_diff_render(pack_s, opts_s, device=dev)
         finally:
-            mk.FLAT_MAX_FACES = flat_max
+            mk.FWD_FLAT_MAX_FACES = fwd_flat_max
         bct = f_t.bc
         tabs_t = mb.BwdTables(*(t.detach().contiguous()
                                 for t in f_t.tables({})))
@@ -2102,7 +2233,7 @@ def main() -> int:
     try:
         for geometry in ("chunks", "tree"):
             if geometry == "tree":
-                mk.FLAT_MAX_FACES = 0
+                mk.FWD_FLAT_MAX_FACES = 0
             for label, path in k2c_scenes:
                 cfg, _, _, f, tabs, cam = diff_render(path)
                 bc = f.bc
@@ -2147,7 +2278,7 @@ def main() -> int:
                          grad_atol_scale=GRAD_ATOL_SCALE)
                     del draws, gref, g
     finally:
-        mk.FLAT_MAX_FACES = flat_max
+        mk.FWD_FLAT_MAX_FACES = fwd_flat_max
 
     # 25. the slice's main path: the port's tools/inverse_render.py
     # --texture at its defaults (JAX tools/inverse_render.py --texture)
@@ -2250,11 +2381,11 @@ def main() -> int:
     gerr_filters = check_grads(g_s, gref_s, "K2c, a nearest and a bilinear "
                                "texture on one image, every 16th ray")
     del f_s, tabs_s, o_s, d_s, g_s, gref_s
-    mk.FLAT_MAX_FACES = 0
+    mk.FWD_FLAT_MAX_FACES = 0
     try:
         f_tree = mb.make_diff_render(pack, opts, device=dev)
     finally:
-        mk.FLAT_MAX_FACES = flat_max
+        mk.FWD_FLAT_MAX_FACES = fwd_flat_max
     bct = f_tree.bc
     tabs_t = mb.BwdTables(*(t.detach().contiguous()
                             for t in f_tree.tables({})))
@@ -2282,14 +2413,10 @@ def main() -> int:
         bc.mc.point_lights, bc.mc.dir_lights, bc.mc.tex_face, bc.mc.tex_int,
         tabs.texels))
     grads_bytes = sum(t.numel() * 4 for t in tabs)
-    bd_p, bd_fb = k2a_bounds(counted, n26 * 9 * 4 + tables,
+    bd_p, bd_fb = k2b_bounds(counted, n26 * 9 * 4 + tables,
                              n26 * 18 * 4 + tables + grads_bytes)
     for bd, extra in ((bd_p, tex_extra[0]), (bd_fb, sum(tex_extra))):
-        bd["flops"] += extra
-        bd["ops_ms"] = bd["flops"] / PEAK_FP32_FLOPS * 1e3
-        bd["bound_ms"] = max(bd["ops_ms"], bd["bytes_ms"])
-        bd["bound_by"] = ("operations" if bd["ops_ms"] >= bd["bytes_ms"]
-                          else "bytes")
+        with_flops(bd, extra)
     emit("kernel_at_main_shape", kernel="mega_bwd_tex", rays=n26,
          plain_stride=stride, primal_ms=prim_ms, fwd_bwd_ms=fb_ms,
          fwd_bwd_no_scatter_ms=no_scatter_ms,

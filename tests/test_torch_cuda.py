@@ -381,20 +381,61 @@ def _diff_scene(tmp_path, dev, glass=True):
     return cfg, pack, opts, f, cam, o.contiguous(), d.contiguous(), px, py
 
 
+def _k2a_check(bc, tabs, o, d, draws, gbar, moved_rows=None):
+    """K2a's primal and its primal with records + reverse kernel against
+    the plain version and autograd: radiance to K1a's bound, every
+    cotangent within rtol 1e-3, atol 1e-4 max|ref| (atomic sums, and a
+    hand-derived adjoint); exactly the primal twice, the reverse kernel
+    once and, where the kernels read boxes, the refit twice.  With
+    ``moved_rows``, some rays' closest hits are on those rows (moved
+    faces) in both."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    before = dict(mb.LAUNCHES)
+    prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1)
+    got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1, gbar=gbar)
+    torch.cuda.synchronize()
+    refits = 2 * int(mb.boxes_read(bc))
+    assert {k: mb.LAUNCHES[k] - before[k] for k in before} == {
+        k: {bc.primal_kernel: 2, "mega_bwd_rev": 1,
+            "mega_bwd_refit": refits}.get(k, 0) for k in before}
+    if draws is None:
+        draws = mb.ud_table(3, 1, o.shape[0], mb.bc_depth(bc), device=o.device)
+    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws, gbar)
+    assert torch.equal(prim, got)  # the same primal launch
+    diff = (prim - ref).abs().cpu().numpy()
+    assert np.mean(diff) < 0.01 and np.quantile(diff, 0.999) < 0.5
+    for k in gref._fields:
+        a, b = getattr(gref, k), getattr(g, k)
+        assert bool(torch.isfinite(b).all()), k
+        if a.numel():
+            torch.testing.assert_close(b, a, rtol=1e-3,
+                                       atol=1e-4 * float(a.abs().max()))
+    if moved_rows is not None:
+        tri = torch.cat([tabs.tri_w, bc.tri_rest], 1)
+        geo = mk._Geometry(bc.mc, tri, bc.chunk_tab, None)
+        win = geo.trace(*o.T, *d.T, want_win=True)[-1]
+        on = torch.isin(win, moved_rows)
+        assert int(on.sum()) > 0
+        assert float((g.tri_w[moved_rows].abs().sum())) > 0
+    return prim, g
+
+
 @pytest.mark.parametrize("mode", ["table", "philox"])
 @pytest.mark.parametrize("tree", [False, True], ids=["chunks", "tree"])
 def test_bwd_kernel_matches_plain_version(cuda, tmp_path, monkeypatch, mode,
                                           tree):
-    """K2a's primal and fwd+bwd against the plain version and autograd on
-    the coarse gauge scene (depth 6, a dielectric): radiance to K1a's
-    bound, every cotangent within rtol 1e-3, atol 1e-4 max|ref| (atomic
-    sums, and a hand-derived adjoint)."""
+    """K2a's primal and its reverse kernel on the primal's records against
+    the plain version and autograd on the coarse gauge scene (depth 6, a
+    dielectric: its split takes the branch draws), over the tree (the
+    route past one chunk) and over the chunks (the threshold raised)."""
     from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
 
-    if tree:
-        monkeypatch.setattr(mk, "FLAT_MAX_FACES", 0)
+    if not tree:
+        monkeypatch.setattr(mk, "FWD_FLAT_MAX_FACES", mk.FLAT_MAX_FACES)
     _, _, _, f, _, o, d, _, _ = _diff_scene(tmp_path, cuda)
     bc = f.bc
+    assert bc.has_dielectric
     assert bc.variant == ("mega_bwd_tree" if tree else "mega_bwd")
     tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
     gen = torch.Generator(device=cuda)
@@ -403,31 +444,168 @@ def test_bwd_kernel_matches_plain_version(cuda, tmp_path, monkeypatch, mode,
     depth = mb.bc_depth(bc)
     draws = (torch.rand((depth, o.shape[0]), generator=gen, device=cuda)
              if mode == "table" else None)
+    _k2a_check(bc, tabs, o, d, draws, gbar)
+
+
+@pytest.mark.parametrize("tree", [False, True], ids=["chunks", "tree"])
+def test_bwd_kernel_hits_moved_faces(cuda, tmp_path, monkeypatch, tree):
+    """Vertices moved by a seeded offset (rows out of their built leaf and
+    chunk boxes): the refit kernel equals refit_ref bit for bit, and the
+    primal and reverse kernel still hit the moved faces and match the
+    plain version, Philox draws on the dielectric's split."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    if not tree:
+        monkeypatch.setattr(mk, "FWD_FLAT_MAX_FACES", mk.FLAT_MAX_FACES)
+    _, pack, _, f, _, o, d, _, _ = _diff_scene(tmp_path, cuda)
+    bc = f.bc
+    rng = np.random.default_rng(9)
+    verts = pack.verts + torch.as_tensor(rng.normal(
+        0.0, 0.15, tuple(pack.verts.shape)).astype(np.float32), device=cuda)
+    tabs = mb.BwdTables(*(t.detach().contiguous()
+                          for t in f.tables({"verts": verts})))
+    nodes, chunk = mb.refit(bc, tabs.tri_w)
+    want_nodes, want_chunk = mb.refit_ref(bc, tabs.tri_w)
+    assert torch.equal(chunk.view(torch.int32), want_chunk.view(torch.int32))
+    if tree:
+        assert torch.equal(nodes.view(torch.int32),
+                           want_nodes.view(torch.int32))
+        built = bc.mc.tree[:, :24]
+    else:
+        assert nodes is None
+        built = bc.chunk_tab
+    assert not torch.equal(built, (nodes if tree else chunk)[:, :built.shape[1]])
+    # the rows that left their built boxes
+    rows = tabs.tri_w.reshape(-1, 3, 3)
+    w = bc.mc.n_tri
+    if tree:
+        moved = torch.zeros(w, dtype=torch.bool, device=cuda)
+        wd = mk.TREE_WIDTH
+        code = bc.mc.tree.view(torch.int32)[:, 6 * wd:7 * wd]
+        for n, k in (code < 0).nonzero().tolist():
+            c = int(code[n, k])
+            first, count = (~c) >> 5, (~c) & 31
+            box = bc.mc.tree[n, :6 * wd].reshape(6, wd)[:, k]
+            r = rows[first:first + count].reshape(-1, 3)
+            moved[first:first + count] |= bool(((r < box[0:3])
+                                                | (r > box[3:6])).any())
+    else:
+        ci = torch.arange(w, device=cuda) // mk.CHUNK
+        box = bc.chunk_tab[ci]
+        moved = ((rows < box[:, None, 0:3]) | (rows > box[:, None, 3:6])
+                 ).flatten(1).any(1)
+    moved_rows = moved.nonzero().squeeze(1)
+    assert moved_rows.numel() > 0
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    gbar = torch.randn(o.shape, generator=gen, device=cuda)
+    _k2a_check(bc, tabs, o, d, None, gbar, moved_rows)
+
+
+def test_refit_kernel_matches_refit_ref(cuda, tmp_path, monkeypatch):
+    """The refit kernel bit for bit against refit_ref: the gauge scene's
+    32,768-face tree, the coarse gauge over its 7 chunks, and feat_pt.xml's
+    one chunk, at the built vertices (the built boxes) and moved ones."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+    from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+        gauge_scene_xml,
+    )
+
+    paths = [gauge_scene_xml(tmp_path / "full", REPO / "scenes"),
+             gauge_scene_xml(tmp_path / "coarse", REPO / "scenes", coarse=True),
+             str(REPO / "scenes" / "feat_pt.xml")]
+    rng = np.random.default_rng(1)
+    for i, path in enumerate(paths):
+        if i == 1:
+            monkeypatch.setattr(mk, "FWD_FLAT_MAX_FACES", mk.FLAT_MAX_FACES)
+        cfg = load_scene(path)
+        pack = pack_scene(cfg, device=cuda)
+        bc = mb.build_bwd_consts(pack, options_for_camera(cfg, cfg.cameras[0]),
+                                 device=cuda)
+        assert (bc.mc.tree is not None) == (i == 0)
+        for scale in (0.0, 0.2):
+            verts = pack.verts + torch.as_tensor(rng.normal(
+                0.0, scale, tuple(pack.verts.shape)).astype(np.float32),
+                device=cuda)
+            tri_w = mb.world_vertices(bc, verts).contiguous()
+            before = mb.LAUNCHES["mega_bwd_refit"]
+            got = mb.refit(bc, tri_w)
+            torch.cuda.synchronize()
+            assert mb.LAUNCHES["mega_bwd_refit"] == before + 1
+            want = mb.refit_ref(bc, tri_w)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            if scale == 0.0 and i == 0:
+                assert torch.equal(got[0].view(torch.int32),
+                                   bc.mc.tree.view(torch.int32))
+
+
+def test_k2a_records_are_required(cuda, tmp_path):
+    """No fallback: K2a's reverse kernel without the primal's records, or
+    with records of the wrong shape, raises and launches nothing; so does
+    the primal given a mis-shaped buffer."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    _, _, _, f, _, o, d, _, _ = _diff_scene(tmp_path, cuda)
+    bc = f.bc
+    tabs = mb.BwdTables(*(t.detach().contiguous() for t in f.tables({})))
+    run = mb._Launch(bc, tabs, o, d, None, 0, 0)
+    gbar = torch.ones_like(o)
+    rec = run.new_records()
+    run.primal(rec)
     before = dict(mb.LAUNCHES)
-    prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1)
-    got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1, gbar=gbar)
+    with pytest.raises(ValueError, match="records"):
+        run.backward(gbar, ("mat",), None)
+    with pytest.raises(ValueError, match="records"):
+        run.backward(gbar, ("mat",), rec[:-1].contiguous())
+    with pytest.raises(ValueError, match="records"):
+        run.primal(torch.empty((3, o.shape[0]), device=cuda))
+    assert dict(mb.LAUNCHES) == before
+    _, g = run.backward(gbar, ("mat",), rec)
+    assert float(g.mat.abs().sum()) > 0
+
+
+def test_k2a_backward_runs_twice_on_a_retained_graph(cuda, tmp_path):
+    """The primal's records and boxes are saved for the backward: with the
+    graph retained, autograd.grad twice and then backward each run the
+    reverse kernel on the same records, with one primal and one refit, and
+    agree within rtol 1e-3, atol 1e-4 max|first|; after that backward
+    autograd has freed them, and a further one raises."""
+    from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
+
+    _, pack, _, f, _, o, d, _, _ = _diff_scene(tmp_path, cuda)
+    assert f.bc.variant == "mega_bwd_tree"
+    params = {"mat_diffuse": pack.mat_diffuse.clone().requires_grad_(True),
+              "verts": pack.verts.clone().requires_grad_(True)}
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    gbar = torch.randn(o.shape, generator=gen, device=cuda)
+    before = dict(mb.LAUNCHES)
+    loss = (f(params, o, d) * gbar).sum()
+    leaves = list(params.values())
+    first = torch.autograd.grad(loss, leaves, retain_graph=True)
+    again = torch.autograd.grad(loss, leaves, retain_graph=True)
+    loss.backward()
     torch.cuda.synchronize()
-    assert mb.LAUNCHES[bc.variant] == before[bc.variant] + 1
-    primal = bc.variant.replace("mega_bwd", "mega_bwd_primal")
-    assert mb.LAUNCHES[primal] == before[primal] + 1
-    if draws is None:
-        draws = mb.ud_table(3, 1, o.shape[0], depth, device=cuda)
-    ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws, gbar)
-    for out in (prim, got):
-        diff = (out - ref).abs().cpu().numpy()
-        assert np.mean(diff) < 0.01 and np.quantile(diff, 0.999) < 0.5
-    for k in gref._fields:
-        a, b = getattr(gref, k), getattr(g, k)
-        assert bool(torch.isfinite(b).all()), k
-        if a.numel():
-            torch.testing.assert_close(b, a, rtol=1e-3,
+    assert {k: mb.LAUNCHES[k] - before[k] for k in before} == {
+        k: {"mega_bwd_primal_tree": 1, "mega_bwd_refit": 1,
+            "mega_bwd_rev": 3}.get(k, 0) for k in before}
+    for a, b, c in zip(first, again, (p.grad for p in leaves)):
+        assert float(a.abs().max()) > 0
+        for x in (b, c):
+            torch.testing.assert_close(x, a, rtol=1e-3,
                                        atol=1e-4 * float(a.abs().max()))
+    with pytest.raises(RuntimeError, match="second time"):
+        loss.backward()
 
 
 def test_optimize_goes_through_the_bwd_kernel(cuda, tmp_path):
-    """Three Adam steps on the card: one primal and one fwd+bwd launch per
-    step, no K1 launch, a falling loss, and the loss history of the plain
-    version on the CPU within rtol 1e-3."""
+    """Three Adam steps on the card over the coarse gauge's tree: per step
+    one refit, one tree primal (writing its records) and one reverse
+    kernel, no other launch, a falling loss, and the loss history of the
+    plain version on the CPU within rtol 1e-3."""
     from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
     from advanced_cpu_raytracing_tpu_torch.diff.params import inject_params
     from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
@@ -440,8 +618,9 @@ def test_optimize_goes_through_the_bwd_kernel(cuda, tmp_path):
     before = dict(mb.LAUNCHES), dict(mk.LAUNCHES)
     _, hist = optimize(inject_params(pack, start), cam, px, py, opts, target,
                        ("mat_diffuse",), steps=3, device=cuda)
-    assert mb.LAUNCHES["mega_bwd_primal"] == before[0]["mega_bwd_primal"] + 3
-    assert mb.LAUNCHES["mega_bwd"] == before[0]["mega_bwd"] + 3
+    assert {k: mb.LAUNCHES[k] - before[0][k] for k in before[0]} == {
+        k: 3 * int(k in ("mega_bwd_refit", "mega_bwd_primal_tree",
+                         "mega_bwd_rev")) for k in before[0]}
     assert dict(mk.LAUNCHES) == before[1]
     assert hist[-1] < hist[0]
     cpu_pack = pack_scene(cfg, device="cpu")
@@ -577,7 +756,7 @@ def test_k2c_kernel_matches_plain_version(cuda, tmp_path, monkeypatch, name,
     from advanced_cpu_raytracing_tpu_torch.ops import megabwd as mb
 
     if tree:
-        monkeypatch.setattr(mk, "FLAT_MAX_FACES", 0)
+        monkeypatch.setattr(mk, "FWD_FLAT_MAX_FACES", 0)
     _, _, f, _, o, d, _, _ = _k2c_scene(cuda, tmp_path, name)
     bc = f.bc
     assert bc.variant == ("mega_bwd" + ("_pt" if name == "pt" else "")
@@ -591,9 +770,9 @@ def test_k2c_kernel_matches_plain_version(cuda, tmp_path, monkeypatch, name,
     prim = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1)
     got, g = mb.mega_bwd_trace(bc, tabs, o, d, draws, seed=3, step=1, gbar=gbar)
     torch.cuda.synchronize()
-    primal = bc.variant.replace("mega_bwd", "mega_bwd_primal")
     assert {k: mb.LAUNCHES[k] - before[k] for k in before} == {
-        k: int(k in (bc.variant, primal)) for k in before}
+        k: int(k in (bc.backward_kernel, bc.primal_kernel))
+        + 2 * int(tree and k == "mega_bwd_refit") for k in before}
     ref, gref = mb.mega_bwd_trace_ref(bc, tabs, o, d, draws, gbar)
     for out in (prim, got):
         diff = (out - ref).abs().cpu().numpy()
@@ -787,15 +966,14 @@ def test_render_backward_scatters_only_what_needs_a_gradient(cuda, tmp_path,
 
     f, pack, tabs, o, d, gbar = _quad_case(cuda, tmp_path, n_tex=16)
     seen = []
-    trace = mb.mega_bwd_trace
+    backward = mb._Launch.backward
 
-    def spy(*args, **kw):
-        res = trace(*args, **kw)
-        if kw.get("gbar") is not None:
-            seen.append((kw.get("scatter"), res[1]))
+    def spy(self, gbar_, targets, rec=None):
+        res = backward(self, gbar_, targets, rec)
+        seen.append((targets, res[1]))
         return res
 
-    monkeypatch.setattr(mb, "mega_bwd_trace", spy)
+    monkeypatch.setattr(mb._Launch, "backward", spy)
     before = mb.LAUNCHES["mega_bwd_tex"]
     atlas = pack.img_atlas.detach().clone().requires_grad_(True)
     img = f({"img_atlas": atlas}, o, d)

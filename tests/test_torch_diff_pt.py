@@ -422,7 +422,7 @@ def test_the_gauge_rates_make_the_loss_fall_at_every_step(tmp_path):
         "verts": pack.verts + torch.as_tensor(rng.normal(
             0.0, 0.01, tuple(pack.verts.shape)).astype(np.float32))}
     f = mb.make_diff_render(pack, opts, device="cpu")
-    assert f.bc.variant == "mega_bwd" and f.bc.has_dielectric
+    assert f.bc.variant == "mega_bwd_tree" and f.bc.has_dielectric
     with torch.no_grad():
         target = f({}, *generate_rays(cam, px, py))
     rates = GAUGE_RATES

@@ -57,7 +57,7 @@ def test_gauge_mode_falls(tmp_path):
     s = inverse_render.run("gauge", steps=3, spp=1, res=10, lr=2e-2,
                            device="cpu", log=lambda _: None)
     h = s["loss_history"]
-    assert s["variant"] == "mega_bwd" and s["fields"] == ["mat_diffuse",
+    assert s["variant"] == "mega_bwd_tree" and s["fields"] == ["mat_diffuse",
                                                           "pl_intensity"]
     assert all(np.isfinite(h)) and all(b < a for a, b in zip(h, h[1:])), h
 

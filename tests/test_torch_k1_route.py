@@ -6,8 +6,8 @@ which adds the tree past ``FWD_FLAT_MAX_FACES`` work items (one 128-face
 chunk), so the main paths' scenes walk 4-wide nodes over 4-row leaves
 (``LEAF_ROWS``) in place of the flat chunk sweep; a scene of one chunk
 keeps the flat kernel, and the differentiable render (``build_bwd_consts``,
-K2) keeps the tree past ``FLAT_MAX_FACES`` only, over 16-row leaves
-(``BWD_LEAF_ROWS``).  Here:
+K2) takes the same threshold and leaves (its boxes refit per call,
+``tests/test_torch_k2a_tree.py``).  Here:
 
 * the route: which instantiation each main path's scene takes, forward and
   differentiable;
@@ -132,8 +132,9 @@ def test_route_follows_only_its_own_threshold(monkeypatch):
 def test_bwd_build_keeps_the_flat_max_faces_threshold(tmp_path, monkeypatch,
                                                       flat_max):
     """K2's tables (build_bwd_consts) on the gauge scene (32,768 torus
-    faces): the flat chunks, unless FLAT_MAX_FACES is lowered; then the
-    tree over K2's 16-row leaves."""
+    faces) take the forward route's threshold (FWD_FLAT_MAX_FACES) alone:
+    with FLAT_MAX_FACES as it is or lowered, the tree over LEAF_ROWS-row
+    leaves, the forward route's tree."""
     if flat_max is not None:
         monkeypatch.setattr(mk, "FLAT_MAX_FACES", flat_max)
     cfg = load_scene(gauge_scene_xml(tmp_path, REPO / "scenes"))
@@ -141,10 +142,15 @@ def test_bwd_build_keeps_the_flat_max_faces_threshold(tmp_path, monkeypatch,
     opts = renderer.options_for_camera(cfg, cfg.cameras[0])
     bc = mb.build_bwd_consts(pack, opts, device="cpu")
     assert bc.mc.n_tri > mk.FWD_FLAT_MAX_FACES
-    assert bc.variant == ("mega_bwd" if flat_max is None else "mega_bwd_tree")
-    if flat_max is not None:
-        assert bc.mc.tree_leaf_rows == mk.BWD_LEAF_ROWS == 16
-        assert_tree_invariants(bc.mc, mk.build_mega(pack, opts, device="cpu")[1])
+    assert bc.variant == "mega_bwd_tree"
+    assert bc.mc.tree_leaf_rows == mk.LEAF_ROWS == 4
+    assert bc.mc.tree_stack <= mk.TREE_STACK
+    tab = mk.build_mega(pack, opts, device="cpu",
+                        flat_max=mk.FWD_FLAT_MAX_FACES)[1]
+    assert_tree_invariants(bc.mc, tab)
+    assert (bc.mc.tree.view(torch.int32)
+            == renderer._mega_build_cached(pack, opts, CPU)[0].tree
+            .view(torch.int32)).all()
 
 
 def _brute(mc, tab, o, d, tau=None):
