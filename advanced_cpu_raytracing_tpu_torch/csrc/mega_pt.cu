@@ -53,7 +53,16 @@
 // it indexes the draws exactly as the TPU does.  Draws come from a table
 // (max_iters * n_draws, n) when one is given, else from Philox4x32-10 keyed
 // by (seed, sample) with counter (ray, it, slot / 4, 0) — the layout of
-// ops/rng.py, whose torch twin computes the same words.  The stack holds
+// ops/rng.py, whose torch twin computes the same words.  A Philox block is
+// 10 rounds of two __umulhi and two 32-bit multiplies, about 90 integer
+// instructions, and its four words are four neighbouring slots; the
+// kernels used to run one per draw and keep one word.  A node's draws
+// (Russian roulette 0, the GI pair 1-2, a mesh light's three, an area
+// light's pair, up to 16 env candidates of three, the roughness pairs) go
+// in slot order through a cursor (Draws) that keeps its last block, so
+// each block is computed once for its words, bit for bit the same words
+// (ops/megakernel.py::mega_trace_ref counts the draws and the blocks;
+// chip_smoke.py phases 8, 11 and 14 report both per ray).  The stack holds
 // up to MAX_K = 2 * (10 + 8) + 4 entries (path tracing with dielectrics and
 // Russian roulette at depth 10) in local memory; a push past stack_k is
 // dropped and a pop past it reads zeros, as on the TPU.
@@ -66,6 +75,19 @@
 // shadow rays of its spot and area lights and 6 FP32 operations per test
 // of a moving face or sphere; the BRDF constants that the JAX kernel folds in double
 // precision come folded from the host (ops/megakernel.py, MATX_COLS).
+// What bounds them on an NVIDIA H100 80GB HBM3 (700.00 W) is not that
+// work: each thread runs its own divergent chain of dependent loads (the
+// tree walks of the traced, shadow and child rays, texel and table reads)
+// at 4-7 resident blocks of 128 threads an SM, and K1a-K1d reach 2-7% of
+// the FP32 bound.  The per-draw
+// Philox was 4% of K1b's and K1d's time: the cursor took it out (K1b
+// 0.313 -> 0.304 ms, K1d 1.171 -> 1.125 on their main paths' rays), and
+// K1b held to 72 registers runs 7 blocks an SM (0.290 ms).  On K1d's
+// feat_textures.xml, leaving out the shadow rays saves 37% of its time,
+// the env light's term 18% (its rejection loop, atan2f/acosf and a texel
+// on every lit node), the texture work 16%, Perlin 5% (PERF.md section 6,
+// PR 14's design table); capping K1d's registers spills and gains nothing
+// on that scene.
 
 #include "mega_common.cuh"
 #include "mega_tex.cuh"
@@ -125,22 +147,39 @@ struct ExtParams {
   const float* smo;  // per-sphere object-space motion (n_sph, 3), or null
 };
 
-// Draw `slot` of node iteration `it` of ray i (the JAX kernel's rnd)
-__device__ __forceinline__ float rnd(const PtParams& Q, int i, int it,
-                                     int slot) {
-  if (Q.draws != nullptr) {
-    const size_t row =
-        static_cast<size_t>(min(it, Q.g.max_iters - 1) * Q.n_draws + slot);
-    return __ldg(Q.draws + row * Q.n + i);
+// The draws of node iteration `it` of ray i (the JAX kernel's rnd(it,
+// slot)): table row min(it, max_iters - 1) * n_draws + slot, or word
+// slot % 4 of the Philox block (i, it, slot / 4).  The cursor keeps the
+// last block it computed and computes another only when a slot leaves it,
+// so a node's draws, made in slot order, cost one Philox4x32-10 per block
+// and not one per draw; the words are the same either way.
+struct Draws {
+  const PtParams& Q;
+  const int i, it;
+  int blk = -1;
+  uint4 w;
+
+  __device__ __forceinline__ Draws(const PtParams& q, int ray, int iter)
+      : Q(q), i(ray), it(iter) {}
+
+  __device__ __forceinline__ float operator()(int slot) {
+    if (Q.draws != nullptr) {
+      const size_t row =
+          static_cast<size_t>(min(it, Q.g.max_iters - 1) * Q.n_draws + slot);
+      return __ldg(Q.draws + row * Q.n + i);
+    }
+    if ((slot >> 2) != blk) {
+      blk = slot >> 2;
+      w = philox(make_uint4(static_cast<unsigned>(i),
+                            static_cast<unsigned>(it),
+                            static_cast<unsigned>(blk), 0u),
+                 Q.seed, Q.sample);
+    }
+    const int k = slot & 3;
+    const unsigned x = k == 0 ? w.x : k == 1 ? w.y : k == 2 ? w.z : w.w;
+    return static_cast<float>(x >> 9) * (1.0f / 8388608.0f);
   }
-  const uint4 w = philox(make_uint4(static_cast<unsigned>(i),
-                                    static_cast<unsigned>(it),
-                                    static_cast<unsigned>(slot >> 2), 0u),
-                         Q.seed, Q.sample);
-  const int k = slot & 3;
-  const unsigned x = k == 0 ? w.x : k == 1 ? w.y : k == 2 ? w.z : w.w;
-  return static_cast<float>(x >> 9) * (1.0f / 8388608.0f);
-}
+};
 
 // Default diffuse + Blinn-Phong with unit irradiance along unit w_i
 // (GetDiffuse/GetSpecular, raytracer.cpp:540-554) for material row m.
@@ -250,9 +289,12 @@ __device__ __forceinline__ void shade(const float* m, const float* mx,
 
 // Glossy perturbation (Raytracer::Reflect, raytracer.cpp:424-440): a
 // becomes unit(a + (u p1 + v p2) roughness), (u, v) the basis around
-// unit(a), where the material is rough, else unit(a).
+// unit(a), where the material is rough, else unit(a); p1, p2 are draws
+// `slot` and `slot` + 1, less 0.5.
 __device__ __forceinline__ void perturb(float& ax, float& ay, float& az,
-                                        float p1, float p2, float rough) {
+                                        Draws& rnd, int slot, float rough) {
+  const float p1 = rnd(slot) - 0.5f;
+  const float p2 = rnd(slot + 1) - 0.5f;
   float bx = ax, by = ay, bz = az;
   norm3(bx, by, bz);
   if (rough > ROUGH_MIN) {
@@ -274,7 +316,7 @@ __device__ __forceinline__ void perturb(float& ax, float& ay, float& az,
 // area |n.w| / d^2): direction, distance and irradiance at p.
 template <class Ext>
 __device__ __forceinline__ void ext_light(const PtParams& Q, const Ext& E,
-                                          int i, int it, int l, float px,
+                                          Draws& rnd, int l, float px,
                                           float py, float pz, float& wix,
                                           float& wiy, float& wiz,
                                           float& limit, float& ir, float& ig,
@@ -292,8 +334,8 @@ __device__ __forceinline__ void ext_light(const PtParams& Q, const Ext& E,
       const int a = l - E.n_spot;
       A = E.al + a * AREA_COLS;
       const int slot = 3 + 3 * Q.n_ml + 2 * a;
-      const float o1 = rnd(Q, i, it, slot) - 0.5f;
-      const float o2 = rnd(Q, i, it, slot + 1) - 0.5f;
+      const float o1 = rnd(slot) - 0.5f;
+      const float o2 = rnd(slot + 1) - 0.5f;
       const float ext = A[9];
       tlx = A[0] + A[11] * (ext * o1) + A[14] * (ext * o2) - px;
       tly = A[1] + A[12] * (ext * o1) + A[15] * (ext * o2) - py;
@@ -364,7 +406,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
   if constexpr (M::kOn) {
     mo.tri = E.tmo;
     mo.sph = E.smo;
-    mo.tau = rnd(Q, i, 0, Q.n_draws - 1);
+    mo.tau = Draws(Q, i, 0)(Q.n_draws - 1);
   }
   int n_sa = 0;  // spot and area lights
   int base_rough = 0;
@@ -379,6 +421,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
   }
 
   for (int it = 0; act && it < P.max_iters; ++it) {
+    Draws rnd(Q, i, it);  // this node's draws
     Hit h;
     mt::Surface S;
     if constexpr (T::kOn) {
@@ -477,14 +520,15 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
       if (rr) {
         const float maxw = fmaxf(cwx, fmaxf(cwy, cwz));
         const float prob = fminf(fmaxf(maxw, 1e-4f), 1.0f);
-        const bool kill = cdep <= 0 && rnd(Q, i, it, 0) > prob;
+        const bool kill = cdep <= 0 && rnd(0) > prob;
         gi_alive = shadeable && !kill && cdep > -Q.rr_floor;
         rr_scale = cdep <= 0 ? 1.0f / prob : 1.0f;
       } else {
         gi_alive = shadeable && cdep > 0;
       }
       if (gi_alive) {
-        const float r1 = rnd(Q, i, it, 1), r2 = rnd(Q, i, it, 2);
+        const float r1 = rnd(1);
+        const float r2 = rnd(2);
         gi_direction(nx, ny, nz, r1, r2, importance, gdx, gdy, gdz);
         // the reference's hard-coded GI epsilon (raytracer.cpp:174)
         gox = px + nx * 1e-4f;
@@ -530,7 +574,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
           ig = L[4];
           ib = L[5];
         } else if (Ext::kOn && l < P.n_point + P.n_dir + n_sa) {
-          ext_light(Q, E, i, it, l - P.n_point - P.n_dir, px, py, pz, wix, wiy,
+          ext_light(Q, E, rnd, l - P.n_point - P.n_dir, px, py, pz, wix, wiy,
                     wiz, limit, ir, ig, ib);
         } else {
           // mesh light: a face picked uniformly, a sqrt-warped barycentric
@@ -540,12 +584,12 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
           const float* L = Q.mll + ml * ML_LIGHT_COLS;
           const int first = static_cast<int>(L[3]);
           const int count = static_cast<int>(L[4]);
-          const float uf = rnd(Q, i, it, 3 + 3 * ml);
+          const float uf = rnd(3 + 3 * ml);
           const int fsel =
               min(static_cast<int>(uf * static_cast<float>(count)), count - 1);
           const float* F = Q.mlf + (first + fsel) * ML_FACE_COLS;
-          const float b1 = rnd(Q, i, it, 4 + 3 * ml);
-          const float b2 = rnd(Q, i, it, 5 + 3 * ml);
+          const float b1 = rnd(4 + 3 * ml);
+          const float b2 = rnd(5 + 3 * ml);
           const float sq = sqrtf(b1);
           const float qx = F[3] * (1.0f - b2) + F[6] * b2;
           const float qy = F[4] * (1.0f - b2) + F[7] * b2;
@@ -589,9 +633,9 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
           // shadow ray (reference quirks, kept)
           float ex = nx, ey = ny, ez = nz;
           for (int ci = 0; ci < 16; ++ci) {
-            const float cx = 2.0f * rnd(Q, i, it, base_env + 3 * ci) - 1.0f;
-            const float cy = 2.0f * rnd(Q, i, it, base_env + 3 * ci + 1) - 1.0f;
-            const float cz = 2.0f * rnd(Q, i, it, base_env + 3 * ci + 2) - 1.0f;
+            const float cx = 2.0f * rnd(base_env + 3 * ci) - 1.0f;
+            const float cy = 2.0f * rnd(base_env + 3 * ci + 1) - 1.0f;
+            const float cz = 2.0f * rnd(base_env + 3 * ci + 2) - 1.0f;
             if (cx * cx + cy * cy + cz * cz <= 1.0f &&
                 cx * nx + cy * ny + cz * nz > 0.0f) {
               ex = cx;
@@ -662,8 +706,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
         norm3(rx, ry, rz);
         if constexpr (Ext::kOn) {
           if (P.flags & FLAG_ROUGH)
-            perturb(rx, ry, rz, rnd(Q, i, it, base_rough) - 0.5f,
-                    rnd(Q, i, it, base_rough + 1) - 0.5f, mx[0]);
+            perturb(rx, ry, rz, rnd, base_rough, mx[0]);
         }
         float f = 1.0f;
         bool go = true;
@@ -716,8 +759,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
         norm3(rdx, rdy, rdz);
         if constexpr (Ext::kOn) {  // the same psi pair as the mirror's
           if (P.flags & FLAG_ROUGH)
-            perturb(rdx, rdy, rdz, rnd(Q, i, it, base_rough) - 0.5f,
-                    rnd(Q, i, it, base_rough + 1) - 0.5f, mx[0]);
+            perturb(rdx, rdy, rdz, rnd, base_rough, mx[0]);
         }
         new_act = true;
         nox = px + nmx * eps;
@@ -757,8 +799,7 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
             float fdz = (cdz + nmz * cos_i) * ratio_n - nmz * cos_p;
             if constexpr (Ext::kOn) {
               if (P.flags & FLAG_ROUGH)  // perturbed on the raw vector
-                perturb(fdx, fdy, fdz, rnd(Q, i, it, base_rough + 2) - 0.5f,
-                        rnd(Q, i, it, base_rough + 3) - 0.5f, mx[0]);
+                perturb(fdx, fdy, fdz, rnd, base_rough + 2, mx[0]);
               else
                 norm3(fdx, fdy, fdz);
             } else {
@@ -873,7 +914,10 @@ __device__ void shade_pt(const PtParams& Q, const Ext& E, const T& X,
 
 // ---- kernel and C interface (loaded with ctypes) ----
 
-__global__ void __launch_bounds__(THREADS)
+// K1b held to 72 registers (7 blocks of 128 threads an SM, from 6 at its
+// 80; 82 bytes of spills): 0.304 -> 0.290 ms on feat_pt.xml's 640,000 rays
+// on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6, PR 14)
+__global__ void __launch_bounds__(THREADS, 7)
 mega_pt_kernel(PtParams Q, const float* __restrict__ o,
                const float* __restrict__ d, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;

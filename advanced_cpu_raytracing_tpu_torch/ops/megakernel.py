@@ -1489,7 +1489,11 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
     tests are of a face or sphere that moves (``tri_motion_tests``,
     ``sphere_motion_tests``), the numbers of traced nodes, GI rays and
     shadow rays, and the Perlin evaluations, texel taps and env
-    candidates (``perlin_evals``, ``texel_taps``, ``env_candidates``)."""
+    candidates (``perlin_evals``, ``texel_taps``, ``env_candidates``; the
+    lit nodes whose 16 candidates all failed, ``env_exhausted``), and
+    in a scene that draws, the kernel's draws (``draws``: one Philox4x32-10
+    each before its per-node cursor) and the Philox blocks that cursor
+    computes for them in counter mode (``philox_blocks``)."""
     dev, f32 = o.device, torch.float32
     r = o.shape[0]
     if mc.n_draws and (draws is None or tuple(draws.shape) != (
@@ -1547,6 +1551,9 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
     # last slot (megakernel.py:1776-1779)
     tau_all = (rng.rnd(draws, 0, mc.n_draws - 1, mc.max_iters, mc.n_draws)
                if mc.has_motion else None)
+    if tau_all is not None:  # drawn once per primary ray, a block of its own
+        count("draws", r)
+        count("philox_blocks", r)
 
     def mask_of(matf, mtype):
         m = torch.zeros_like(matf, dtype=torch.bool)
@@ -1573,6 +1580,20 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
 
         def rnd(slot):
             return rng.rnd(draws, it, slot, mc.max_iters, mc.n_draws)[idx]
+
+        # the kernel's Philox block of this node per ray (-1: none yet)
+        blk = torch.full(idx.shape, -1, dtype=torch.int64, device=dev)
+
+        def drawn(gate, *slots):
+            """Count the draws ``slots`` that the kernel makes, in that
+            order, on the rays ``gate`` of this node."""
+            nonlocal blk
+            if stats is None:
+                return
+            for slot in slots:
+                count("draws", gate.sum())
+                count("philox_blocks", (gate & (blk != slot >> 2)).sum())
+                blk = torch.where(gate, slot >> 2, blk)
 
         g = [x[idx] for x in (*co, *cd, *cw, *ca, cmed)]
         cox, coy, coz, cdx, cdy, cdz, cwx, cwy, cwz, cax, cay, caz, med = g
@@ -1656,6 +1677,7 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                 maxw = torch.maximum(cwx, torch.maximum(cwy, cwz))
                 prob = torch.clamp(maxw, 1e-4, 1.0)
                 kill = (rnd(0) > prob) & (dep <= 0)
+                drawn(dep <= 0, 0)
                 gi_alive = shadeable & ~kill & (dep > -mc.rr_floor)
                 rr_scale = torch.where(dep <= 0, 1.0 / prob, 1.0)
             else:
@@ -1663,6 +1685,7 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                 rr_scale = ones[idx]
             gdx, gdy, gdz = _gi_direction(nx, ny, nz, rnd(1), rnd(2),
                                           mc.pt_importance)
+            drawn(gi_alive, 1, 2)
             # the reference's hard-coded GI epsilon (raytracer.cpp:174)
             gox, goy, goz = px + nx * 1e-4, py + ny * 1e-4, pz + nz * 1e-4
             gi = gi_alive.nonzero().squeeze(1)
@@ -1757,6 +1780,7 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
         for ai, al in enumerate(mc.area_lights.tolist() if sample_direct else ()):
             o1 = rnd(base_area + 2 * ai) - 0.5
             o2 = rnd(base_area + 2 * ai + 1) - 0.5
+            drawn(lit, base_area + 2 * ai, base_area + 2 * ai + 1)
             ext = al[9]
             tlx, tly, tlz = (al[c] + al[11 + c] * (ext * o1)
                              + al[14 + c] * (ext * o2) - p
@@ -1790,6 +1814,7 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             inv = 1.0 / dist
             wi = (tx * inv, ty * inv, tz * inv)
             gate_in = lit if skip_ml is None else lit & (skip_ml != float(li))
+            drawn(gate_in, 3 + 3 * li, 4 + 3 * li, 5 + 3 * li)
             blocked = shadow_of(gate_in, wi, dist)
             wgt = face[:, 9]
             lrgb = add_light(lrgb, wi, [rad * wgt * TWO_PI for rad in
@@ -1805,6 +1830,8 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             n_cand = torch.zeros(idx.shape[0], dtype=torch.int64, device=dev)
             for ci in range(16):
                 n_cand = n_cand + (~accepted).to(torch.int64)
+                drawn(lit & ~accepted, *range(base_env + 3 * ci,
+                                              base_env + 3 * ci + 3))
                 cx_ = 2.0 * rnd(base_env + 3 * ci) - 1.0
                 cy_ = 2.0 * rnd(base_env + 3 * ci + 1) - 1.0
                 cz_ = 2.0 * rnd(base_env + 3 * ci + 2) - 1.0
@@ -1816,6 +1843,7 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                 ez = torch.where(take, cz_, ez)
                 accepted = accepted | ok
             count("env_candidates", n_cand[lit].sum())
+            count("env_exhausted", (lit & ~accepted).sum())
             sel = lit.nonzero().squeeze(1)
             erad = torch.zeros((idx.shape[0], 3), dtype=f32, device=dev)
             if sel.numel():
@@ -1859,6 +1887,11 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                 is_rough = rough > ROUGH_MIN
                 rp1 = rnd(base_rough) - 0.5
                 rp2 = rnd(base_rough + 1) - 0.5
+                # every mirror, conductor and dielectric child draws the
+                # reflection's pair, a dielectric's refraction leg the next
+                spec = (mask_of(matf, _MIRROR) | mask_of(matf, _CONDUCTOR)
+                        | mask_of(matf, _DIELECTRIC))
+                drawn(shadeable & can & spec, base_rough, base_rough + 1)
                 rx, ry, rz = _perturb(rx, ry, rz, rp1, rp2, rough, is_rough)
             mir = [mat_field(mi, c) for c in (10, 11, 12)]
             if mc.has_mirror:
@@ -1968,6 +2001,7 @@ def mega_trace_ref(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
                 f0y = (cdy + nmy * cos_i) * ratio_n - nmy * cos_p
                 f0z = (cdz + nmz * cos_i) * ratio_n - nmz * cos_p
                 if mc.has_rough:  # perturbed on the raw vector (366-375)
+                    drawn(is_rl & (sp_i < k), base_rough + 2, base_rough + 3)
                     fdx, fdy, fdz = _perturb(
                         f0x, f0y, f0z, rnd(base_rough + 2) - 0.5,
                         rnd(base_rough + 3) - 0.5, rough, is_rough)

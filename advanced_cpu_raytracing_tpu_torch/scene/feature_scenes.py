@@ -602,6 +602,39 @@ def env_xml(image: str = "env.exr", mirror: bool = True,
 </Scene>"""
 
 
+# mesh and area lights of env_aligned_xml by the env draws' first slot mod
+# 4: base_env = 3 + 3 n_ml + 2 n_area (ops/rng.py's slot layout) is 8, 5,
+# 6 and 7, so the 48 env draws start at each word of a Philox block
+ENV_ALIGNED_LIGHTS = {0: (1, 1), 1: (0, 1), 2: (1, 0), 3: (0, 2)}
+
+
+def env_aligned_xml(align: int, image: str = "env64x32.exr") -> str:
+    """``env_xml`` with a rough mirror and the mesh and area lights of
+    ``ENV_ALIGNED_LIGHTS[align]``: its env candidates' draws start at word
+    ``align`` of a Philox block, its roughness pair above them."""
+    n_ml, n_area = ENV_ALIGNED_LIGHTS[align]
+    xml = env_xml(image, roughness=0.2)
+    areas = "".join(
+        f"""<AreaLight id="{a + 1}"><Position>{3.0 * a - 1.5} 3 1</Position>
+      <Normal>0 -1 0</Normal><Size>1</Size><Radiance>40 38 36</Radiance>
+    </AreaLight>""" for a in range(n_area))
+    xml = xml.replace("</Lights>", areas + "</Lights>")
+    if n_ml:
+        xml = xml.replace("</Materials>", """<Material id="3">
+      <AmbientReflectance>0 0 0</AmbientReflectance>
+      <DiffuseReflectance>0 0 0</DiffuseReflectance>
+      <SpecularReflectance>0 0 0</SpecularReflectance>
+      <PhongExponent>1</PhongExponent></Material>
+  </Materials>""")
+        xml = xml.replace("    0 0 -2\n", """    0 0 -2
+    -0.5 2.5 0.5   0.5 2.5 0.5   0.5 2.5 -0.5   -0.5 2.5 -0.5
+""")
+        xml = xml.replace("  </Objects>", """    <LightMesh id="2"><Material>3</Material>
+      <Radiance>20 19 18</Radiance><Faces>6 7 8  6 8 9</Faces></LightMesh>
+  </Objects>""")
+    return xml
+
+
 def write_random_png(path, w: int, h: int, seed: int) -> None:
     """Uniform random LDR texels from a seed (the JAX tests'
     ``_write_test_png``)."""

@@ -12,9 +12,10 @@ Phases, each printing one JSON line:
      wavefront's dense closest hit) and csrc/bigtex_gather.cu (K4, the
      big-texture probe's gather-sum), with ptxas's register, frame and spill lines per kernel
      (kept beside a cached library); the flat instantiations must keep
-     their registers: K1a 72, K1b 77, K1c 84 (90 with motion), K1d 123
-     (128 with motion), K2a 88 (primal; 96 its tree twin, both writing
-     their records) and 128 (the reverse kernel, capped), K2b 80
+     their registers: K1a 72, K1b 72 (capped at 7 blocks an SM), K1c 89
+     (94 with motion), K1d 127 (127 with motion), K2a 88 (primal; 96 its
+     tree twin, both writing their records) and 128 (the reverse kernel,
+     capped), K2b 80
      (primal) and 164 (fwd+bwd; the per-target, warp-summed scatter), K3
      50 (the rejection before dividing), K4 27; K2's tree twins, which
      inline the walk of csrc/mega_common.cuh, KEPT_REGISTERS' counts; and
@@ -49,8 +50,11 @@ Phases, each printing one JSON line:
      timed frames; then one frame each of feat_pt_rr.xml (16 spp) and
      feat_pt_spec.xml (1 spp), checked finite and sane;
   8. K1b at its main path's shape (640,000 rays of one sample, Philox):
-     time per launch, the plain version's time and error on the same rays
-     and draws, and the bound of the counted FP32 work;
+     time per launch (CUDA events around the wrapper, and the kernel's
+     device time), the plain version's time and error on the same rays
+     and draws, the bound of the counted FP32 work, and beside it the
+     draws and the Philox blocks the kernel computes per ray (counted by
+     the plain version; this phase and 11, 14 and 17 alike);
   9. K1c (mega_ext) against its plain version on 65,536 primary rays in
      both draw modes on the scenes of
      advanced_cpu_raytracing_tpu_torch/scene/feature_scenes.py (spot +
@@ -78,7 +82,11 @@ Phases, each printing one JSON line:
      textures, the background texture, transformed maps, sphere textures
      and bumps, the env light with small and large maps and with a rough
      mirror, scenes/feat_spotareaml.xml under the env light as Whitted and
-     as path tracing with a rough glass) and on scenes/feat_textures.xml
+     as path tracing with a rough glass, and the env scenes whose
+     candidates' draws start at each word of a Philox block, 0 to 3
+     (feature_scenes.py::env_aligned_xml: a rough mirror with 0-2 mesh and
+     area lights), these also with every candidate outside the ball, each
+     lit node falling back to its normal) and on scenes/feat_textures.xml
      as Whitted and as path tracing at its depth 4 (NEE + importance
      sampling, by substitution; the plain version on every 4th of the
      65,536 rays); scenes without draws are held to K1a's bound, the others
@@ -351,10 +359,11 @@ REPLACES_K4 = "tools/probe_bigtex.py:31"
 # them with the 4-wide walk; K2b's fwd+bwd kernels with the per-target,
 # warp-summed scatter and K3 with its rejection before dividing, as ptxas
 # gave them; K2a's primal writing its records and its reverse kernel (held
-# at 128 by its launch bounds) as ptxas gave them in slice F3
-KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 77,
-                  "mega_ext_kernel": 84, "mega_ext_motion_kernel": 90,
-                  "mega_tex_kernel": 123, "mega_tex_motion_kernel": 128,
+# at 128 by its launch bounds) as ptxas gave them in slice F3; K1b-K1d with
+# their draws by the Philox block, K1b capped at 7 blocks an SM (slice F4)
+KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 72,
+                  "mega_ext_kernel": 89, "mega_ext_motion_kernel": 94,
+                  "mega_tex_kernel": 127, "mega_tex_motion_kernel": 127,
                   "mega_bwd_primal_kernel": 88,
                   "mega_bwd_primal_tree_kernel": 96, "mega_bwd_rev_kernel": 128,
                   "mega_bwd_primal_pt_kernel": 80, "mega_bwd_pt_kernel": 158,
@@ -553,6 +562,15 @@ def bound(stats: dict, n_bytes: int) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def entry_of(mc) -> str:
+    """The CUDA entry function that ``mega_trace`` launches for the tables
+    ``mc``: K1c and K1d scenes with motion take the motion instantiation."""
+    motion = "_motion" if mc.has_motion and mc.kernel in (
+        "mega_ext", "mega_tex") else ""
+    tree = "_tree" if mc.tree is not None else ""
+    return f"{mc.kernel}{motion}{tree}_kernel"
+
+
 def registers(ptxas: str) -> dict:
     """kernel -> {registers, stack frame, spill stores, spill loads} from
     ptxas -v's lines, by the entry function they follow."""
@@ -690,10 +708,12 @@ def main() -> int:
     from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
         AREA_DEMO_XML,
         COARSE_TORUS,
+        ENV_ALIGNED_LIGHTS,
         K1D_SAMPLED,
         MOTION_ROUGH_XML,
         PT_ENV_TORUS,
         gauge_scene_xml,
+        env_aligned_xml,
         k1c_scenes,
         k1d_scenes,
         path_traced,
@@ -765,7 +785,9 @@ def main() -> int:
                 "max_abs_err": err["max_abs_err"], "ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
                 "bound_by": bd["bound_by"], "library_ms": None, "rays": rays,
-                "plain_stride": stride, "plain_rays": -(-rays // stride)}
+                "plain_stride": stride, "plain_rays": -(-rays // stride),
+                **{k: bd[k] for k in ("device_ms", "draws_per_ray",
+                                      "philox_blocks_per_ray") if k in bd}}
 
     def scene(path_or_xml, name=None):
         """A scene file, an XML text (written to ``name``) or a
@@ -905,6 +927,10 @@ def main() -> int:
         got = mk.mega_trace(mc, tri_tab, chunk_tab, o, d, seed=0, sample=0)
         kernel_ms = cuda_ms(lambda: mk.mega_trace(mc, tri_tab, chunk_tab, o, d,
                                                   seed=0, sample=0), 5)
+        # the kernel's own device time, without the wrapper's host work
+        dev_ms = device_ms(lambda: mk.mega_trace(mc, tri_tab, chunk_tab, o, d,
+                                                 seed=0, sample=0),
+                           entry_of(mc))
         n_rays = o.shape[0]
         stats: dict = {}
         torch.cuda.synchronize()
@@ -945,6 +971,13 @@ def main() -> int:
                          rows_read=int(reads["rows"].sum()),
                          rows_won=int(reads["won"].sum()))
         plain_stride = -(-n_rays // o.shape[0])
+        # Philox4x32-10 evaluations per ray in counter mode: one per draw
+        # before the kernels' per-node cursor (PRs 2-13), one per block the
+        # cursor computes since
+        bd["draws_per_ray"] = stats.get("draws", 0) * count_stride / n_rays
+        bd["philox_blocks_per_ray"] = (stats.get("philox_blocks", 0)
+                                       * count_stride / n_rays)
+        bd["device_ms"] = dev_ms
         emit("kernel_at_main_shape", kernel=kernel, rays=n_rays,
              plain_stride=plain_stride, count_stride=count_stride,
              kernel_ms=kernel_ms, plain_ms=plain_ms, **bd, **err, **stats,
@@ -1149,6 +1182,11 @@ def main() -> int:
     tex_dir = out_dir / "k1d"
     variants = [(name, xml, name in K1D_SAMPLED, tex_dir / f"{name}.xml", 1)
                 for name, xml in k1d_scenes(tex_dir, SCENES).items()]
+    # the env candidates' draws from each word of a Philox block on: the
+    # kernel's cursor crosses block edges at every offset
+    variants += [(f"env_aligned{a}", env_aligned_xml(a), True,
+                  tex_dir / f"env_aligned{a}.xml", 1)
+                 for a in sorted(ENV_ALIGNED_LIGHTS)]
     # the main path's scene beside its mesh and textures, Whitted and PT;
     # the plain version's path tracing at depth 4 (247 node iterations over
     # 257 chunks) takes minutes on all 65,536 rays, so its PT check runs on
@@ -1183,10 +1221,20 @@ def main() -> int:
         rows = vmc.max_iters * vmc.n_draws
         gen = torch.Generator(device=dev)
         gen.manual_seed(7)
-        for mode, draws in (
-                ("table", torch.rand((rows, o.shape[0]), generator=gen,
-                                     device=dev) if rows else None),
-                ("philox", None)):
+        modes = [("table", torch.rand((rows, o.shape[0]), generator=gen,
+                                      device=dev) if rows else None),
+                 ("philox", None)]
+        if label.startswith("env_aligned"):
+            # every candidate at (-1, -1, -1), outside the ball: each lit
+            # node draws all 16 and falls back to its normal
+            exhausted = modes[0][1].clone()
+            base_env = (3 + 3 * vmc.ml_lights.shape[0]
+                        + 2 * vmc.area_lights.shape[0])
+            for it in range(vmc.max_iters):
+                row = it * vmc.n_draws + base_env
+                exhausted[row:row + mk.ENV_DRAWS] = 0.0
+            modes.append(("exhausted", exhausted))
+        for mode, draws in modes:
             got = mk.mega_trace(vmc, vtri, vchunk, o, d, draws=draws, seed=13,
                                 sample=6, pix_uv=pix_uv)
             flat = (None if v_flat is None else mk.mega_trace(
@@ -1195,8 +1243,17 @@ def main() -> int:
             if draws is None and rows:
                 draws = philox_table(13, 6, o.shape[0], vmc.max_iters,
                                      vmc.n_draws, device=dev)
-            ref = mk.mega_trace_ref(vmc, vtri, vchunk, o, d, draws=draws,
-                                    pix_uv=pix_uv)
+            # the draw counts of the aligned scenes (one chunk each: no walk
+            # to count)
+            env_stats: dict = {}
+            ref = mk.mega_trace_ref(
+                vmc, vtri, vchunk, o, d, draws=draws, pix_uv=pix_uv,
+                stats=env_stats if label.startswith("env_aligned") else None)
+            if mode == "exhausted" and not (
+                    env_stats["env_exhausted"] * 16
+                    == env_stats["env_candidates"] > 0):
+                raise AssertionError(f"{label}: not every candidate failed: "
+                                     f"{env_stats}")
             for kern, out in (("kernel", got), ("flat_sweep", flat)):
                 if out is None:
                     continue
@@ -1216,7 +1273,11 @@ def main() -> int:
                  rays=o.shape[0], stride=stride, depth=vmc.max_depth,
                  max_iters=vmc.max_iters, stack_k=vmc.stack_k,
                  n_draws=vmc.n_draws, n_textures=vmc.n_textures,
-                 texels=vmc.texels.shape[0], **err, **tol)
+                 texels=vmc.texels.shape[0], **err, **tol,
+                 env_exhausted=env_stats.get("env_exhausted", 0),
+                 philox_blocks_per_ray=env_stats.get("philox_blocks", 0)
+                 / o.shape[0],
+                 draws_per_ray=env_stats.get("draws", 0) / o.shape[0])
         del draws
 
     # 13. the K1d main path, then one frame of its path-tracing variant

@@ -18,7 +18,9 @@ from advanced_cpu_raytracing_tpu_torch.render.renderer import (
     render_camera,
 )
 from advanced_cpu_raytracing_tpu_torch.scene.feature_scenes import (
+    ENV_ALIGNED_LIGHTS,
     K1D_SAMPLED,
+    env_aligned_xml,
     k1d_scenes,
     path_traced,
 )
@@ -285,6 +287,57 @@ def test_tex_kernel_matches_plain_version(cuda, tmp_path, name, mode):
     else:
         assert float(diff.mean()) < 0.01
         assert float(torch.quantile(diff.flatten(), 0.999)) < 0.5
+
+
+@pytest.mark.parametrize("align", sorted(ENV_ALIGNED_LIGHTS))
+@pytest.mark.parametrize("mode", ["philox", "exhausted"])
+def test_tex_kernel_env_draws_at_every_alignment(cuda, tmp_path, align, mode):
+    """K1d against its plain version on the env scene whose candidates'
+    draws start at word ``align`` of a Philox block (the kernel's cursor
+    serves them across block edges at every offset), on 65,536 camera rays:
+    in Philox mode, where a lit node exhausts its 16 candidates about
+    0.74^16 of the time, and in table mode with every candidate at (-1,
+    -1, -1), outside the ball, so every lit node falls back to its normal."""
+    k1d_scenes(tmp_path)  # the env map
+    path = tmp_path / f"env_aligned{align}.xml"
+    path.write_text(env_aligned_xml(align))
+    cfg = load_scene(str(path))
+    pack = pack_scene(cfg, device=cuda)
+    mc, tab, ctab = mk.build_mega(pack, options_for_camera(cfg, cfg.cameras[0]),
+                                  device=cuda)
+    n_ml, n_area = ENV_ALIGNED_LIGHTS[align]
+    base_env = 3 + 3 * n_ml + 2 * n_area
+    assert mc.kernel == "mega_tex" and base_env % 4 == align
+    cam = build_camera(cfg.cameras[0], device=cuda)
+    rng = np.random.default_rng(8 + align)
+    n = 65536
+    w, h = cfg.cameras[0].width, cfg.cameras[0].height
+    px = torch.as_tensor(rng.uniform(0, w, n).astype(np.float32), device=cuda)
+    py = torch.as_tensor(rng.uniform(0, h, n).astype(np.float32), device=cuda)
+    o, d = (t.contiguous() for t in generate_rays(cam, px, py))
+    draws = None
+    if mode == "exhausted":
+        draws = torch.rand((mc.max_iters * mc.n_draws, n), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(9))
+        for it in range(mc.max_iters):
+            row = it * mc.n_draws + base_env
+            draws[row:row + mk.ENV_DRAWS] = 0.0
+    before = dict(mk.LAUNCHES)
+    got = mk.mega_trace(mc, tab, ctab, o, d, draws=draws, seed=3, sample=align)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["mega_tex"] == before["mega_tex"] + 1
+    if draws is None:
+        draws = philox_table(3, align, n, mc.max_iters, mc.n_draws, device=cuda)
+    stats: dict = {}
+    ref = mk.mega_trace_ref(mc, tab, ctab, o, d, draws=draws, stats=stats)
+    diff = (got - ref).abs()
+    assert torch.isfinite(got).all()
+    assert (diff <= 1e-3 + 1e-3 * ref.abs()).all(dim=1).float().mean() >= 0.995
+    assert abs(float(got.mean()) - float(ref.mean())) <= 1e-3 * float(ref.mean())
+    if mode == "exhausted":
+        assert stats["env_exhausted"] * 16 == stats["env_candidates"] > 0
+    else:
+        assert stats["env_exhausted"] >= 100
 
 
 def test_tex_render_camera_launches_once_per_sample(cuda, tmp_path):
