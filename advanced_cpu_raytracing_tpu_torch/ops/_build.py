@@ -114,9 +114,13 @@ _SIGNATURES = {
         "tri_intersect_error_string": (ctypes.c_char_p, [_I]),
     },
     "bigtex_gather": {
-        # idx, tab, n_lanes, taps, n_tab; out; stream
+        # idx, tab, n_lanes, taps, n_tab, window_bytes; the group order's
+        # scratch, two int32 a group (or null); out, paths (or null); stream
         "bigtex_gather_launch": (
-            _I, [_P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _P, _P]),
+            _I, [_P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _I, _P, _P,
+                 _P, _P]),
+        # window_bytes; registers, static shared bytes, blocks an SM out
+        "bigtex_gather_info": (_I, [_I, ctypes.POINTER(_I)]),
         "bigtex_gather_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -22,10 +22,11 @@ only).
 Without size options it runs the JAX probe's ``__main__``: two configurations
 held to its asserts, the sweep of ``spread`` over 8, 64 and 256, and one
 configuration at a frame's size (``FRAME``).  The JAX probe's ``wn``, the
-number of table rows its TPU kernel copies into VMEM per DMA, is not
-ported: a GPU thread reads any address, so there is no window to size.
-Runs on the card unless given ``--device cpu`` (the plain version; use
-small sizes there).
+number of table rows its TPU kernel copies into VMEM per DMA, becomes K4's
+window in bytes (``ops/bigtex_gather.py::WINDOW_BYTES``): a group of 1,024
+lanes whose taps span at most that much of the table is served from one
+copy of it in shared memory, a wider one directly.  Runs on the card
+unless given ``--device cpu`` (the plain version; use small sizes there).
 """
 
 from __future__ import annotations
@@ -38,7 +39,10 @@ import time
 import numpy as np
 import torch
 
-from advanced_cpu_raytracing_tpu_torch.ops.bigtex_gather import gather_sum
+from advanced_cpu_raytracing_tpu_torch.ops.bigtex_gather import (
+    gather_plan_ref,
+    gather_sum,
+)
 from advanced_cpu_raytracing_tpu_torch.utils import profiling
 from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
 
@@ -78,15 +82,20 @@ def make_inputs(n_rows: int, taps: int, spread: int, blocks: int,
     return (rows * LANES + lane).to(torch.int32), tab
 
 
-def traffic(idx) -> dict:
+def traffic(idx, n_tab=None) -> dict:
     """The bytes a gather-sum must move: each index read once, each output
     written once, and each distinct 32-byte sector of the table that the
-    indices touch read once; the least time for them at the card's rate."""
+    indices touch read once; the least time for them at the card's rate.
+    Beside it ``window_bytes``, what K4's windows would copy: each group's
+    span of in-range indices (``gather_plan_ref``; every index >= 0 counts
+    as in range without ``n_tab``), summed over the groups."""
     taps, lanes = idx.shape[0], idx[0].numel()
     sectors = int(torch.unique(idx.reshape(-1) // 8).numel())
     n_bytes = 4 * taps * lanes + 4 * lanes + 32 * sectors
+    spans = gather_plan_ref(idx, 2**31 if n_tab is None else n_tab, 0)["span"]
     return {"sectors": sectors, "bytes": n_bytes,
-            "bound_ms": n_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes"}
+            "bound_ms": n_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+            "window_bytes": int(spans.sum())}
 
 
 def _back_to_back_s(fn, iters: int) -> float:
@@ -124,7 +133,8 @@ def run(n_rows=8192, taps=4, spread=64, blocks=512, iters=20, seed=0,
     return {"n_rows": n_rows, "taps": taps, "spread": spread,
             "blocks": blocks, "lanes": lanes, "iters": iters, "seed": seed,
             "device": str(dev), "err": err, "ms": dt * 1e3,
-            "mlane_samples_per_s": lanes / dt / 1e6, **traffic(idx),
+            "mlane_samples_per_s": lanes / dt / 1e6,
+            **traffic(idx, tab.numel()),
             "library_ms": lib_dt * 1e3, "library_max_abs_err": lib_err}
 
 

@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
      tree twin, both writing their records) and 128 (the reverse kernel,
      capped), K2b 80
      (primal) and 164 (fwd+bwd; the per-target, warp-summed scatter), K3
-     50 (the rejection before dividing), K4 27; K2's tree twins, which
+     50 (the rejection before dividing), K4 31 (its window); K2's tree
+     twins, which
      inline the walk of csrc/mega_common.cuh, KEPT_REGISTERS' counts; and
      each K1 and K2 kernel has a tree instantiation (K1e);
   3. K1a against its plain torch version on 65,536 primary rays of
@@ -296,23 +297,39 @@ Phases, each printing one JSON line:
      (32,768 faces: the plain-torch walk of ops/traverse.py);
  31. K4 (csrc/bigtex_gather.cu, the big-texture probe's gather-sum)
      against its plain version (ops/bigtex_gather.py::gather_sum_ref), bit
-     for bit, on the two configurations the JAX probe asserts (512 rows,
-     taps 1, spread 4, 64 blocks; 8,192 rows, taps 4, spread 16, 512
-     blocks), on the frame-size one (tools/probe_bigtex.py::FRAME:
-     10,240,000 lanes, taps 4, spread 64, 393,216 rows) and on edge lanes
-     (index 0, the last index, a tap repeated in a lane, indices outside
-     the table: NaN in both); at the frame size K4's time per launch with
-     L2 flushed (a 256 MB write before each of 64 launches, CUDA events,
-     the median), embedding_bag's (the same PyTorch function in one call)
-     time the same way and its error, the plain version's time on the card,
-     and the bound (the indices, the output and each touched 32-byte
-     table sector, moved once);
+     for bit (NaN lanes alike, each output poisoned before the call), and
+     its path counts (groups of 1,024 lanes served through a shared-memory
+     window or directly) against gather_plan_ref: on the two
+     configurations the JAX probe asserts (512 rows, taps 1, spread 4, 64
+     blocks; 8,192 rows, taps 4, spread 16, 512 blocks), its sweep over
+     spread 8, 64, 256 with the window and with every group direct, edge
+     lanes (index 0, the last index, a tap repeated in a lane, indices
+     outside the table), spans of the window and of 16 bytes more beside
+     a one-row group, a group with one far lane and a partial last group
+     of NaN lanes (in a table past L2: the groups in window order), an
+     incoherent configuration (spread 8,190 of 8,192 rows: every group
+     direct), a table off 16 bytes and 5 taps (direct), 40,000 groups
+     (more than the order kernel stages in shared memory) and the
+     frame-size configuration (tools/probe_bigtex.py::FRAME: 10,240,000
+     lanes, taps 4, spread 64, 393,216 rows; all 10,000 groups through the
+     window, and all direct with window 0); at the frame size K4's time
+     per call with L2 flushed (a 256 MB write before each of 64 calls,
+     CUDA events, the median) with its window and with every group direct,
+     in turns, embedding_bag's (the same function in one PyTorch call)
+     time the same way and its error, the plain version's time, the
+     device time of each of K4's kernels (torch.profiler), its registers,
+     shared memory and blocks an SM, the bound (the indices, the output
+     and each touched 32-byte table sector, moved once) and the bytes the
+     windows copy;
  32. the slice's main path: the port's tools/probe_bigtex.py::run on the
      card for the JAX probe's __main__ configurations (the two asserted,
      the sweep over spread 8, 64, 256) and the frame-size one — with every
      counter at 0 before it, K4 must launch 1 + 1 + iters times per
      configuration (the check, the warm-up, the timed loop) and nothing
-     else; each err within the JAX probe's asserts (1e-6, 1e-5).
+     else; each err within the JAX probe's asserts (1e-6, 1e-5); then,
+     outside that count, per configuration the host's µs a call over
+     1,000 calls without a synchronise and K4's device time a call
+     (torch.profiler), beside run's back-to-back ms and embedding_bag's.
 Every phase line carries t_s, the seconds since the script started.
 Then the kernels line (each entry with its rays and the plain version's
 stride over them), the card line and, last, the result line.  Any
@@ -360,7 +377,8 @@ REPLACES_K4 = "tools/probe_bigtex.py:31"
 # warp-summed scatter and K3 with its rejection before dividing, as ptxas
 # gave them; K2a's primal writing its records and its reverse kernel (held
 # at 128 by its launch bounds) as ptxas gave them in slice F3; K1b-K1d with
-# their draws by the Philox block, K1b capped at 7 blocks an SM (slice F4)
+# their draws by the Philox block, K1b capped at 7 blocks an SM (slice F4);
+# K4 with its window (slice F5)
 KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 72,
                   "mega_ext_kernel": 89, "mega_ext_motion_kernel": 94,
                   "mega_tex_kernel": 127, "mega_tex_motion_kernel": 127,
@@ -369,7 +387,7 @@ KEPT_REGISTERS = {"mega_whitted_kernel": 72, "mega_pt_kernel": 72,
                   "mega_bwd_primal_pt_kernel": 80, "mega_bwd_pt_kernel": 158,
                   "mega_bwd_primal_pt_tree_kernel": 96,
                   "mega_bwd_pt_tree_kernel": 168, "tri_intersect_kernel": 50,
-                  "bigtex_gather_kernel": 27}
+                  "bigtex_gather_kernel": 31}
 KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_ext_motion_kernel", "mega_tex_kernel",
                   "mega_tex_motion_kernel", "mega_whitted_tree_kernel",
@@ -386,7 +404,8 @@ KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_bwd_pt_tex_kernel",
                   "mega_bwd_primal_pt_tex_tree_kernel",
                   "mega_bwd_pt_tex_tree_kernel", "tri_intersect_kernel",
-                  "bigtex_gather_kernel")
+                  "bigtex_gather_kernel", "bigtex_keys_kernel",
+                  "bigtex_order_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -517,15 +536,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 10, tries: int = 3) -> float:
+def device_ms(fn, kernel: str, reps: int = 10, tries: int = 3,
+              split: bool = False):
     """The device time per call of the kernels whose name holds
     ``kernel``, each launched once per call (torch.profiler over ``reps``
     calls after one warm-up): each kernel's own time, without the
     wrapper's host work between launches, averaged over the launches the
     profile caught (a profile may drop some of them, so a sum over ``reps``
-    would read low).  A profile that caught no such kernel is taken again,
-    up to ``tries`` times, and then raises: a time of 0 is never
-    reported."""
+    would read low); with ``split``, a dict of each kernel's time by name
+    beside their sum ("total").  A profile that caught no such kernel is
+    taken again, up to ``tries`` times, and then raises: a time of 0 is
+    never reported."""
     from torch.autograd import DeviceType
 
     fn()
@@ -540,7 +561,9 @@ def device_ms(fn, kernel: str, reps: int = 10, tries: int = 3) -> float:
                 if r.device_type == DeviceType.CUDA and kernel in r.key
                 and r.count]
         if rows:
-            return sum(r.device_time_total / r.count for r in rows) / 1e3
+            each = {r.key: r.device_time_total / r.count / 1e3 for r in rows}
+            total = sum(each.values())
+            return {**each, "total": total} if split else total
     raise AssertionError(f"device_ms: the profiler caught no {kernel} kernel "
                          f"in {tries} profiles")
 
@@ -2878,12 +2901,20 @@ def main() -> int:
         {"max_abs_err": err28}, n29, 1, library=k3.LIBRARY,
         replaces=REPLACES_K3), "items": w28, "device_ms": k3_dev_ms})
 
-    # 31. K4 against its plain version, bit for bit (NaN lanes alike): the
-    # JAX probe's two asserted configurations, the frame-size one and edge
-    # lanes; at the frame size K4's, embedding_bag's and the plain version's
-    # times with L2 flushed, and the bound
-    def k4_check(what, idx, tab):
-        got = k4.gather_sum(idx, tab)
+    # 31. K4 against its plain version, bit for bit (NaN lanes alike), and
+    # its path counts against gather_plan_ref: the JAX probe's two asserted
+    # configurations, its sweep, the frame-size one, edge lanes and the
+    # window's edges; at the frame size K4's time with its window and with
+    # every group direct (in turns), embedding_bag's and the plain
+    # version's times with L2 flushed, and the bound
+    win31 = k4.WINDOW_BYTES
+
+    def k4_check(what, idx, tab, window=win31, want_paths=None):
+        paths = torch.zeros(2, dtype=torch.int32, device=dev)
+        # freed just before the call: a lane the kernel never writes keeps
+        # this value and fails the comparison
+        torch.full(idx.shape[1:], 7.0, device=dev)
+        got = k4.gather_sum(idx, tab, window, paths)
         ref = k4.gather_sum_ref(idx, tab)
         torch.cuda.synchronize()
         ok = ~torch.isnan(ref)
@@ -2891,19 +2922,33 @@ def main() -> int:
                 and torch.equal(got[ok], ref[ok])):
             raise AssertionError(f"K4 on {what}: differs from its plain "
                                  f"version")
+        plan = list(k4.gather_plan_ref(
+            idx, tab.numel(), window if tab.data_ptr() % 16 == 0 else 0)[
+                "counts"])
+        if paths.tolist() != plan or (want_paths is not None
+                                      and plan != want_paths):
+            raise AssertionError(f"K4 on {what}: paths {paths.tolist()}, "
+                                 f"plan {plan}, expected {want_paths}")
         return {"lanes": got.numel(), "taps": int(idx.shape[0]),
+                "window_bytes": window, "paths": plan,
+                "ordered": window > 0 and k4.ordered(tab),
                 "nan_lanes": int((~ok).sum()),
                 "max_abs_err": float((got[ok] - ref[ok]).abs().max())}
 
-    def k4_inputs(cfg):
+    def k4_inputs(cfg, seed=31):
         return probe_bigtex.make_inputs(
-            cfg["n_rows"], cfg["taps"], cfg["spread"], cfg["blocks"], seed=31,
-            device=dev)
+            cfg["n_rows"], cfg["taps"], cfg["spread"], cfg["blocks"],
+            seed=seed, device=dev)
 
     checks31 = {}
     for (cfg, _), what in zip(probe_bigtex.ASSERTED,
                               ("JAX asserted 1", "JAX asserted 2")):
         checks31[what] = k4_check(what, *k4_inputs(cfg))
+    for cfg in probe_bigtex.SWEEP:
+        idx31, tab31 = k4_inputs(cfg)
+        for w in (win31, 0):
+            checks31[f"spread {cfg['spread']}, window {w}"] = k4_check(
+                f"spread {cfg['spread']}", idx31, tab31, w)
     idx31, tab31 = k4_inputs(probe_bigtex.ASSERTED[0][0])
     n31 = tab31.numel()
     edge31 = torch.tensor(
@@ -2913,10 +2958,55 @@ def main() -> int:
     checks31["edge lanes"] = k4_check("the edge lanes", edge31, tab31)
     if checks31["edge lanes"]["nan_lanes"] != 5:
         raise AssertionError(f"K4 edge lanes: {checks31['edge lanes']}")
+    # the window's edges: a group spanning exactly win31 bytes (window) and
+    # win31 + 16 (direct), beside a group of one table row (window) and a
+    # partial last group of 100 lanes with an index outside the table and
+    # one of its taps all outside (window), in a table past L2 (ordered)
+    gen31 = torch.Generator(device=dev)
+    gen31.manual_seed(31)
+    tab_e = torch.rand(16 * 2**20, generator=gen31, device=dev)
+    g31 = k4.GROUP
+    for extra, want in ((0, [3, 1]), (16, [2, 2])):
+        # group 0 spans [0, hi]: win31 bytes, or win31 + 16
+        hi = (win31 + extra) // 4 - 1
+        ix = torch.randint(0, hi + 1, (4, 3 * g31 + 100), generator=gen31,
+                           device=dev, dtype=torch.int32)
+        ix[0, 0], ix[1, 1] = 0, hi
+        # group 1 within 128 entries; group 2 with one lane 4 MB away
+        ix[:, g31:2 * g31] = 9000 + ix[:, g31:2 * g31] % 128
+        ix[:, 2 * g31] += 2**20
+        # the last group's lanes all NaN: tap 2 outside the table, and one
+        # index below 0
+        ix[:, 3 * g31:] = 100 + ix[:, 3 * g31:] % 512
+        ix[0, 3 * g31 + 7] = -3
+        ix[2, 3 * g31:] = tab_e.numel() + 11
+        checks31[f"span window + {extra}"] = k4_check(
+            f"a span of the window + {extra} bytes", ix, tab_e, win31, want)
+    # incoherent: spread = n_rows - 2, every group direct; a table off 16
+    # bytes and 5 taps, both direct; more groups than the order kernel
+    # stages (its scatter into device memory)
+    inc = dict(n_rows=8192, taps=4, spread=8190, blocks=256)
+    idx_i, tab_i = k4_inputs(inc)
+    checks31["incoherent"] = k4_check("the incoherent configuration", idx_i,
+                                      tab_i, want_paths=[0, 256])
+    checks31["table off 16 bytes"] = k4_check(
+        "a table off 16 bytes", idx31.reshape(1, -1)[:, 1:] - 1,
+        tab31.reshape(-1)[1:], want_paths=[0, 64])
+    checks31["5 taps"] = k4_check(
+        "5 taps", torch.randint(0, n31, (5, 4000), generator=gen31,
+                                device=dev, dtype=torch.int32), tab31,
+        want_paths=[0, 4])
     frame = probe_bigtex.FRAME
+    many = dict(frame, taps=1, blocks=40000)
+    checks31["40,000 groups"] = k4_check(
+        "40,000 groups, 1 tap", *k4_inputs(many), want_paths=[40000, 0])
     idx31, tab31 = k4_inputs(frame)
-    checks31["frame size"] = k4_check("the frame-size configuration", idx31,
-                                      tab31)
+    checks31["frame size"] = k4_check(
+        "the frame-size configuration", idx31, tab31,
+        want_paths=[frame["blocks"], 0])
+    checks31["frame size, direct"] = k4_check(
+        "the frame-size configuration, direct", idx31, tab31, 0,
+        want_paths=[0, frame["blocks"]])
     taps31, lanes31 = idx31.shape[0], idx31[0].numel()
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
 
@@ -2933,7 +3023,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return sorted(a.elapsed_time(b) for a, b in ev)[reps // 2]
 
-    k4_ms = flushed_ms(lambda: k4.gather_sum(idx31, tab31), 64)
+    # in turns: the window, every group direct, direct, the window
+    turns31 = [(w, flushed_ms(lambda: k4.gather_sum(idx31, tab31, w), 64))
+               for w in (win31, 0, 0, win31)]
+    k4_ms = float(np.median([t for w, t in turns31 if w]))
+    k4_direct_ms = float(np.median([t for w, t in turns31 if not w]))
     k4_plain_ms = flushed_ms(lambda: k4.gather_sum_ref(idx31, tab31), 16)
     bags31 = idx31.reshape(taps31, -1).T.contiguous()
     col31 = tab31.reshape(-1, 1)
@@ -2944,19 +3038,33 @@ def main() -> int:
     lib_ms = flushed_ms(embedding_bag, 64)
     ref31 = k4.gather_sum_ref(idx31, tab31).reshape(-1)
     lib_err = float((embedding_bag()[:, 0] - ref31).abs().max())
+    # device time of each of K4's kernels (the keys and the order, then the
+    # gather) with L2 warm
+    dev31 = device_ms(lambda: k4.gather_sum(idx31, tab31), "bigtex",
+                      split=True)
+    info31 = k4.kernel_info()
     # the indices and the output moved once, and each touched 32-byte
     # sector of the table read once, at PEAK_BYTES_S
-    bd31 = probe_bigtex.traffic(idx31)
+    bd31 = probe_bigtex.traffic(idx31, tab31.numel())
+    streams31 = bd31["bytes"] - 32 * bd31["sectors"]
     emit("k4_check", kernel="bigtex_gather", checks=checks31,
-         frame=dict(frame), ms=k4_ms, plain_ms=k4_plain_ms,
-         embedding_bag_ms=lib_ms, embedding_bag_max_abs_err=lib_err,
+         frame=dict(frame), window=win31, ms=k4_ms, direct_ms=k4_direct_ms,
+         turns=turns31, plain_ms=k4_plain_ms, embedding_bag_ms=lib_ms,
+         embedding_bag_max_abs_err=lib_err, device_ms=dev31, info=info31,
          bound=bd31, frac_of_bound=bd31["bound_ms"] / k4_ms,
+         window_bytes=bd31["window_bytes"],
+         window_share=bd31["window_bytes"] / (32 * bd31["sectors"]),
+         window_floor_ms=(bd31["window_bytes"] + streams31) / PEAK_BYTES_S
+         * 1e3,
          timing="one call after a 256 MB write, CUDA events, median of 64 "
-                "(plain: 16)", card=card)
-    del idx31, tab31, bags31, col31, ref31, flush
+                "(plain: 16); the window and direct in turns (W, 0, 0, W); "
+                "device_ms: torch.profiler, L2 warm", card=card)
+    del idx31, tab31, bags31, col31, ref31, flush, tab_e, idx_i, tab_i
 
-    # 32. the slice's main path: the port's probe tool on the card, the JAX
-    # probe's __main__ configurations and the frame-size one
+    # 32. the slice's main path: the port's tools/probe_bigtex.py::run on the
+    # card for the JAX probe's __main__ configurations and the frame-size
+    # one; then, outside the counted run, per configuration the host's time
+    # a call and K4's device time
     runs32, lines32 = [], []
     reset_counts()
     for cfg, tol in probe_bigtex.CONFIGS:
@@ -2972,8 +3080,33 @@ def main() -> int:
     launches32 = counts()
     if any(v for k, v in launches32.items() if k != "bigtex_gather"):
         raise AssertionError(f"probe: launches {launches32}")
+    per32 = []
+    for (cfg, _), res in zip(probe_bigtex.CONFIGS, runs32):
+        idx32, tab32 = probe_bigtex.make_inputs(
+            cfg["n_rows"], cfg["taps"], cfg["spread"], cfg["blocks"],
+            seed=res["seed"], device=dev)
+        k4.gather_sum(idx32, tab32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            k4.gather_sum(idx32, tab32)
+        host_us = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        per32.append({
+            "config": {k: cfg[k] for k in ("n_rows", "taps", "spread",
+                                           "blocks")},
+            "ms": res["ms"], "host_us": host_us,
+            "device_ms": device_ms(lambda: k4.gather_sum(idx32, tab32),
+                                   "bigtex"),
+            "embedding_bag_ms": res["library_ms"],
+            "at_or_below_embedding_bag": res["ms"] <= res["library_ms"],
+            "window_bytes": res["window_bytes"], "bound_ms": res["bound_ms"]})
+        del idx32, tab32
     emit("main_path", kernel="bigtex_gather (tools/probe_bigtex.py)",
-         runs=runs32, lines=lines32,
+         runs=runs32, lines=lines32, per_config=per32,
+         timing="ms: run's back-to-back loop (host clock); host_us: 1,000 "
+                "calls without a synchronise; device_ms: torch.profiler, "
+                "every K4 kernel of a call",
          launches={k: v for k, v in launches32.items() if v}, card=card)
     kernels.append({
         "name": "bigtex_gather", "route": "cuda",
@@ -2983,7 +3116,13 @@ def main() -> int:
         "plain_ms": k4_plain_ms, "bound_ms": bd31["bound_ms"],
         "bound_by": bd31["bound_by"], "library_ms": lib_ms,
         "library": "torch.nn.functional.embedding_bag(mode='sum')",
-        "lanes": lanes31, "taps": taps31, "l2_flushed": True})
+        "lanes": lanes31, "taps": taps31, "l2_flushed": True,
+        "direct_ms": k4_direct_ms, "window_bytes": win31,
+        "paths": checks31["frame size"]["paths"],
+        "registers": info31["registers"],
+        "static_shared_bytes": info31["static_shared_bytes"],
+        "dynamic_shared_bytes": info31["dynamic_shared_bytes"],
+        "blocks_per_sm": info31["blocks_per_sm"], "device_ms": dev31})
 
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1171,6 +1171,112 @@ def test_k4_kernel_matches_plain_version(cuda, taps, spread, n_rows, blocks):
         k4.gather_sum(idx.long(), tab)
 
 
+def _k4_paths(idx, tab, window):
+    """K4 against its plain version bit for bit (NaN lanes alike), one
+    launch, its path counts against gather_plan_ref's; returns them."""
+    from advanced_cpu_raytracing_tpu_torch.ops import bigtex_gather as k4
+
+    paths = torch.zeros(2, dtype=torch.int32, device=idx.device)
+    # freed just before the call: a lane K4 never writes keeps this value
+    torch.full(idx.shape[1:], 7.0, device=idx.device)
+    before = k4.LAUNCHES["bigtex_gather"]
+    got = k4.gather_sum(idx, tab, window, paths)
+    ref = k4.gather_sum_ref(idx, tab)
+    assert k4.LAUNCHES["bigtex_gather"] == before + 1
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], ref[~nan])
+    plan = k4.gather_plan_ref(idx, tab.numel(),
+                              window if tab.data_ptr() % 16 == 0 else 0)
+    assert paths.tolist() == list(plan["counts"])
+    return paths.tolist()
+
+
+@pytest.mark.parametrize("case", ["window", "direct", "mixed", "incoherent",
+                                  "ordered", "ordered past the staging"])
+def test_k4_window_and_direct_groups_match_plain_version(cuda, case):
+    from advanced_cpu_raytracing_tpu_torch.ops import bigtex_gather as k4
+    from advanced_cpu_raytracing_tpu_torch.tools.probe_bigtex import (
+        FRAME,
+        make_inputs,
+    )
+
+    w = k4.WINDOW_BYTES
+    if case in ("window", "direct"):
+        idx, tab = make_inputs(8192, 4, 16, 64, seed=1, device=cuda)
+        want = [64, 0] if case == "window" else [0, 64]
+        window = w if case == "window" else 0
+    elif case == "mixed":
+        a, tab = make_inputs(8192, 4, 16, 40, seed=2, device=cuda)
+        b, _ = make_inputs(8192, 4, 256, 24, seed=3, device=cuda)
+        idx = torch.cat([a, b], dim=1).contiguous()
+        idx = idx[:, torch.randperm(64, device=cuda)].contiguous()
+        want, window = [40, 24], w
+    elif case == "incoherent":
+        idx, tab = make_inputs(8192, 4, 8190, 64, seed=4, device=cuda)
+        want, window = [0, 64], w
+    else:  # a table past L2: the groups in window order
+        blocks = 64 if case == "ordered" else 40000
+        idx, tab = make_inputs(FRAME["n_rows"], 4 if blocks == 64 else 1,
+                               64, blocks, seed=5, device=cuda)
+        assert k4.ordered(tab)
+        want, window = [blocks, 0], w
+    assert _k4_paths(idx, tab, window) == want
+
+
+@pytest.mark.parametrize("extra,want", [(0, [3, 1]), (16, [2, 2])])
+def test_k4_spans_at_the_window_and_16_bytes_more(cuda, extra, want):
+    """Group 0 spans the window or 16 bytes more, group 1 one row, group 2
+    one lane 4 MB away (direct), the partial last group only NaN lanes
+    (a tap outside the table, an index below 0); the table is past L2, so
+    the groups run in window order."""
+    from advanced_cpu_raytracing_tpu_torch.ops import bigtex_gather as k4
+
+    g, w = k4.GROUP, k4.WINDOW_BYTES
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(extra)
+    tab = torch.rand(16 * 2**20, generator=gen, device=cuda)
+    hi = (w + extra) // 4 - 1
+    idx = torch.randint(0, hi + 1, (4, 3 * g + 100), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    idx[0, 0], idx[1, 1] = 0, hi
+    idx[:, g:2 * g] = 9000 + idx[:, g:2 * g] % 128
+    idx[:, 2 * g] += 2**20
+    idx[:, 3 * g:] = 100 + idx[:, 3 * g:] % 512
+    idx[0, 3 * g + 7] = -3
+    idx[2, 3 * g:] = tab.numel() + 11
+    assert _k4_paths(idx, tab, w) == want
+    assert bool(torch.isnan(k4.gather_sum(idx, tab)[3 * g:]).all())
+
+
+def test_k4_edge_lanes_and_refused_windows(cuda):
+    """chip_smoke.py phase 31's edge lanes through the window and directly,
+    a table off 16 bytes and 5 taps (direct); a window past the card's
+    shared memory raises with the CUDA error, and the next call runs."""
+    from advanced_cpu_raytracing_tpu_torch.ops import bigtex_gather as k4
+    from advanced_cpu_raytracing_tpu_torch.tools.probe_bigtex import make_inputs
+
+    idx, tab = make_inputs(512, 1, 4, 64, seed=31, device=cuda)
+    n = tab.numel()
+    edge = torch.tensor(
+        [[0, n - 1, 5, 5, 3, -1, n, 2**31 - 1, -2**31, 9],
+         [0, n - 1, 5, 5, 3, 4, 7, 1, 2, n + 5],
+         [0, n - 1, 5, 9, 3, 4, 7, 1, 2, 0]], dtype=torch.int32, device=cuda)
+    near = edge.clone()
+    near[:, :5] = near[:, :5] % 64
+    for window in (k4.WINDOW_BYTES, 0):
+        assert _k4_paths(edge, tab, window) == [0, 1]
+        assert _k4_paths(near, tab, window) == ([1, 0] if window else [0, 1])
+    assert int(torch.isnan(k4.gather_sum(edge, tab)).sum()) == 5
+    assert _k4_paths(idx.reshape(1, -1)[:, 1:], tab.reshape(-1)[1:],
+                     k4.WINDOW_BYTES) == [0, 64]
+    five = torch.randint(0, n, (5, 3000), device=cuda, dtype=torch.int32)
+    assert _k4_paths(five, tab, k4.WINDOW_BYTES) == [0, 3]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k4.gather_sum(idx, tab, 256 * 1024)
+    assert _k4_paths(idx, tab, k4.WINDOW_BYTES) == [64, 0]
+
+
 def test_probe_goes_through_k4(cuda):
     from advanced_cpu_raytracing_tpu_torch.ops import bigtex_gather as k4
     from advanced_cpu_raytracing_tpu_torch.tools import probe_bigtex
