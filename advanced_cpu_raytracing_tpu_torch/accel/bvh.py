@@ -17,26 +17,29 @@ culls and its tree's leaves of consecutive rows rely on.
 From ``NATIVE_MIN_FACES`` faces, as in the JAX package (its accel/bvh.py),
 the build runs in ``native/bvh_builder.cpp``: compiled with g++ at first use
 into ``build/native/`` beside the package, named by a hash of the source and
-flags, and called through ctypes.  It builds the same tree as the numpy
+flags (``native/build.py``), and called through ctypes.  It builds the same tree as the numpy
 builder, node for node.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 
+from advanced_cpu_raytracing_tpu_torch.native.build import (
+    BUILD_DIR,
+    CXX_FLAGS,
+    build_library,
+)
+
 NATIVE_MIN_FACES = 4096
 _SOURCE = Path(__file__).resolve().parents[1] / "native" / "bvh_builder.cpp"
-_BUILD_DIR = _SOURCE.parents[2] / "build" / "native"
+_BUILD_DIR = BUILD_DIR
 # no FMA contraction, so the split planes round as numpy's do
-_CXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
+_CXX_FLAGS = (*CXX_FLAGS, "-ffp-contract=off")
 _LIB = None
 
 
@@ -70,18 +73,8 @@ def _native_lib() -> ctypes.CDLL:
     with the compiler's output."""
     global _LIB
     if _LIB is None:
-        blob = _SOURCE.read_bytes() + " ".join(_CXX_FLAGS).encode()
-        lib = _BUILD_DIR / f"libbvh_{hashlib.sha1(blob).hexdigest()[:16]}.so"
-        if not lib.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(["g++", *_CXX_FLAGS, "-o", str(tmp),
-                                   str(_SOURCE)], capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"g++ failed on {_SOURCE.name}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, lib)
-        cdll = ctypes.CDLL(str(lib))
+        cdll = ctypes.CDLL(str(build_library(_SOURCE, "libbvh", _CXX_FLAGS,
+                                             _BUILD_DIR)))
         cdll.acrt_build_bvh.restype = ctypes.c_int32
         cdll.acrt_build_bvh.argtypes = [ctypes.c_int32] + [ctypes.c_void_p] * 11
         _LIB = cdll

@@ -329,7 +329,30 @@ Phases, each printing one JSON line:
      else; each err within the JAX probe's asserts (1e-6, 1e-5); then,
      outside that count, per configuration the host's µs a call over
      1,000 calls without a synchronise and K4's device time a call
-     (torch.profiler), beside run's back-to-back ms and embedding_bag's.
+     (torch.profiler), beside run's back-to-back ms and embedding_bag's;
+ 33. progressive rendering (render/progressive.py): whitted_conductors.xml
+     at 800x800 in 16 passes, a checkpoint after the 8th (the .npz in a
+     temporary directory) — K1a's tree instantiation must launch exactly
+     16 times and nothing else — each of the last 8 passes timed; a fresh
+     renderer resumed from the checkpoint must equal the uninterrupted
+     one bit for bit; feat_pt.xml in 4 passes through K1b, finite;
+ 34. the sharded routes (parallel/) in a one-rank NCCL group (the host has
+     one card, and NCCL takes one card a rank): render_camera_sharded on
+     whitted_conductors.xml at 16 spp equal to render_camera bit for bit
+     (16 K1a launches), reinhard_tonemap_sharded equal to
+     reinhard_tonemap, make_sharded_diff_step on the gauge scene at
+     640,000 rays (phase 19's rays and start) with the unsharded step's
+     loss bit for bit and its gradients within K2's tolerance; the
+     sharded frame and step timed in turns against the same work
+     unsharded (render_camera; the rank's part of the step without its
+     all-reduce) and against their joins alone (the all-gather, the
+     all-reduce); then parallel/dryrun.py::dryrun_multichip on one
+     spawned NCCL rank;
+ 35. the native PLY reader (native/ply_reader.cpp) against the Python
+     reader on scenes/whitted_conductors_mesh.ply, equal, with both host
+     times.
+The launches of phases 33 and 34 join K1a's, K1b's and K2a's counts in
+the kernels line.
 Every phase line carries t_s, the seconds since the script started.
 Then the kernels line (each entry with its rays and the plain version's
 stride over them), the card line and, last, the result line.  Any
@@ -339,7 +362,9 @@ CUDA card it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -754,6 +779,20 @@ def main() -> int:
     from advanced_cpu_raytracing_tpu_torch.scene.xml_parser import load_scene
     from advanced_cpu_raytracing_tpu_torch.tools import inverse_render, probe_bigtex
     from advanced_cpu_raytracing_tpu_torch.utils import profiling
+    import torch.distributed as dist
+
+    from advanced_cpu_raytracing_tpu_torch.native.bindings import load_ply_native
+    from advanced_cpu_raytracing_tpu_torch.parallel import mesh as pmesh
+    from advanced_cpu_raytracing_tpu_torch.parallel import shard_render
+    from advanced_cpu_raytracing_tpu_torch.parallel.dryrun import dryrun_multichip
+    from advanced_cpu_raytracing_tpu_torch.post.tonemap import (
+        reinhard_tonemap,
+        reinhard_tonemap_sharded,
+    )
+    from advanced_cpu_raytracing_tpu_torch.render.progressive import (
+        ProgressiveRenderer,
+    )
+    from advanced_cpu_raytracing_tpu_torch.scene.ply import load_ply_python
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3123,6 +3162,262 @@ def main() -> int:
         "static_shared_bytes": info31["static_shared_bytes"],
         "dynamic_shared_bytes": info31["dynamic_shared_bytes"],
         "blocks_per_sm": info31["blocks_per_sm"], "device_ms": dev31})
+
+
+    # ---- slice G1: progressive rendering, the sharded routes, the native
+    # PLY reader ----
+    # 33. progressive rendering: the Whitted frame in 16 passes (8, a
+    # checkpoint, 8 more, each timed) through K1a's tree instantiation, and
+    # a fresh renderer resumed from the checkpoint, bit for bit
+    cfg, pack, cam_cfg, _, _ = scene(WHITTED_SCENE)
+    w, h = cam_cfg.width, cam_cfg.height
+    ck33 = str(out_dir / "progressive.npz")
+    reset_counts()
+    prog = ProgressiveRenderer(pack, cfg, cam_cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prog.render(8, checkpoint=ck33)
+    torch.cuda.synchronize()
+    first8_s = time.perf_counter() - t0
+    pass_s = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        prog.step()
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+    launches33 = counts()
+    want = {k: (16 if k == "mega_whitted_tree" else 0) for k in launches33}
+    if launches33 != want:
+        raise AssertionError(f"progressive: launches {launches33}, expected "
+                             f"{want}")
+    resumed = ProgressiveRenderer(pack, cfg, cam_cfg, seed=0, device=dev)
+    img33 = resumed.render(16, checkpoint=ck33)
+    if not (resumed.samples_done == 16 and torch.equal(resumed.acc, prog.acc)
+            and np.array_equal(img33, prog.image)):
+        raise AssertionError("progressive: the resumed run differs from the "
+                             "uninterrupted one")
+    if not (np.isfinite(img33).all() and 5.0 < float(img33.mean()) < 250.0):
+        raise AssertionError(f"progressive: bad frame, mean {img33.mean()}")
+    pass_med = sorted(pass_s)[len(pass_s) // 2]
+    cfg_p, pack_p, cam_p, _, _ = scene(PT_SCENE)
+    reset_counts()
+    img33p = ProgressiveRenderer(pack_p, cfg_p, cam_p, seed=0,
+                                 device=dev).render(4)
+    launches33p = counts()
+    if launches33p != {k: (4 if k == "mega_pt" else 0) for k in launches33p}:
+        raise AssertionError(f"progressive PT: launches {launches33p}")
+    if not np.isfinite(img33p).all():
+        raise AssertionError("progressive PT: non-finite radiance")
+    emit("progressive", scene=WHITTED_SCENE.name, width=w, height=h,
+         passes=16, launches={k: v for k, v in launches33.items() if v},
+         resumed_bit_for_bit=True, first_8_with_2_saves_s=first8_s,
+         pass_s=pass_s, pass_s_median=pass_med,
+         mpaths_per_s=w * h / pass_med / 1e6,
+         checkpoint_bytes=Path(ck33).stat().st_size,
+         pt={"scene": PT_SCENE.name, "passes": 4,
+             "launches": {k: v for k, v in launches33p.items() if v},
+             "mean": float(img33p.mean())},
+         timing="host clock around each pass, ending in a synchronise",
+         card=card)
+    del prog, resumed
+
+    # 34. the sharded routes at world size 1 under NCCL (one card: NCCL
+    # takes one card a rank): the 16-spp Whitted frame, the gauge step at
+    # 640,000 rays and the tonemap each equal to the unsharded route; the
+    # dry run on one spawned rank; the sharded frame and step timed in
+    # turns against the same work unsharded and against their joins alone
+    # NCCL allocates its buffers outside PyTorch's caching allocator, which
+    # still holds what the earlier phases freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem34 = {"allocated_bytes": torch.cuda.memory_allocated(),
+             "reserved_bytes": torch.cuda.memory_reserved()}
+    made = pmesh.initialize_distributed(device=dev)
+    try:
+        mesh = pmesh.make_device_mesh(device=dev)
+        if dist.get_backend() != "nccl" or mesh.size() != 1:
+            raise AssertionError(f"sharded: backend {dist.get_backend()}, "
+                                 f"{mesh.size()} ranks")
+
+        def sharded_frame():
+            return shard_render.render_camera_sharded(
+                pack, cfg, cam_cfg, mesh=mesh, seed=0, spp=16, device=dev)
+
+        def plain_frame():
+            return renderer.render_camera(pack, cfg, cam_cfg, seed=0, spp=16,
+                                          device=dev)
+
+        reset_counts()
+        img34 = sharded_frame()
+        launches34 = counts()
+        if launches34 != {k: (16 if k == "mega_whitted_tree" else 0)
+                          for k in launches34}:
+            raise AssertionError(f"sharded frame: launches {launches34}")
+        img34_1 = plain_frame()
+        if not np.array_equal(img34, img34_1):
+            raise AssertionError("sharded frame differs from render_camera's")
+        ldr34 = reinhard_tonemap_sharded(img34, mesh, device=dev)
+        ldr34_1 = reinhard_tonemap(img34_1, device=dev)
+        if not np.array_equal(ldr34, ldr34_1):
+            raise AssertionError("sharded tonemap differs from the unsharded")
+        group34 = mesh.get_group()
+
+        def timed_turns(calls, rounds=8):
+            """Each call's host seconds, ending in a synchronise, the calls
+            in turns: ``rounds`` rounds, each in the order of ``calls``,
+            every other one reversed."""
+            out = {k: [] for k in calls}
+            for i in range(rounds):
+                for k in (list(calls) if i % 2 == 0 else list(calls)[::-1]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    calls[k]()
+                    torch.cuda.synchronize()
+                    out[k].append(time.perf_counter() - t0)
+            return out
+
+        # the frame's join alone: the all-gather of the one rank's part
+        part34 = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+        frame_s = timed_turns({
+            "unsharded": plain_frame, "sharded": sharded_frame,
+            "all_gather": lambda: pmesh.all_gather(part34, 1, group34)})
+        del part34
+
+        # the gauge step at 640,000 rays (phase 19's rays and start)
+        cfg_g, pack_g, opts_g, f_g, _, cam_g = diff_render(gauge_path)
+        wg, hg = cfg_g.cameras[0].width, cfg_g.cameras[0].height
+        n34 = wg * hg
+        idx = torch.arange(n34, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        jit = torch.rand((n34, 2), generator=gen, device=dev)
+        px = (idx % wg).float() + jit[:, 0]
+        py = (idx // wg).float() + jit[:, 1]
+        o, d = (t.contiguous() for t in generate_rays(cam_g, px, py))
+        with torch.no_grad():
+            target = f_g({}, o, d)
+        rng = np.random.default_rng(6)
+        start = {
+            "mat_diffuse": pack_g.mat_diffuse * torch.as_tensor(rng.uniform(
+                0.7, 1.1, tuple(pack_g.mat_diffuse.shape)).astype(np.float32),
+                device=dev),
+            "pl_intensity": pack_g.pl_intensity * 1.2,
+            "verts": pack_g.verts + torch.as_tensor(rng.normal(
+                0.0, 0.01, tuple(pack_g.verts.shape)).astype(np.float32),
+                device=dev)}
+        step34 = shard_render.make_sharded_diff_step(pack_g, opts_g, cam_g,
+                                                     mesh=mesh, device=dev)
+
+        def sharded_step():
+            return step34(start, px, py, target, seed=0)
+
+        def unsharded_step():
+            # the rank's work of the sharded step (its rays made from px,
+            # py, the loss and autograd) through the unsharded render,
+            # without the all-reduce
+            return shard_render.shard_diff_step(f_g, cam_g, start, px, py,
+                                                target, 0, 1, seed=0)
+
+        def plain_step():
+            # the unsharded step as a user writes it, on phase 19's rays
+            leaves = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in start.items()}
+            loss = ((f_g(leaves, o, d) - target) ** 2).sum() / (3.0 * n34)
+            loss.backward()
+            return loss.detach(), {k: v.grad for k, v in leaves.items()}
+
+        reset_counts()
+        loss_sh, g_sh = sharded_step()
+        torch.cuda.synchronize()
+        step_launches = counts()
+        loss_1, g_1 = plain_step()
+        loss_u = unsharded_step()[0]
+        if not float(loss_sh) == float(loss_1) == float(loss_u):
+            raise AssertionError(f"sharded step: loss {float(loss_sh)}, "
+                                 f"unsharded {float(loss_1)} and "
+                                 f"{float(loss_u)}")
+        # the cotangents are sums in atomic order: K2's tolerance
+        fields34 = collections.namedtuple("Fields", list(start))
+        grads34 = check_grads(fields34(**g_sh), fields34(**g_1),
+                              "sharded step")
+        # the step's join alone: the all-reduce of the loss and gradients
+        sums34 = [t.clone() for t in (loss_sh, *g_sh.values())]
+
+        def all_reduce():
+            for x in sums34:
+                dist.all_reduce(x, group=group34)
+
+        step_s = timed_turns({"unsharded": unsharded_step,
+                              "sharded": sharded_step,
+                              "all_reduce": all_reduce})
+        del sums34
+        del step34, f_g, target, o, d, px, py, g_sh, g_1
+    finally:
+        if made:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, "cuda")
+    dry_s = time.perf_counter() - t0
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    def spread(times):
+        return {"s": times, "median_s": med(times), "min_s": min(times),
+                "max_s": max(times)}
+
+    emit("sharded_world_1", backend="nccl", ranks=1, memory_before=mem34,
+         frame={"scene": WHITTED_SCENE.name, "width": w, "height": h,
+                "spp": 16, "launches": {k: v for k, v in launches34.items()
+                                        if v},
+                "equal_to_render_camera": True,
+                **{k: spread(v) for k, v in frame_s.items()}},
+         tonemap_equal=True,
+         step={"scene": "gauge", "rays": n34, "loss": float(loss_sh),
+               "loss_equal": True, "grads": grads34,
+               "launches": {k: v for k, v in step_launches.items() if v},
+               **{k: spread(v) for k, v in step_s.items()}},
+         dryrun={"ranks": 1, "stages": dry, "s_with_spawn": dry_s},
+         timing="host clock around each call, ending in a synchronise; the "
+                "calls in turns over 8 rounds, every other round reversed; "
+                "unsharded: render_camera for the frame, the rank's work "
+                "of the sharded step without its all-reduce for the step; "
+                "all_gather, all_reduce: the join alone",
+         card=card)
+
+    # 35. the native PLY reader against the Python reader on the in-repo
+    # mesh (16,384 vertices, 32,768 faces, binary little endian)
+    ply_path = SCENES / "whitted_conductors_mesh.ply"
+    t0 = time.perf_counter()
+    native = load_ply_native(ply_path)
+    first_s = time.perf_counter() - t0
+    python = load_ply_python(str(ply_path))
+    if native is None or not all(np.array_equal(a, b) and a.dtype == b.dtype
+                                 for a, b in zip(native, python)):
+        raise AssertionError("native PLY reader differs from the Python one")
+    native_s, python_s = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        load_ply_native(ply_path)
+        native_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        load_ply_python(str(ply_path))
+        python_s.append(time.perf_counter() - t0)
+    emit("native_ply", file=ply_path.name, vertices=len(native[0]),
+         faces=len(native[1]), equal=True, first_call_s=first_s,
+         native_s=native_s, python_s=python_s,
+         native_s_median=med(native_s), python_s_median=med(python_s),
+         timing="host clock, the file warm in the page cache")
+
+    # the new paths' launches join the counts of the kernels they ran
+    for entry in kernels:
+        entry["launches"] += {
+            "mega_whitted_tree": launches33["mega_whitted_tree"]
+            + launches34["mega_whitted_tree"],
+            "mega_pt": launches33p["mega_pt"],
+            **{k: step_launches[k] for k in ("mega_bwd_primal_tree",
+                                             "mega_bwd_rev", "mega_bwd_refit")},
+        }.get(entry["name"], 0)
 
 
     print(json.dumps({"kernels": kernels}), flush=True)

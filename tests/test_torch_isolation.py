@@ -2,8 +2,9 @@
 neither JAX nor the JAX package, needs neither triton nor a CUDA card, and
 its entry points (the renderer, the differentiable render's ``optimize``,
 ``make_diff_render`` and ``mega_bwd_trace``, K3's ``tri_closest_hit``, the
-inverse-rendering tool, the big-texture probe and the tree-design tool)
-refuse to fall back to the CPU when no card is there."""
+inverse-rendering tool, the big-texture probe, the tree-design tool, the
+progressive renderer, the sharded routes, their mesh and dry run, and the
+CLI's ``--shard``) refuse to fall back to the CPU when no card is there."""
 
 from __future__ import annotations
 
@@ -46,6 +47,15 @@ assert {"advanced_cpu_raytracing_tpu_torch.tools.inverse_render",
         "advanced_cpu_raytracing_tpu_torch.ops.bigtex_gather",
         "advanced_cpu_raytracing_tpu_torch.utils.profiling",
         "advanced_cpu_raytracing_tpu_torch.tools.tree_design"} <= set(names)
+# slice G1: progressive rendering, the sharded routes, logging and the
+# native PLY reader's bindings
+assert {"advanced_cpu_raytracing_tpu_torch.render.progressive",
+        "advanced_cpu_raytracing_tpu_torch.parallel.mesh",
+        "advanced_cpu_raytracing_tpu_torch.parallel.shard_render",
+        "advanced_cpu_raytracing_tpu_torch.parallel.dryrun",
+        "advanced_cpu_raytracing_tpu_torch.utils.logging",
+        "advanced_cpu_raytracing_tpu_torch.native.bindings",
+        "advanced_cpu_raytracing_tpu_torch.native.build"} <= set(names)
 
 import dataclasses
 from advanced_cpu_raytracing_tpu_torch.diff.optimize import optimize
@@ -61,6 +71,20 @@ from advanced_cpu_raytracing_tpu_torch.tools import (
     inverse_render,
     probe_bigtex,
     tree_design,
+)
+import numpy as np
+import torch.distributed as dist
+from advanced_cpu_raytracing_tpu_torch.cli.render import main as cli_main
+from advanced_cpu_raytracing_tpu_torch.parallel import dryrun, shard_render
+from advanced_cpu_raytracing_tpu_torch.parallel.mesh import (
+    initialize_distributed,
+    make_device_mesh,
+)
+from advanced_cpu_raytracing_tpu_torch.post.tonemap import (
+    reinhard_tonemap_sharded,
+)
+from advanced_cpu_raytracing_tpu_torch.render.progressive import (
+    ProgressiveRenderer,
 )
 cfg = load_scene(sys.argv[1])
 cpu_pack = pack_scene(cfg, device="cpu")
@@ -85,13 +109,26 @@ for call in (lambda: pack_scene(cfg),
              lambda: probe_bigtex.run(n_rows=64, blocks=1, iters=1),
              lambda: probe_bigtex.main(["--n-rows", "64", "--blocks", "1"]),
              lambda: tree_design.main(["--count"]),
-             lambda: tree_design.main(["--twins"])):
+             lambda: tree_design.main(["--twins"]),
+             lambda: ProgressiveRenderer(cpu_pack, cfg, cfg.cameras[0]),
+             lambda: initialize_distributed(),
+             lambda: initialize_distributed(backend="gloo"),
+             lambda: make_device_mesh(),
+             lambda: shard_render.render_camera_sharded(cpu_pack, cfg,
+                                                        cfg.cameras[0]),
+             lambda: shard_render.render_camera_sharded_mega(
+                 cpu_pack, cfg, cfg.cameras[0]),
+             lambda: shard_render.make_sharded_diff_step(cpu_pack, opts, cam),
+             lambda: reinhard_tonemap_sharded(np.ones((2, 2, 3), np.float32)),
+             lambda: dryrun.dryrun_multichip(1),
+             lambda: cli_main([sys.argv[1], "--shard"])):
     try:
         call()
     except RuntimeError as e:
         assert "device='cpu'" in str(e), e
     else:
         raise AssertionError("no error without CUDA")
+    assert not dist.is_initialized()
 print("modules", len(names))
 """
 
