@@ -1,0 +1,8 @@
+"""The device's idle share of the traced window, in %: 100 minus the union
+of the device operations' intervals over the window's length
+(torch.profiler)."""
+
+def read(r):
+    if r.trace is None or r.work.get("unit") != "frame":
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s() / r.trace.window_s)
