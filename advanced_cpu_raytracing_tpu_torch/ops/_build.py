@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from advanced_cpu_raytracing_tpu_torch.utils.profiling import span
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
@@ -186,9 +188,10 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built on first use."""
     if name not in _LIBS:
-        lib = ctypes.CDLL(str(build(name)))
-        for fn, (restype, argtypes) in _SIGNATURES[name].items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _LIBS[name] = lib
+        with span("kernels.load"):
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, (restype, argtypes) in _SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _LIBS[name] = lib
     return _LIBS[name]

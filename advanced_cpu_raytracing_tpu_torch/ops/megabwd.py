@@ -75,6 +75,7 @@ from advanced_cpu_raytracing_tpu_torch.ops import texture as _texture
 from advanced_cpu_raytracing_tpu_torch.scene.pack import STREAM_MAX_FACES
 from advanced_cpu_raytracing_tpu_torch.scene.types import DecalMode
 from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
+from advanced_cpu_raytracing_tpu_torch.utils.profiling import span
 
 BIG = mk.BIG
 TWO_PI = mk.TWO_PI
@@ -331,6 +332,7 @@ def bwd_eligible(static, opts, pack=None) -> bool:
     return not bwd_missing(static, opts, pack)
 
 
+@span("tables.bwd")
 def build_bwd_consts(pack, opts, device=None) -> BwdConsts:
     """The constant tables of the differentiable render of ``pack`` on
     ``device`` (default ``cuda``); raises ``NotImplementedError`` for a
@@ -1296,6 +1298,7 @@ def records_shape(bc: BwdConsts, n_rays: int) -> tuple:
     return (bc_depth(bc) * SEG_WORDS + 1, n_rays)
 
 
+@span("k2.refit")
 def refit(bc: BwdConsts, tri_w: torch.Tensor):
     """The boxes of the call's vertices ``tri_w`` (max(W,1), 9): (nodes,
     chunk_tab) as ``refit_ref`` returns them.  A CPU tensor runs
@@ -1364,6 +1367,7 @@ class _Launch:
     result; refit here where the kernels read boxes, when None), all
     checked once."""
 
+    @span("k2.prepare")
     def __init__(self, bc, tabs, o, d, dr, seed, step, boxes=None):
         mc = bc.mc
         r = o.shape[0]
@@ -1449,6 +1453,7 @@ class _Launch:
             (bc.n_spot, 3), (bc.n_area, 3), (bc.n_ml, 3), (self.n_texels, 3),
             (self.r, 3), (self.r, 3))))
 
+    @span("k2.launch")
     def _run(self, name, out, gbar, grads, targets, rec):
         """One launch through ``mega_bwd_launch``: the primal (``gbar``
         None; ``rec`` the records to write, or None), the reverse kernel
@@ -1592,6 +1597,7 @@ class _Render(torch.autograd.Function):
     ``make_diff_render``'s ``custom_vjp``."""
 
     @staticmethod
+    @span("diff.forward")
     def forward(ctx, bc, draws, seed, step, mat, pl, dl, bg, tri_w, sl, al, ml,
                 texels, o, d):
         ctx.bc, ctx.draws, ctx.key = bc, draws, (seed, step)
@@ -1609,6 +1615,7 @@ class _Render(torch.autograd.Function):
         return out
 
     @staticmethod
+    @span("diff.backward")
     def backward(ctx, gbar):
         *tabs, o, d, rec, nodes, chunk = ctx.saved_tensors
         needs = ctx.needs_input_grad[4:]  # the tables', then o's and d's
@@ -1676,7 +1683,8 @@ def make_diff_render(pack, opts, device=None):
                          texel_pool(bc, g("img_atlas")))
 
     def f(params, o, d, draws=None, seed: int = 0, step: int = 0):
-        tabs = [t.contiguous() for t in tables(params)]
+        with span("diff.tables"):
+            tabs = [t.contiguous() for t in tables(params)]
         return _Render.apply(bc, draws, seed, step, *tabs, o.contiguous(),
                              d.contiguous())
 

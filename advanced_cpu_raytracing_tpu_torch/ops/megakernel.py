@@ -62,6 +62,7 @@ from advanced_cpu_raytracing_tpu_torch.scene.types import (
 from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
 # a / b rounded once, as the kernels' IEEE division (see math3d.div)
 from advanced_cpu_raytracing_tpu_torch.utils.math3d import div as _div
+from advanced_cpu_raytracing_tpu_torch.utils.profiling import span
 
 BIG = 3.0e37  # "no hit" distance
 CHUNK = 128  # faces per culling chunk (BVH depth-first order)
@@ -353,6 +354,7 @@ def _sizing(st, opts):
     return max_iters, stack_k, n_draws
 
 
+@span("tables.mega")
 def build_mega(pack, opts, device=None, flat_max=None):
     """(MegaConsts, tri_tab (max(W,1), 16) f32, chunk_tab (n_chunks, 8) f32)
     on ``device`` (default ``cuda``), as the JAX ``build_mega`` builds them
@@ -2225,8 +2227,18 @@ def mega_trace(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws=None,
             draws = rng.philox_table(seed, sample, r, mc.max_iters, mc.n_draws)
         return mega_trace_ref(mc, tri_tab, chunk_tab, o, d, draws=draws,
                               pix_uv=pix_uv)
+    return _mega_trace_cuda(mc, tri_tab, chunk_tab, o, d, draws, seed, sample,
+                            pix_uv)
+
+
+@span("k1.launch")
+def _mega_trace_cuda(mc: MegaConsts, tri_tab, chunk_tab, o, d, draws,
+                     seed: int, sample: int, pix_uv):
+    """``mega_trace`` on the card: the checks, the arguments and the
+    launch."""
     from advanced_cpu_raytracing_tpu_torch.ops import _build
 
+    r = o.shape[0]
     _check("o", o, (r, 3))
     _check("d", d, (r, 3))
     _check("tri_tab", tri_tab, (max(mc.n_tri, 1), TRI_COLS))

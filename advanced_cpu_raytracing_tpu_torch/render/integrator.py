@@ -29,10 +29,10 @@ the JAX package runs a fixed trip count (reverse mode cannot cross its
 ``lax.while_loop``): the iterations it adds are fully masked and add
 nothing.
 
-Two named ranges mark the forward's parts in a ``torch.profiler`` trace
-(``utils/profiling.py::device_trace``): ``wavefront.stack`` (the pushes and
-pops) and ``wavefront.lights`` (direct lighting and the env light's
-lookups).  Outside a trace they cost a few microseconds a call.
+Two spans (``utils/profiling.py::span``) mark the forward's parts:
+``wavefront.stack`` (the pushes and pops) and ``wavefront.lights`` (direct
+lighting and the env light's lookups), each also a named range in a
+``device_trace``.  With spans off they cost under a microsecond a call.
 """
 
 from __future__ import annotations
@@ -42,7 +42,6 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from advanced_cpu_raytracing_tpu_torch.ops import rng
 from advanced_cpu_raytracing_tpu_torch.ops.traverse import (
@@ -71,6 +70,7 @@ from advanced_cpu_raytracing_tpu_torch.utils.math3d import (
     normalize,
     orthonormal_basis,
 )
+from advanced_cpu_raytracing_tpu_torch.utils.profiling import span
 
 PI = math.pi
 RR_DEPTH_FLOOR = 8  # extra bounces allowed past depth 0 under Russian roulette
@@ -162,7 +162,7 @@ def _make_stack(r: int, k: int, device) -> _Stack:
     return _Stack(f, z, z, torch.zeros(r, dtype=torch.int64, device=device))
 
 
-@record_function("wavefront.stack")
+@span("wavefront.stack")
 def _push(stack: _Stack, mask, o, d, w, absorb, medium, depth, envmiss,
           primary=None) -> _Stack:
     """Push one entry on each masked ray's stack, at its stack pointer (a
@@ -184,7 +184,7 @@ def _push(stack: _Stack, mask, o, d, w, absorb, medium, depth, envmiss,
     return _Stack(f, dep, fl, stack.sp + mask.long())
 
 
-@record_function("wavefront.stack")
+@span("wavefront.stack")
 def _pop(stack: _Stack):
     """Pop the top entry of each ray's stack: (stack, active, (o, d, w,
     absorb, medium, depth, envmiss, primary)).  A ray with an empty stack
@@ -319,7 +319,7 @@ def _process_hit(pack, opts: RenderOptions, o, d, w_in, absorb, medium, depth,
         contrib = pack.ambient_light * mr.ambient
         if (st.n_point + st.n_area + st.n_env + st.n_directional + st.n_spot
                 + st.n_mesh_lights) > 0:
-            with record_function("wavefront.lights"):
+            with span("wavefront.lights"):
                 contrib = contrib + direct_lighting(
                     pack, surf, w_o, time, draws, it, skip_ml, mat_rows=mr,
                     differentiable=opts.differentiable)
@@ -484,7 +484,7 @@ def primary_miss_color(pack, cam, px, py, d):
         ti = torch.full((r,), st.bg_tex, dtype=torch.int64, device=px.device)
         return _sample_tex_rgb(pack, ti, uv)
     if st.has_env:
-        with record_function("wavefront.lights"):
+        with span("wavefront.lights"):
             return env_sample_radiance(pack, d)
     return pack.bg_color.expand(r, 3)
 
@@ -524,7 +524,7 @@ def trace_radiance(pack, cam, px, py, draws, opts: RenderOptions):
         missed = active & ~hit.valid
         L = L + torch.where((missed & eprim)[:, None], ew * miss_col, 0.0)
         if st.has_env:
-            with record_function("wavefront.lights"):
+            with span("wavefront.lights"):
                 env = env_sample_radiance(pack, ed)
             L = L + torch.where((missed & ~eprim & eenv)[:, None], ew * env,
                                 0.0)

@@ -43,6 +43,7 @@ from advanced_cpu_raytracing_tpu_torch.render.renderer import (
 )
 from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
 from advanced_cpu_raytracing_tpu_torch.utils.logging import get_logger
+from advanced_cpu_raytracing_tpu_torch.utils.profiling import span
 
 CKPT_VERSION = 1
 
@@ -82,7 +83,8 @@ class ProgressiveRenderer:
         draws = rng.PhiloxDraws(self.seed, sample=s, ray0=lo, device=self.dev)
         px, py = self._px[lo:hi], self._py[lo:hi]
         if s > 0:
-            jit = draws.uniform(-1, rng.SITE_JITTER, r, 2)
+            with span("progressive.draws"):
+                jit = draws.uniform(-1, rng.SITE_JITTER, r, 2)
             px, py = px + jit[:, 0], py + jit[:, 1]
         if self._mega is None:
             return trace_radiance(self.pack, self.cam, px, py, draws,
@@ -91,8 +93,10 @@ class ProgressiveRenderer:
         cam = self.cam
         # the thin lens from the wavefront's lens site, so that a resumed
         # pass draws the same sample
-        lens = (draws.uniform(-1, rng.SITE_LENS, r, 2, lo=-1.0, hi=1.0)
-                if cam.use_dof else None)
+        lens = None
+        if cam.use_dof:
+            with span("progressive.draws"):
+                lens = draws.uniform(-1, rng.SITE_LENS, r, 2, lo=-1.0, hi=1.0)
         o, d = generate_rays(cam, px, py, lens, dof=cam.use_dof)
         w, h = self.cam_cfg.width, self.cam_cfg.height
         pix_uv = (torch.stack((px * (1.0 / w), py * (1.0 / h)), -1)
@@ -101,6 +105,7 @@ class ProgressiveRenderer:
                           d.contiguous(), seed=self.seed, sample=s,
                           pix_uv=pix_uv)
 
+    @span("progressive.pass")
     def step(self) -> None:
         """Render one full-image sample pass and accumulate: one K1 launch
         over every pixel, or the wavefront tile by tile."""
@@ -115,6 +120,7 @@ class ProgressiveRenderer:
         _log.debug("pass %d done", s)
 
     @property
+    @span("progressive.image")
     def image(self) -> np.ndarray:
         h, w = self.cam_cfg.height, self.cam_cfg.width
         n = max(self.samples_done, 1)

@@ -51,6 +51,7 @@ from advanced_cpu_raytracing_tpu_torch.render.integrator import (
 from advanced_cpu_raytracing_tpu_torch.scene.pack import ScenePack, pack_scene
 from advanced_cpu_raytracing_tpu_torch.scene.types import CameraCfg, SceneConfig
 from advanced_cpu_raytracing_tpu_torch.utils.device import resolve_device
+from advanced_cpu_raytracing_tpu_torch.utils.profiling import span
 
 
 DEFAULT_TILE = 1 << 21  # the wavefront's lane tile, at most
@@ -79,7 +80,8 @@ def _gaussian_multisample(trace_fn, px, py, n_cells: int, jitter=None,
     uniforms from ``generator``.  ``trace_fn(px, py, s)`` gets the sample
     index ``s``."""
     if n_cells <= 1:
-        return trace_fn(px, py, 0)
+        with span("renderer.sample"):
+            return trace_fn(px, py, 0)
     r = px.shape[0]
     sigma = 1.0 / 6.0
     inv_2s2 = 1.0 / (2.0 * sigma * sigma)
@@ -87,21 +89,23 @@ def _gaussian_multisample(trace_fn, px, py, n_cells: int, jitter=None,
     acc = torch.zeros((r, 3), dtype=torch.float32, device=px.device)
     wacc = torch.zeros(r, dtype=torch.float32, device=px.device)
     for s in range(n_cells * n_cells):
-        row, col = divmod(s, n_cells)
-        if callable(jitter):
-            psi = jitter(s)
-        elif jitter is not None:
-            psi = jitter[s].to(device=px.device, dtype=torch.float32)
-        else:
-            psi = torch.rand((r, 2), generator=generator, device=px.device)
-        sx = (col + psi[:, 0]) / n_cells
-        sy = (row + psi[:, 1]) / n_cells
-        colr = trace_fn(px + sx, py + sy, s)
-        dx = sx - 0.5
-        dy = sy - 0.5
-        wgt = c1 * torch.exp(-(dx * dx + dy * dy) * inv_2s2)
-        acc = acc + colr * wgt[:, None]
-        wacc = wacc + wgt
+        with span("renderer.sample"):
+            row, col = divmod(s, n_cells)
+            if callable(jitter):
+                psi = jitter(s)
+            elif jitter is not None:
+                psi = jitter[s].to(device=px.device, dtype=torch.float32)
+            else:
+                psi = torch.rand((r, 2), generator=generator,
+                                 device=px.device)
+            sx = (col + psi[:, 0]) / n_cells
+            sy = (row + psi[:, 1]) / n_cells
+            colr = trace_fn(px + sx, py + sy, s)
+            dx = sx - 0.5
+            dy = sy - 0.5
+            wgt = c1 * torch.exp(-(dx * dx + dy * dy) * inv_2s2)
+            acc = acc + colr * wgt[:, None]
+            wacc = wacc + wgt
     return acc / wacc[:, None]
 
 
@@ -235,6 +239,7 @@ def _render_image_wavefront(pack, cam, opts: RenderOptions, n_cells: int,
     return out
 
 
+@span("renderer.frame")
 def render_camera(pack: ScenePack, cfg: SceneConfig, cam_cfg: CameraCfg,
                   seed: int = 0, spp: int | None = None, ldr: bool = False,
                   device=None, jitter=None,
@@ -256,14 +261,16 @@ def render_camera(pack: ScenePack, cfg: SceneConfig, cam_cfg: CameraCfg,
                                       tile_size)
         if ldr:
             img = torch.nan_to_num(img).clamp(0.0, 255.0).to(torch.uint8)
-        return img.reshape(h, w, 3).cpu().numpy()
+        with span("renderer.to_host"):
+            return img.reshape(h, w, 3).cpu().numpy()
     mc, tri_tab, chunk_tab = _mega_build_cached(pack, opts, dev)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     img = _render_image_mega(mc, tri_tab, chunk_tab, cam, n_cells, w, h,
                              ldr, generator=generator, jitter=jitter,
                              seed=seed)
-    return img.reshape(h, w, 3).cpu().numpy()
+    with span("renderer.to_host"):
+        return img.reshape(h, w, 3).cpu().numpy()
 
 
 def ldr_from_radiance(img: np.ndarray) -> np.ndarray:

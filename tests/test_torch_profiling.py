@@ -1,45 +1,14 @@
-"""The port's ``utils/profiling.py`` against the JAX package's: the stage
-timer accumulates and reports the same, ``block`` hands its tree back, and
-``device_trace`` writes a trace into its directory on the CPU."""
+"""The port's ``utils/profiling.py``: ``block`` hands its tree back, and
+``device_trace`` writes a trace into its directory on the CPU (its spans and
+counters: ``test_torch_spans.py``)."""
 
 from __future__ import annotations
 
-import itertools
 import json
 
-import pytest
 import torch
 
-from advanced_cpu_raytracing_tpu.utils import profiling as jax_profiling
 from advanced_cpu_raytracing_tpu_torch.utils import profiling
-
-
-@pytest.mark.parametrize("stages", [["a"], ["load", "render", "load", "tonemap",
-                                            "render", "render"]])
-def test_stage_timer_accumulates_and_reports_like_jax(monkeypatch, stages):
-    reports = []
-    for mod in (jax_profiling, profiling):
-        clock = itertools.count(0.0, 0.25)  # each reading 0.25 s later
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
-        timer = mod.StageTimer()
-        for name in stages:
-            with timer.stage(name):
-                pass
-        reports.append((dict(timer.totals), dict(timer.counts),
-                        timer.report()))
-        monkeypatch.undo()
-    assert reports[0] == reports[1]
-    totals, counts, _ = reports[1]
-    assert counts == {s: stages.count(s) for s in stages}
-    assert totals == {s: 0.25 * stages.count(s) for s in stages}
-
-
-def test_stage_timer_counts_a_stage_that_raises():
-    timer = profiling.StageTimer()
-    with pytest.raises(ValueError):
-        with timer.stage("x"):
-            raise ValueError
-    assert timer.counts["x"] == 1 and timer.totals["x"] >= 0.0
 
 
 def test_block_returns_its_tree_unchanged_on_cpu_tensors():
