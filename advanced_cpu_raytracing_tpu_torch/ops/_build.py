@@ -125,6 +125,15 @@ _SIGNATURES = {
         "bigtex_gather_info": (_I, [_I, ctypes.POINTER(_I)]),
         "bigtex_gather_error_string": (ctypes.c_char_p, [_I]),
     },
+    "philox_draws": {
+        # out, r, n, ray0, counter words 1 and 2, key, scale, hi - lo, lo;
+        # stream
+        "philox_draws_launch": (
+            _I, [_P, ctypes.c_longlong, _I, ctypes.c_uint32, ctypes.c_uint32,
+                 ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, _I,
+                 ctypes.c_float, ctypes.c_float, _P]),
+        "philox_draws_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 

@@ -17,6 +17,11 @@ n_draws + slot``.  The port keeps both sources behind the same index:
   any device (torch has no unsigned 32-bit multiply-high), so the plain
   version reproduces counter mode bit for bit.
 
+The wavefront's draw source, ``PhiloxDraws``, makes its uniforms on a CUDA
+device with one launch of ``csrc/philox_draws.cu`` (``LAUNCHES`` counts
+them), and on the CPU with the int64 twin, its plain version: the same
+words bit for bit.
+
 Draw slots (the JAX ``build_mega`` layout, megakernel.py:667-679): 0 Russian
 roulette, 1-2 the GI direction, 3 + 3 l .. 5 + 3 l the mesh light l (face,
 two barycentrics), then 2 per area light (the point on its square), then
@@ -28,12 +33,17 @@ last: drawn once per primary ray, at iteration 0, from slot
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 PHILOX_ROUNDS = 10
 _MASK32 = 0xFFFFFFFF
+LIBRARY = "philox_draws"
+# launches of the CUDA kernel (only those count)
+LAUNCHES = {"philox_draws": 0}
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -121,7 +131,8 @@ class PhiloxDraws:
     256 + light, block); the four words of a block are four draws.  The
     ray's index counts from ``ray0``, the index of a tile's first ray, so a
     tile size changes no draw; the CPU and the card draw the same
-    numbers."""
+    numbers: on a CUDA device by one launch of ``csrc/philox_draws.cu``,
+    on the CPU by the int64 twin."""
 
     def __init__(self, seed: int = 0, sample: int = 0, ray0: int = 0,
                  device=None):
@@ -133,6 +144,7 @@ class PhiloxDraws:
         return PhiloxDraws(self.seed, self.sample, self.ray0, device)
 
     def _raw(self, it: int, site: int, r: int, n: int, light: int):
+        """The twin: (r, n) uniforms in [0, 1) by int64 torch ops."""
         device = self.device
         n_blocks = (n + 3) // 4
         ray = torch.arange(self.ray0, self.ray0 + r, dtype=torch.int64,
@@ -145,16 +157,55 @@ class PhiloxDraws:
         return uniform_from_bits(torch.stack(words, dim=2)).reshape(
             r, n_blocks * 4)[:, :n]
 
+    def _launch(self, c1: int, c2: int, r: int, n: int, lo: float,
+                hi: float) -> torch.Tensor:
+        """The kernel: (r, n) uniforms in [lo, hi) on the CUDA device."""
+        from advanced_cpu_raytracing_tpu_torch.ops import _build
+
+        out = torch.empty((r, n), dtype=torch.float32, device=self.device)
+        if r == 0:
+            return out
+        lib = _build.load(LIBRARY)
+        scale = not (lo == 0.0 and hi == 1.0)
+        with torch.cuda.device(out.device):
+            stream = ctypes.c_void_p(
+                torch.cuda.current_stream(out.device).cuda_stream)
+            rc = lib.philox_draws_launch(
+                ctypes.c_void_p(out.data_ptr()), r, n, self.ray0, c1, c2,
+                self.seed & _MASK32, self.sample & _MASK32, int(scale),
+                hi - lo, lo, stream)
+        if rc != 0:
+            err = lib.philox_draws_error_string(rc).decode()
+            raise RuntimeError(f"philox_draws launch failed: CUDA error {rc} "
+                               f"({err})")
+        LAUNCHES["philox_draws"] += 1
+        return out
+
+    def _draw(self, it: int, site: int, r: int, n: int, light: int,
+              lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+        c1, c2 = it + 1, site * _LIGHTS_PER_SITE + light
+        if n < 1:
+            raise ValueError(f"PhiloxDraws: n = {n}, needs at least 1 draw")
+        if not (0 <= self.ray0 and self.ray0 + r <= 1 << 32
+                and 0 <= c1 <= _MASK32 and 0 <= c2 <= _MASK32):
+            raise ValueError(
+                f"PhiloxDraws: counter words outside 32 bits (rays "
+                f"{self.ray0}..{self.ray0 + r}, iteration {it}, site {site}, "
+                f"light {light})")
+        if self.device is not None and torch.device(self.device).type == "cuda":
+            return self._launch(c1, c2, r, n, lo, hi)
+        return _scale(self._raw(it, site, r, n, light), lo, hi)
+
     def uniform(self, it: int, site: int, r: int, n: int = 1, light: int = 0,
                 lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
         """(r, n) f32 uniforms in [lo, hi) of iteration ``it``, ``site`` and
         ``light``."""
-        return _scale(self._raw(it, site, r, n, light), lo, hi)
+        return self._draw(it, site, r, n, light, lo, hi)
 
     def randint(self, it: int, site: int, r: int, hi: int,
                 light: int = 0) -> torch.Tensor:
         """(r,) int64 uniform in [0, hi)."""
-        u = self._raw(it, site, r, 1, light)[:, 0]
+        u = self._draw(it, site, r, 1, light)[:, 0]
         return torch.clamp((u * hi).to(torch.int64), max=hi - 1)
 
 

@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
      each static and with motion) and csrc/mega_bwd.cu (K2a's primal and
      its reverse kernel, K2b's primal and fwd+bwd, their K2c texture twins,
      and the refit of K2's boxes), csrc/tri_intersect.cu (K3, the
-     wavefront's dense closest hit) and csrc/bigtex_gather.cu (K4, the
-     big-texture probe's gather-sum), with ptxas's register, frame and spill lines per kernel
+     wavefront's dense closest hit), csrc/bigtex_gather.cu (K4, the
+     big-texture probe's gather-sum) and csrc/philox_draws.cu (the
+     wavefront draw source's Philox uniforms), with ptxas's register, frame and spill lines per kernel
      (kept beside a cached library); the flat instantiations must keep
      their registers: K1a 72, K1b 72 (capped at 7 blocks an SM), K1c 89
      (94 with motion), K1d 127 (127 with motion), K2a 88 (primal; 96 its
@@ -335,7 +336,9 @@ Phases, each printing one JSON line:
      temporary directory) — K1a's tree instantiation must launch exactly
      16 times and nothing else — each of the last 8 passes timed; a fresh
      renderer resumed from the checkpoint must equal the uninterrupted
-     one bit for bit; feat_pt.xml in 4 passes through K1b, finite;
+     one bit for bit; feat_pt.xml in 4 passes through K1b, finite; the
+     Philox draw kernel launched once a jittered pass (every pass but the
+     first) and once more a pass where the camera has a lens;
  34. the sharded routes (parallel/) in a one-rank NCCL group (the host has
      one card, and NCCL takes one card a rank): render_camera_sharded on
      whitted_conductors.xml at 16 spp equal to render_camera bit for bit
@@ -350,9 +353,18 @@ Phases, each printing one JSON line:
      spawned NCCL rank;
  35. the native PLY reader (native/ply_reader.cpp) against the Python
      reader on scenes/whitted_conductors_mesh.ply, equal, with both host
-     times.
+     times;
+ 36. the Philox draw kernel (csrc/philox_draws.cu, ops/rng.py::
+     PhiloxDraws on the card) against its int64 twin on the CPU, bit for
+     bit and one launch a call: the preview's jitter (640,000 rays x 2,
+     [0, 1)), its lens draws (x 2, [-1, 1)) and 65,536 rays x 48 env
+     candidates of a light; the jitter timed: device time a launch
+     (torch.profiler), CUDA events around back-to-back calls, the host's
+     us a call over 1,000 calls without a synchronise, beside the twin on
+     the card (events, and the device time of all its kernels) and on the
+     CPU, and the bound of the bytes written.
 The launches of phases 33 and 34 join K1a's, K1b's and K2a's counts in
-the kernels line.
+the kernels line, and phase 33's draw launches the Philox kernel's.
 Every phase line carries t_s, the seconds since the script started.
 Then the kernels line (each entry with its rays and the plain version's
 stride over them), the card line and, last, the result line.  Any
@@ -395,6 +407,10 @@ REPLACES_REFIT = ("none: added; the JAX kernel keeps the initial boxes, "
 REPLACES_K2C = "advanced_cpu_raytracing_tpu/ops/pallas/megabwd.py:1484"
 REPLACES_K3 = "advanced_cpu_raytracing_tpu/ops/pallas/tri_intersect.py:39"
 REPLACES_K4 = "tools/probe_bigtex.py:31"
+# the Philox draw kernel replaces no TPU kernel: the JAX wavefront draws
+# with jax.random
+REPLACES_DRAWS = ("none: added; the JAX wavefront draws with jax.random "
+                  "(advanced_cpu_raytracing_tpu/render/integrator.py)")
 # registers of the K1a-K1d, K2, K3 and K4 kernels since they were first
 # measured; the later variants' policies (motion, textures, the tree, K2b's
 # template flag) must not change their code; K2's tree twins as ptxas gave
@@ -430,7 +446,7 @@ KERNEL_ENTRIES = ("mega_whitted_kernel", "mega_pt_kernel", "mega_ext_kernel",
                   "mega_bwd_primal_pt_tex_tree_kernel",
                   "mega_bwd_pt_tex_tree_kernel", "tri_intersect_kernel",
                   "bigtex_gather_kernel", "bigtex_keys_kernel",
-                  "bigtex_order_kernel")
+                  "bigtex_order_kernel", "philox_draws_kernel")
 
 # K1a against its plain version (radiance units, the reference's 0..255
 # scale): only fp contraction and reassociation at silhouettes may differ —
@@ -820,7 +836,7 @@ def main() -> int:
     # 2. build every source in parallel
     t0 = time.perf_counter()
     libs = sorted(set(mk.LIBRARY.values())
-                  | {mb.LIBRARY, k3.LIBRARY, k4.LIBRARY})
+                  | {mb.LIBRARY, k3.LIBRARY, k4.LIBRARY, wrng.LIBRARY})
     _build.build_all(libs)
     regs = {}
     for name in libs:
@@ -3173,6 +3189,7 @@ def main() -> int:
     w, h = cam_cfg.width, cam_cfg.height
     ck33 = str(out_dir / "progressive.npz")
     reset_counts()
+    wrng.LAUNCHES["philox_draws"] = 0
     prog = ProgressiveRenderer(pack, cfg, cam_cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3190,6 +3207,10 @@ def main() -> int:
     if launches33 != want:
         raise AssertionError(f"progressive: launches {launches33}, expected "
                              f"{want}")
+    draws33 = wrng.LAUNCHES["philox_draws"]
+    if draws33 != 15 + 16 * prog.cam.use_dof:
+        raise AssertionError(f"progressive: {draws33} draw launches in 16 "
+                             f"passes")
     resumed = ProgressiveRenderer(pack, cfg, cam_cfg, seed=0, device=dev)
     img33 = resumed.render(16, checkpoint=ck33)
     if not (resumed.samples_done == 16 and torch.equal(resumed.acc, prog.acc)
@@ -3201,25 +3222,31 @@ def main() -> int:
     pass_med = sorted(pass_s)[len(pass_s) // 2]
     cfg_p, pack_p, cam_p, _, _ = scene(PT_SCENE)
     reset_counts()
-    img33p = ProgressiveRenderer(pack_p, cfg_p, cam_p, seed=0,
-                                 device=dev).render(4)
+    wrng.LAUNCHES["philox_draws"] = 0
+    prog_p = ProgressiveRenderer(pack_p, cfg_p, cam_p, seed=0, device=dev)
+    img33p = prog_p.render(4)
     launches33p = counts()
     if launches33p != {k: (4 if k == "mega_pt" else 0) for k in launches33p}:
         raise AssertionError(f"progressive PT: launches {launches33p}")
+    draws33p = wrng.LAUNCHES["philox_draws"]
+    if draws33p != 3 + 4 * prog_p.cam.use_dof:
+        raise AssertionError(f"progressive PT: {draws33p} draw launches in 4 "
+                             f"passes")
     if not np.isfinite(img33p).all():
         raise AssertionError("progressive PT: non-finite radiance")
     emit("progressive", scene=WHITTED_SCENE.name, width=w, height=h,
          passes=16, launches={k: v for k, v in launches33.items() if v},
+         draw_launches=draws33,
          resumed_bit_for_bit=True, first_8_with_2_saves_s=first8_s,
          pass_s=pass_s, pass_s_median=pass_med,
          mpaths_per_s=w * h / pass_med / 1e6,
          checkpoint_bytes=Path(ck33).stat().st_size,
          pt={"scene": PT_SCENE.name, "passes": 4,
              "launches": {k: v for k, v in launches33p.items() if v},
-             "mean": float(img33p.mean())},
+             "draw_launches": draws33p, "mean": float(img33p.mean())},
          timing="host clock around each pass, ending in a synchronise",
          card=card)
-    del prog, resumed
+    del prog, resumed, prog_p
 
     # 34. the sharded routes at world size 1 under NCCL (one card: NCCL
     # takes one card a rank): the 16-spp Whitted frame, the gauge step at
@@ -3408,6 +3435,75 @@ def main() -> int:
          native_s=native_s, python_s=python_s,
          native_s_median=med(native_s), python_s_median=med(python_s),
          timing="host clock, the file warm in the page cache")
+
+    # 36. the Philox draw kernel against its int64 twin on the CPU, bit
+    # for bit and one launch a call; the preview's jitter timed
+    n36 = 640_000
+    d36 = wrng.PhiloxDraws(3_100_000_021, sample=7, ray0=0, device=dev)
+    cases36 = {
+        "jitter": dict(it=-1, site=wrng.SITE_JITTER, r=n36, n=2),
+        "lens": dict(it=-1, site=wrng.SITE_LENS, r=n36, n=2, lo=-1.0, hi=1.0),
+        "env": dict(it=3, site=wrng.SITE_ENV, r=65_536, n=48, light=1,
+                    lo=-1.0, hi=1.0)}
+    for name, kw in cases36.items():
+        before = wrng.LAUNCHES["philox_draws"]
+        got = d36.uniform(**kw)
+        torch.cuda.synchronize()
+        if wrng.LAUNCHES["philox_draws"] != before + 1:
+            raise AssertionError(f"philox_draws {name}: not one launch")
+        if not torch.equal(got.cpu(), d36.to("cpu").uniform(**kw)):
+            raise AssertionError(f"philox_draws {name}: differs from the twin")
+    jitter36 = cases36["jitter"]
+
+    def draws36():
+        return d36.uniform(**jitter36)
+
+    def twin36():
+        return d36._raw(jitter36["it"], jitter36["site"], n36, 2, 0)
+
+    if not torch.equal(twin36(), draws36()):
+        raise AssertionError("philox_draws: the twin on the card differs")
+    dev36 = device_ms(draws36, "philox_draws", reps=50)
+    kernel36 = cuda_ms(draws36, 200)
+    twin36_ms = cuda_ms(twin36, 20)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof36:
+        for _ in range(10):
+            twin36()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    twin36_dev = sum(r.device_time_total for r in prof36.key_averages()
+                     if r.device_type == DeviceType.CUDA) / 10 / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        draws36()
+    host36_us = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    d36_cpu = d36.to("cpu")
+    t0 = time.perf_counter()
+    d36_cpu.uniform(**jitter36)
+    plain36_ms = (time.perf_counter() - t0) * 1e3
+    bytes36 = 4 * n36 * 2
+    bound36_ms = bytes36 / PEAK_BYTES_S * 1e3
+    emit("philox_draws", cases=list(cases36), equal_to_twin=True,
+         one_launch_a_call=True, rays=n36, draws_per_ray=2,
+         device_ms=dev36, events_ms=kernel36, host_us_a_call=host36_us,
+         twin_card_events_ms=twin36_ms, twin_card_device_ms=twin36_dev,
+         plain_cpu_ms=plain36_ms, bound_ms=bound36_ms, bytes=bytes36,
+         timing="device_ms: torch.profiler, the kernel a launch; events_ms: "
+                "CUDA events around 200 back-to-back calls; host_us_a_call: "
+                "1,000 calls without a synchronise; twin_card: the int64 "
+                "twin on the card, events and the device time of all its "
+                "kernels a call", card=card)
+    kernels.append({
+        "name": "philox_draws", "route": "cuda",
+        "source": f"advanced_cpu_raytracing_tpu_torch/csrc/{wrng.LIBRARY}.cu",
+        "replaces": REPLACES_DRAWS,
+        "launches": draws33 + draws33p, "max_abs_err": 0.0, "ms": kernel36,
+        "plain_ms": plain36_ms, "bound_ms": bound36_ms, "bound_by": "bytes",
+        "library_ms": None, "rays": n36, "device_ms": dev36,
+        "twin_card_ms": twin36_ms, "twin_card_device_ms": twin36_dev})
 
     # the new paths' launches join the counts of the kernels they ran
     for entry in kernels:

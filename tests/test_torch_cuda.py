@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from advanced_cpu_raytracing_tpu_torch.ops import megakernel as mk
+from advanced_cpu_raytracing_tpu_torch.ops import rng
 from advanced_cpu_raytracing_tpu_torch.ops.rng import philox_table
 from advanced_cpu_raytracing_tpu_torch.render.camera import build_camera, generate_rays
 from advanced_cpu_raytracing_tpu_torch.render.renderer import (
@@ -1286,3 +1287,87 @@ def test_probe_goes_through_k4(cuda):
                            device=cuda, log=lambda s: None)
     assert k4.LAUNCHES["bigtex_gather"] == before + 1 + 1 + 3
     assert res["err"] == 0.0 and res["device"].startswith("cuda")
+
+
+# the draw kernel's cases: the key's words at their edges, a tile's first
+# ray past 0, the per-ray iteration -1 and a loop iteration, a site of a
+# light past 0, and r off the kernel's 256 threads
+DRAW_KEYS = [(0, 0), (7, 1), (2**31 + 3, 2**32 + 5)]
+DRAW_SITES = [(-1, rng.SITE_JITTER, 0), (3, rng.SITE_AREA, 2)]
+DRAW_RANGES = [(0.0, 1.0), (-1.0, 1.0), (-0.5, 0.5)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 48])
+def test_philox_draws_kernel_matches_the_twin(cuda, n):
+    """One launch a call, the CPU twin's uniforms moved to the card bit for
+    bit."""
+    for (seed, sample), ray0, (it, site, light), (lo, hi) in (
+            (k, r0, st, rg) for k in DRAW_KEYS for r0 in (0, 70_001)
+            for st in DRAW_SITES for rg in DRAW_RANGES):
+        d = rng.PhiloxDraws(seed, sample, ray0, device=cuda)
+        before = rng.LAUNCHES["philox_draws"]
+        got = d.uniform(it, site, 1_000, n, light=light, lo=lo, hi=hi)
+        assert rng.LAUNCHES["philox_draws"] == before + 1
+        want = d.to("cpu").uniform(it, site, 1_000, n, light=light, lo=lo,
+                                   hi=hi)
+        assert got.is_cuda and got.shape == (1_000, n)
+        assert torch.equal(got, want.to(cuda)), (seed, sample, ray0, it, site,
+                                                 lo, hi)
+
+
+def test_philox_draws_kernel_randint_known_answer_and_refusals(cuda):
+    d = rng.PhiloxDraws(2**31 + 9, 2**32, ray0=12, device=cuda)
+    before = rng.LAUNCHES["philox_draws"]
+    got = d.randint(1, rng.SITE_ML_FACE, 777, 13, light=1)
+    assert rng.LAUNCHES["philox_draws"] == before + 1
+    assert torch.equal(got, d.to("cpu").randint(1, rng.SITE_ML_FACE, 777, 13,
+                                                light=1).to(cuda))
+    # counter (0, 0, 0, 0), key (0, 0): Random123's first known answer
+    words = torch.tensor([0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8])
+    u = rng.PhiloxDraws(device=cuda).uniform(-1, 0, 1, 4)
+    assert torch.equal(u.cpu(), rng.uniform_from_bits(words)[None])
+    edge = rng.PhiloxDraws(3, ray0=2**32 - 300, device=cuda)
+    assert torch.equal(edge.uniform(0, rng.SITE_GI, 300, 2).cpu(),
+                       edge.to("cpu").uniform(0, rng.SITE_GI, 300, 2))
+    before = rng.LAUNCHES["philox_draws"]
+    assert edge.uniform(0, rng.SITE_GI, 0, 2).shape == (0, 2)
+    with pytest.raises(ValueError, match="32 bits"):
+        edge.uniform(0, rng.SITE_GI, 301, 2)
+    with pytest.raises(ValueError, match="at least 1"):
+        edge.uniform(0, rng.SITE_GI, 4, 0)
+    assert rng.LAUNCHES["philox_draws"] == before
+
+
+def test_progressive_pass_launches_one_draw_kernel(cuda, tmp_path,
+                                                   monkeypatch):
+    """Pass 0 draws nothing, every later pass one launch; the sum equals,
+    bit for bit, that of the same passes jittered by the CPU twin's draws
+    moved to the card."""
+    from advanced_cpu_raytracing_tpu_torch.render import progressive
+
+    cfg, pack = _scene(tmp_path, cuda)
+    r = progressive.ProgressiveRenderer(pack, cfg, cfg.cameras[0], seed=5,
+                                        device=cuda)
+    assert r._mega is not None and not r.cam.use_dof
+    per_pass = []
+    for _ in range(3):
+        before = rng.LAUNCHES["philox_draws"]
+        r.step()
+        per_pass.append(rng.LAUNCHES["philox_draws"] - before)
+    assert per_pass == [0, 1, 1]
+
+    kernel_draws = rng.PhiloxDraws
+
+    class TwinOnCard(kernel_draws):
+        def uniform(self, *args, **kwargs):
+            twin = kernel_draws(self.seed, self.sample, self.ray0, "cpu")
+            return twin.uniform(*args, **kwargs).to(self.device)
+
+    monkeypatch.setattr(progressive.rng, "PhiloxDraws", TwinOnCard)
+    twin = progressive.ProgressiveRenderer(pack, cfg, cfg.cameras[0], seed=5,
+                                           device=cuda)
+    before = rng.LAUNCHES["philox_draws"]
+    for _ in range(3):
+        twin.step()
+    assert rng.LAUNCHES["philox_draws"] == before
+    assert torch.equal(r.acc, twin.acc)

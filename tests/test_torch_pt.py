@@ -12,8 +12,10 @@ package, on this host's CPU.
   sin/cos/exp/log) can flip a Russian-roulette kill or a GI hit and change
   that ray by a whole path, so the tolerance allows a few rays: 99.5% of
   them within 1e-3 + 1e-3 |ref|, batch means within 1%, all finite;
-* the Philox4x32-10 twin against the Random123 known answers, and the draw
-  table's layout;
+* the Philox4x32-10 twin against the Random123 known answers, the draw
+  table's layout, and ``PhiloxDraws`` on the CPU, which takes the int64
+  twin and launches no kernel (its CUDA kernel, ``csrc/philox_draws.cu``,
+  is held to the twin on the card in tests/test_torch_cuda.py);
 * a CPU frame in expectation against the JAX wavefront estimator: a Welch
   z-test over per-seed global means (the estimator is heavy-tailed), as
   tests/test_megakernel.py does for the JAX kernel.
@@ -42,6 +44,7 @@ from advanced_cpu_raytracing_tpu.scene.pack import pack_scene as jax_pack_scene
 from advanced_cpu_raytracing_tpu.scene.xml_parser import load_scene as jax_load_scene
 from advanced_cpu_raytracing_tpu_torch.cli.render import main as cli_main
 from advanced_cpu_raytracing_tpu_torch.ops import megakernel as mk
+from advanced_cpu_raytracing_tpu_torch.ops import rng
 from advanced_cpu_raytracing_tpu_torch.ops.rng import (
     philox4x32,
     philox_table,
@@ -206,6 +209,53 @@ def test_philox_table_is_uniform():
     chi2 = float(((hist - expected) ** 2 / expected).sum())
     assert chi2 < 45.0  # 15 degrees of freedom: p < 1e-4 above this
     assert abs(float(table.mean()) - 0.5) < 0.01
+
+
+def _twin(seed, sample, ray0, it, site, light, r, n):
+    """Draw j of ray i: word j % 4 of the block at counter (ray0 + i,
+    it + 1, site * 256 + light, j // 4) under key (seed, sample)."""
+    ray = torch.arange(ray0, ray0 + r, dtype=torch.int64)
+    cols = []
+    for j in range(n):
+        words = philox4x32(ray, torch.full_like(ray, it + 1),
+                           torch.full_like(ray, site * 256 + light),
+                           torch.full_like(ray, j // 4), seed, sample)
+        cols.append(uniform_from_bits(words[j % 4]))
+    return torch.stack(cols, 1)
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_cpu_draws_launch_nothing_and_equal_the_twin(monkeypatch, device):
+    monkeypatch.setitem(rng.LAUNCHES, "philox_draws", 0)
+    seed, sample, ray0 = 2**31 + 5, 2**32 + 3, 1000
+    d = rng.PhiloxDraws(seed, sample, ray0, device=device)
+    for it, site, light, n, lo, hi in [
+            (-1, rng.SITE_JITTER, 0, 2, 0.0, 1.0),
+            (-1, rng.SITE_LENS, 0, 2, -1.0, 1.0),
+            (3, rng.SITE_AREA, 2, 5, -0.5, 0.5),
+            (0, rng.SITE_RR, 0, 1, 0.0, 1.0)]:
+        u = _twin(seed, sample, ray0, it, site, light, 37, n)
+        want = torch.maximum(u * (hi - lo) + lo, torch.tensor(lo)) \
+            if (lo, hi) != (0.0, 1.0) else u
+        got = d.uniform(it, site, 37, n, light=light, lo=lo, hi=hi)
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        assert torch.equal(got, want)
+    u = _twin(seed, sample, ray0, 2, rng.SITE_ML_FACE, 1, 37, 1)[:, 0]
+    assert torch.equal(d.randint(2, rng.SITE_ML_FACE, 37, 7, light=1),
+                       torch.clamp((u * 7).to(torch.int64), max=6))
+    assert rng.LAUNCHES["philox_draws"] == 0
+
+
+def test_draws_refuse_what_the_kernel_does_not_take():
+    d = rng.PhiloxDraws(1, 2, ray0=2**32 - 8)
+    assert d.uniform(-1, rng.SITE_JITTER, 8, 2).shape == (8, 2)
+    assert d.uniform(-1, rng.SITE_JITTER, 0, 2).shape == (0, 2)
+    with pytest.raises(ValueError, match="32 bits"):
+        d.uniform(-1, rng.SITE_JITTER, 9, 2)
+    with pytest.raises(ValueError, match="32 bits"):
+        rng.PhiloxDraws(ray0=-1).uniform(0, rng.SITE_GI, 4, 2)
+    with pytest.raises(ValueError, match="at least 1"):
+        rng.PhiloxDraws().uniform(0, rng.SITE_GI, 4, 0)
 
 
 def test_options_for_camera_matches_jax(tmp_path):
