@@ -12,10 +12,17 @@ Everything that belongs to one cell is found by name:
 * ``metrics/<metric>.py``: one reader per metric, ``read(r) -> float or
   None``;
 * ``rooflines/<kernel>.py``: a kernel's least time, from the reference's
-  count of the work.
+  count of the work;
+* ``reference/<reference>.py``: the plain reference that the
+  configuration names (``reference``, default ``whitted``; its interface
+  is in ``reference/__init__.py``).
 
-``Layout`` looks each of them up in a list of roots, the benchmark's own
-folder last, so that a cell can be added as files and an entry alone.
+A configuration may also name the kernel its K1 metrics read
+(``k1_kernel``: a part of the device operations' names, default
+``K1_KERNEL``) and the files its scene reads beside it (``assets``).
+``Layout`` looks each file up in a list of roots, the benchmark's own
+folder last, so that a configuration, a cell or a metric can be added as
+files and entries alone.
 """
 
 from __future__ import annotations
@@ -38,6 +45,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "advanced_cpu_raytracing_tpu")
 # events it holds (on the H100, a training window traced for 51 s ran 30%
 # slower than untraced, one traced for 20 s a few per cent)
 TRACE_SECONDS = 20.0
+# the part of K1's name that its metrics read it by, where the
+# configuration names none: K1a, the Whitted megakernel
+K1_KERNEL = "mega_whitted"
 
 
 def loaded(names) -> list[str]:
@@ -54,6 +64,7 @@ class Layout:
         self.roots = [Path(r) for r in roots] + [BENCH_DIR]
         self.spec = spec if spec is not None else json.loads(
             (ROOT / "BENCHMARK.json").read_text())
+        self._loaded = {}  # path -> module, for modules under other roots
 
     def find(self, *parts: str) -> Path:
         for r in self.roots:
@@ -90,11 +101,13 @@ class Layout:
         if path.parent == BENCH_DIR / kind and "." not in name and \
                 (path.parent / "__init__.py").exists():
             return importlib.import_module(f"benchmark.{kind}.{name}")
-        spec = importlib.util.spec_from_file_location(
-            f"benchmark_{kind}_{name.replace('.', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
+        if path not in self._loaded:
+            spec = importlib.util.spec_from_file_location(
+                f"benchmark_{kind}_{name.replace('.', '_')}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            self._loaded[path] = mod
+        return self._loaded[path]
 
     def metrics(self, cell: str, trace: bool) -> list[dict]:
         """The cell's end-to-end metrics, or with ``trace`` its per-layer
@@ -150,6 +163,16 @@ class Run:
     def scene_path(self) -> Path:
         return Path(self.overrides.get("scene_dir", self.config["_dir"])) \
             / self.config["scene"]
+
+    def reference(self):
+        """The plain reference module that the configuration names."""
+        return self.layout.module("reference",
+                                  self.config.get("reference", "whitted"))
+
+    def k1_kernel(self) -> str:
+        """The part of K1's name by which the metrics read it in this
+        configuration."""
+        return self.config.get("k1_kernel", K1_KERNEL)
 
 
 class Sample:

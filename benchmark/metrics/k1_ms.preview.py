@@ -1,12 +1,11 @@
-"""Device milliseconds per launch of K1 (``mega_whitted*``) in a
+"""Device milliseconds per launch of K1 (the kernels named by the
+configuration's ``k1_kernel``, by default ``mega_whitted*``) in a
 progressive preview, one launch a pass, from the torch.profiler trace of
 the window."""
-
-KERNEL = "mega_whitted"
 
 
 def read(r):
     if r.trace is None or r.work.get("unit") != "pass":
         return None
-    s, n = r.trace.kernel_s(KERNEL)
+    s, n = r.trace.kernel_s(r.run.k1_kernel())
     return s / n * 1e3 if n else None

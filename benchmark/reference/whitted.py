@@ -28,6 +28,7 @@ import torch
 from . import geometry
 from .geometry import BIG, Geometry, dot3
 from .scene import MAT_CONDUCTOR, MAT_DIELECTRIC, MAT_MIRROR, Scene
+from .scene import load  # noqa: F401  (the interface's scene loader)
 
 
 def norm3(v):

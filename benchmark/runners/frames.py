@@ -20,8 +20,6 @@ import numpy as np
 import torch
 
 from benchmark.harness import Run, Sample, sample_pixels
-from benchmark.reference import scene as ref_scene
-from benchmark.reference import whitted
 
 CHECK_FRAMES = 2  # frames kept by reservoir sampling, besides the last
 COUNT_STRIDE = 61  # the roofline's count: every 61st pixel of a frame
@@ -61,9 +59,10 @@ def program_scene(run: Run):
 
 
 def reference_tables(run: Run, dtype=torch.float32):
-    sc = ref_scene.load(run.scene_path())
+    ref = run.reference()
+    sc = ref.load(run.scene_path())
     sc.camera.width, sc.camera.height, _ = sizes(run)
-    return whitted.tables(sc, run.device, dtype)
+    return ref.tables(sc, run.device, dtype)
 
 
 def setup(run: Run) -> dict:
@@ -124,16 +123,17 @@ def answers(run: Run, st: dict, work: dict) -> dict:
 def reference_answers(run: Run, ans: dict, dtype=torch.float32) -> dict:
     """The reference's u8 values at the same pixels of the same frames,
     in ``dtype``."""
+    ref = run.reference()
     tb = reference_tables(run, dtype)
     w, h, spp = sizes(run)
     n_cells = max(math.isqrt(max(spp, 1)), 1)
     out = []
     for f in ans["frames"]:
         pix = torch.as_tensor(f["pixels"], device=run.device)
-        jit = whitted.frame_jitter(f["seed"], w * h, n_cells * n_cells,
-                                   run.device)[:, pix]
-        col = whitted.multisample(tb, pix, jit, n_cells)
-        out.append({**f, "u8": whitted.to_u8(col).cpu().numpy()})
+        jit = ref.frame_jitter(f["seed"], w * h, n_cells * n_cells,
+                               run.device)[:, pix]
+        col = ref.multisample(tb, pix, jit, n_cells)
+        out.append({**f, "u8": ref.to_u8(col).cpu().numpy()})
     return {"frames": out}
 
 
@@ -155,13 +155,14 @@ def counts(run: Run, ans: dict) -> dict:
     """The reference's closest-hit and shadow queries of the window's first
     frame's rays, counted on every ``COUNT_STRIDE``th pixel and scaled to
     the frame, per launch of the kernel (one launch a sample)."""
+    ref = run.reference()
     tb = reference_tables(run)
     w, h, spp = sizes(run)
     n_cells = max(math.isqrt(max(spp, 1)), 1)
     pix = torch.arange(0, w * h, COUNT_STRIDE, device=run.device)
-    jit = whitted.frame_jitter(frame_seed(run.seed, 0), w * h,
-                               n_cells * n_cells, run.device)[:, pix]
-    whitted.multisample(tb, pix, jit, n_cells)
+    jit = ref.frame_jitter(frame_seed(run.seed, 0), w * h,
+                           n_cells * n_cells, run.device)[:, pix]
+    ref.multisample(tb, pix, jit, n_cells)
     scale = w * h / pix.shape[0] / (n_cells * n_cells)
     return {"queries": (tb.counts.closest + tb.counts.shadow) * scale,
             "rays": w * h}

@@ -21,7 +21,6 @@ import torch
 
 from benchmark.runners.frames import program_scene, reference_tables, sizes
 from benchmark.harness import Run, Sample, sample_pixels
-from benchmark.reference import whitted
 
 CHECK_PASSES = 2
 COUNT_STRIDE = 61
@@ -83,8 +82,8 @@ def answers(run: Run, st: dict, work: dict) -> dict:
 def reference_answers(run: Run, ans: dict, dtype=torch.float32) -> dict:
     tb = reference_tables(run, dtype)
     pix = torch.as_tensor(ans["pixels"], device=run.device)
-    means = whitted.progressive_mean(tb, run.seed, pix,
-                                     [p["pass"] for p in ans["passes"]])
+    means = run.reference().progressive_mean(
+        tb, run.seed, pix, [p["pass"] for p in ans["passes"]])
     return {"pixels": ans["pixels"],
             "passes": [{"pass": p["pass"],
                         "rgb": means[p["pass"]].float().cpu().numpy()}
@@ -114,7 +113,7 @@ def counts(run: Run, ans: dict) -> dict:
     tb = reference_tables(run)
     w, h, _ = sizes(run)
     pix = torch.arange(0, w * h, COUNT_STRIDE, device=run.device)
-    whitted.progressive_mean(tb, run.seed, pix, [1])
+    run.reference().progressive_mean(tb, run.seed, pix, [1])
     scale = w * h / pix.shape[0] / 2  # passes 0 and 1
     return {"queries": (tb.counts.closest + tb.counts.shadow) * scale,
             "rays": w * h}

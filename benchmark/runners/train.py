@@ -7,7 +7,11 @@ The traffic file gives the fields, their Adam rates and starts, the grids
 (``grids`` fixed jitters of the whole pixel grid: one offset a grid, or
 one a pixel), whether the fields move in the tool's normalized form (u =
 p / max|p_true|), the residual's divisor, and the job's length in steps.
-A step is one update a grid, and the loss is read on the host once a step.
+A step is one update a grid.  Each step's loss goes to the host as the
+step ends, by a copy that does not wait, and is read there once the step
+is ``READ_LAG_S`` old, so the host does not drain the card at every step
+but runs ahead as far as the card's queue lets it; the window's last
+losses are read before it closes.
 Set-up builds the one closure, parameters and optimizer, and drives them
 through the job's first step; the window goes on with the same objects,
 job after job, each job from the same start.
@@ -19,12 +23,17 @@ file once, since every job starts alike, and each of the two is compared
 with it: each update's loss, each field's first gradient as Adam got it
 (its first moment over 1 - beta1) and each field's change after the three
 updates, by norms.
+
+The differentiable chain (``reference/diffchain.py``) works on
+``whitted``'s tables, so a configuration that names another reference is
+refused here.
 """
 
 from __future__ import annotations
 
 import gc
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -35,12 +44,18 @@ from benchmark.reference import scene as ref_scene
 from benchmark.reference import whitted
 
 CHECKED_UPDATES = 3
+READ_LAG_S = 4.0  # a step's loss is read on the host once it is this old
 COUNT_STRIDE = 16
 ZERO_GRAD = 1e-3  # a field whose reference gradient is below this share
 # of the median field's is left out of the change's comparison
 
 
 def _ref_scene(run: Run):
+    name = run.config.get("reference", "whitted")
+    if name != "whitted":
+        raise ValueError(
+            f"the training runner's reference chain works on whitted's "
+            f"tables; this configuration names the reference {name!r}")
     sc = ref_scene.load(run.scene_path())
     w = run.overrides.get("width", run.config["width"])
     h = run.overrides.get("height", run.config["height"])
@@ -98,6 +113,25 @@ def loss_of(img, target, norm: float):
     return torch.mean(((img - target) / norm) ** 2)
 
 
+def _send(total):
+    """A step's loss on its way to the host: on a card a copy into pinned
+    memory that does not wait, and the event that marks its arrival."""
+    if total.device.type != "cuda":
+        return total, None
+    host = torch.empty((), dtype=total.dtype, pin_memory=True)
+    host.copy_(total, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def _read(sent) -> float:
+    host, ev = sent
+    if ev is not None:
+        ev.synchronize()
+    return float(host)
+
+
 def setup(run: Run) -> dict:
     from advanced_cpu_raytracing_tpu_torch.ops.megabwd import make_diff_render
     from advanced_cpu_raytracing_tpu_torch.render.renderer import (
@@ -153,7 +187,7 @@ def setup(run: Run) -> dict:
             loss = _checked_update(st, i % st["grids"])
             total = loss if total is None else total + loss
             if (i + 1) % st["grids"] == 0:
-                float(total)
+                _read(_send(total))
                 total = None
     st["step"] = n_first // st["grids"]
     st["setup_job"] = st["job"]
@@ -207,6 +241,7 @@ def window(run: Run, st: dict) -> dict:
                                       run.traffic["steps_per_job"])
     n_grid = st["grids"]
     updates = 0
+    sent = deque()  # (sent at, loss on its way) of the steps not read yet
     t0 = time.perf_counter()
     end = t0 + run.seconds
     while True:
@@ -217,8 +252,10 @@ def window(run: Run, st: dict) -> dict:
             with run.spans("update"):
                 loss = _checked_update(st, gi)
             total = loss if total is None else total + loss
+        sent.append((time.perf_counter(), _send(total)))
         with run.spans("loss_read"):
-            float(total)
+            while sent and time.perf_counter() - sent[0][0] >= READ_LAG_S:
+                _read(sent.popleft()[1])
         updates += n_grid
         st["step"] += 1
         if len(st["job"]) == CHECKED_UPDATES and \
@@ -228,6 +265,9 @@ def window(run: Run, st: dict) -> dict:
         if time.perf_counter() >= end and \
                 len(st["job"]) in (0, CHECKED_UPDATES):
             break
+    with run.spans("loss_read"):
+        for _, x in sent:
+            _read(x)
     rays = st["inp"]["rays"][0][0].shape[0]
     return {"units": updates, "unit": "update", "rays": updates * rays}
 

@@ -46,11 +46,16 @@ def torus_ply(path: Path, nu: int = 8, nv: int = 6, big: float = 3.0,
     return len(faces)
 
 
-def tiny_scene_dir(tmp: Path) -> Path:
-    """The benchmark's scenes with the small torus, in ``tmp``."""
-    cfg = harness.BENCH_DIR / "configs"
-    for name in ("conductors.xml", "gauge.xml"):
-        shutil.copyfile(cfg / name, tmp / name)
+def tiny_scene_dir(tmp: Path, layout=None) -> Path:
+    """The scene of every configuration of ``layout`` and the files it
+    lists under ``assets``, copied from the layout's roots, with the small
+    torus in place of the 32,768-face one, in ``tmp``."""
+    layout = layout or harness.Layout()
+    for c in layout.spec["configs"]:
+        cfg = layout.config(c["name"])
+        for name in [cfg["scene"], *cfg.get("assets", [])]:
+            (tmp / name).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(layout.find("configs", name), tmp / name)
     torus_ply(tmp / "torus_32768.ply")
     return tmp
 
@@ -69,6 +74,7 @@ def run_of(cell: str, tmp: Path, seed: int = 7, seconds: float = 0.2,
                 **over}
     return harness.Run(layout, c, layout.config(c["config"]), tr, seed,
                        seconds, trace, device="cpu",
-                       overrides={**TINY, "scene_dir": tiny_scene_dir(tmp),
+                       overrides={**TINY,
+                                  "scene_dir": tiny_scene_dir(tmp, layout),
                                   **over})
 

@@ -107,3 +107,63 @@ def test_preview_and_frame_readers_each_read_their_own_unit():
     assert read("preview_paths_per_s", passes) == pytest.approx(1.28)
     assert read("preview_paths_per_s", frames) is None
     assert read("paths_per_s", passes) is None
+
+
+# A recorded window of 1 s and 2 units: K1a's kernel twice, K2a's primal
+# and reverse, and a K1 kernel that a configuration may name instead.
+NAMED = {"k1_kernel": "mega_ext_tree"}
+RECORDED = [("mw::mega_whitted_tree_kernel", 0.0, 0.3),
+            ("mw::mega_whitted_tree_kernel", 0.4, 0.6),
+            ("mb::mega_bwd_primal_tree_kernel", 0.6, 0.7),
+            ("mb::mega_bwd_rev_kernel", 0.7, 0.75),
+            ("mp::mega_ext_tree_kernel", 0.8, 0.9)]
+K1_LEAST, K2_LEAST = 0.01, 0.015  # the rooflines' least seconds
+
+
+def _k1(s, n):  # (k1_ms, k1_roofline, layer ms a unit) of s over n launches
+    return s / n * 1e3, 100.0 * K1_LEAST / (s / n), (1.0 - s) / 2 * 1e3
+
+
+def _k2(s):  # (k2_ms, k2_roofline, layer ms a unit) of s over 2 updates
+    return s / 2 * 1e3, 100.0 * K2_LEAST / (s / 2), (1.0 - s) / 2 * 1e3
+
+
+# reader, cell, which of its kernel's three numbers, as configured today
+# (mega_whitted: 0.3 + 0.2 s in 2 launches; mega_bwd: 0.1 + 0.05 s), with
+# NAMED (mega_ext_tree: 0.1 s in 1; the K2 readers read every mega_bwd*
+# kernel, K2b's and K2c's too, whatever the configuration names)
+READERS = [
+    ("k1_ms", "conductors.frame16", 0, _k1(0.5, 2), _k1(0.1, 1)),
+    ("k1_roofline", "conductors.frame16", 1, _k1(0.5, 2), _k1(0.1, 1)),
+    ("renderer_ms.frame", "conductors.frame16", 2, _k1(0.5, 2), _k1(0.1, 1)),
+    ("k1_ms.preview", "conductors.progressive", 0, _k1(0.5, 2), _k1(0.1, 1)),
+    ("k1_roofline.preview", "conductors.progressive", 1, _k1(0.5, 2),
+     _k1(0.1, 1)),
+    ("progressive_ms.pass", "conductors.progressive", 2, _k1(0.5, 2),
+     _k1(0.1, 1)),
+    ("k2_ms.update", "gauge.appearance", 0, _k2(0.15), _k2(0.15)),
+    ("k2_roofline", "gauge.appearance", 1, _k2(0.15), _k2(0.15)),
+    ("optimizer_ms.update", "gauge.appearance", 2, _k2(0.15), _k2(0.15)),
+]
+UNIT = {"conductors.frame16": "frame", "conductors.progressive": "pass",
+        "gauge.appearance": "update"}
+
+
+@pytest.mark.parametrize("reader,cell,i,today,named", READERS,
+                         ids=[r[0] for r in READERS])
+def test_kernel_readers_read_the_configured_kernel(reader, cell, i, today,
+                                                   named):
+    """Each of the nine readers of a kernel's time reads, under the cell's
+    configuration as it stands, what it read when its kernel was fixed;
+    under a configuration that names another K1 kernel, the six K1
+    readers read that kernel and the three K2 readers read as before."""
+    config = LAYOUT.config(LAYOUT.cell(cell)["config"])
+    assert not set(NAMED) & set(config)
+    for cfg, want in ((config, today[i]), ({**config, **NAMED}, named[i])):
+        run = harness.Run(LAYOUT, LAYOUT.cell(cell), cfg, {}, 0, 1.0, True,
+                          device="cpu")
+        r = harness.Readings(run, setup_s=3.0, window_s=1.0,
+                             work={"units": 2, "unit": UNIT[cell]},
+                             trace=trace_of(RECORDED),
+                             roofline={"k1": K1_LEAST, "k2": K2_LEAST})
+        assert read(reader, r) == pytest.approx(want)

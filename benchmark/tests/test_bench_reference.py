@@ -117,18 +117,30 @@ def test_philox_copy_matches_the_programs():
         assert torch.equal(philox.pass_jitter(seed, s, pix), want)
 
 
-def test_reference_loads_nothing_of_the_program_or_jax():
+def _reference_modules() -> list[str]:
+    """Every module of the benchmark's reference folder, and each
+    reference that a configuration of the spec names."""
+    layout = harness.Layout()
+    names = {p.stem for p in (harness.BENCH_DIR / "reference").glob("*.py")
+             if p.stem != "__init__"}
+    names |= {layout.config(c["name"]).get("reference", "whitted")
+              for c in layout.spec["configs"]}
+    return sorted(names)
+
+
+@pytest.mark.parametrize("name", _reference_modules())
+def test_reference_loads_nothing_of_the_program_or_jax(name):
+    assert (harness.BENCH_DIR / "reference" / f"{name}.py").exists()
     code = ("import sys; sys.path.insert(0, %r)\n"
-            "import benchmark.reference.whitted, benchmark.reference.diffchain"
-            "\nimport benchmark.reference.scene, benchmark.reference.philox\n"
+            "import benchmark.reference.%s\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))"
-            % str(ROOT))
+            % (str(ROOT), name))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True).stdout
     tops = set(json.loads(out.replace("'", '"')))
-    for name in ("jax", "jaxlib", "flax", "advanced_cpu_raytracing_tpu",
-                 "advanced_cpu_raytracing_tpu_torch"):
-        assert name not in tops
+    for top in ("jax", "jaxlib", "flax", "advanced_cpu_raytracing_tpu",
+                "advanced_cpu_raytracing_tpu_torch"):
+        assert top not in tops
 
 
 def test_roofline_count_ignores_the_programs_tree(tmp_path, monkeypatch):
